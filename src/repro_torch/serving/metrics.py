@@ -1,0 +1,244 @@
+"""Latency/throughput recorder for the serving engine (DESIGN.md §7/§10/§11).
+
+Records (kind, seconds, tokens) step events — kind is 'prefill', 'decode' or
+'encode' (the prefill-only request path, DESIGN.md §14) — plus per-request
+wait samples ('ttft': submit → first emitted token, 'queue_wait': submit →
+slot admission, 'encode_latency': submit → encode result), and summarizes
+tokens/sec, p50/p99 step latency per kind and p50/p99 of the per-request
+waits. Wait samples are kept OUT of the busy-time denominator — queueing is
+not compute, so it must not deflate tokens/sec. Pure host-side bookkeeping;
+never touches device state.
+
+Multi-tenancy: ``record``/``record_wait`` take an optional ``tenant`` label.
+Labeled events additionally roll up into plain-integer per-(tenant, kind)
+counters — tokens and sample counts only, never sample lists — surfaced
+under the summary's ``by_label`` key, so a shared-process deployment
+(serving/tenants.py) can prove per-tenant progress without per-tenant
+metric objects.
+
+Memory discipline: a long-lived engine records events forever, so the raw
+sample lists are bounded deques (``window`` samples per stream, default
+65536; ``None`` keeps everything for offline analysis). Percentiles and
+tokens/sec then describe the most recent window. ``pop_summary()`` is the
+drain form — summarize-and-reset, the same non-leaking consumption pattern
+as ``Scheduler.pop_done()`` — and drains the labeled counters too.
+
+Prefix-cache counters (DESIGN.md §11) are plain integers (never grow):
+``record_prefix(reused, prompt_tokens)`` per admission feeds the
+``prefix_hit_rate`` / ``prefill_tokens_saved`` summary keys.
+
+KV memory gauges (DESIGN.md §15): a paged engine calls ``update_kv`` with
+the block pool's ``stats()`` dict each step — last-write-wins gauges
+(bytes in use, blocks allocated/free, prefix blocks shared by reference,
+COW forks, evictions), surfaced under the summary's ``kv`` key and drained
+by ``pop_summary()`` like everything else.
+
+First-vs-steady split (DESIGN.md §16): the FIRST step of each kind an
+engine ever runs pays jit trace + compile; ``{kind}_first_ms`` reports that
+lifetime-first latency and ``{kind}_steady_p50_ms`` the p50 with it
+excluded, so the cold-start cut from engine pre-warming is directly visible
+next to the steady state. Both are LIFETIME values — ``pop_summary()``
+drains the sample windows but never forgets which step was first.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+
+from .clock import Clock
+
+#: step-event kinds recorded via ``record``
+STEP_KINDS = ("prefill", "decode", "encode")
+
+#: per-request wait kinds recorded via ``record_wait``
+WAIT_KINDS = ("ttft", "queue_wait", "encode_latency")
+
+#: default bounded-window length (samples kept per stream)
+DEFAULT_WINDOW = 65536
+
+
+def _pcts(lat: np.ndarray) -> tuple[float, float]:
+    """p50/p99 with the sub-2-sample guard: interpolating percentiles over a
+    lone sample is meaningless and np.percentile warns/raises on degenerate
+    inputs depending on dtype — report the sample as every percentile (and
+    refuse an empty window outright: callers skip those)."""
+    if len(lat) == 0:
+        raise ValueError("percentiles of an empty window")
+    if len(lat) < 2:
+        return float(lat[0] * 1e3), float(lat[0] * 1e3)
+    return (float(np.percentile(lat, 50) * 1e3),
+            float(np.percentile(lat, 99) * 1e3))
+
+
+class ServeMetrics:
+    def __init__(self, window: Optional[int] = DEFAULT_WINDOW,
+                 clock: Clock = time.perf_counter):
+        # ``clock`` stamps the wall_s window (DESIGN.md §12): the engine
+        # injects its own clock so a VirtualClock run reports virtual wall
+        # time; the standalone default stays perf_counter, unchanged.
+        self.window = window
+        self._clock = clock
+        # lifetime (never reset): kind -> first recorded seconds, and
+        # kind -> total events ever recorded — together they tell summary()
+        # whether the current window still CONTAINS the lifetime-first
+        # sample (window count == lifetime count) and must exclude it from
+        # the steady percentile.
+        self._first: dict = {}
+        self._lifetime: dict = {}
+        self._reset()
+
+    def _reset(self) -> None:
+        self._events: deque = deque(maxlen=self.window)
+        self._waits: deque = deque(maxlen=self.window)
+        self._t0 = self._clock()
+        self._prefix_lookups = 0
+        self._prefix_hits = 0
+        self._prefix_reused = 0
+        self._prefix_prompt_tokens = 0
+        # (tenant, kind) -> [events, tokens] and (tenant, wait-kind) -> n:
+        # plain counters so N tenants cost O(N) ints, not N sample windows.
+        self._label_steps: dict[tuple[str, str], list[int]] = {}
+        self._label_waits: dict[tuple[str, str], int] = {}
+        # KV memory gauges (paged engines): last-write-wins snapshot dict
+        self._kv: dict = {}
+
+    def record(self, kind: str, seconds: float, tokens: int,
+               tenant: Optional[str] = None) -> None:
+        assert kind in STEP_KINDS, kind
+        self._events.append((kind, seconds, tokens))
+        if kind not in self._first:
+            self._first[kind] = seconds
+        self._lifetime[kind] = self._lifetime.get(kind, 0) + 1
+        if tenant is not None:
+            cell = self._label_steps.setdefault((tenant, kind), [0, 0])
+            cell[0] += 1
+            cell[1] += tokens
+
+    def record_wait(self, kind: str, seconds: float,
+                    tenant: Optional[str] = None) -> None:
+        """Per-request wait sample: 'ttft', 'queue_wait', 'encode_latency'."""
+        assert kind in WAIT_KINDS, kind
+        self._waits.append((kind, seconds))
+        if tenant is not None:
+            key = (tenant, kind)
+            self._label_waits[key] = self._label_waits.get(key, 0) + 1
+
+    def update_kv(self, gauges: dict) -> None:
+        """Overwrite the KV memory gauges (``BlockPool.stats()``): gauges
+        describe CURRENT state, so last write wins — no sample windows."""
+        self._kv = dict(gauges)
+
+    def record_prefix(self, reused: int, prompt_tokens: int) -> None:
+        """One admission's prefix-cache outcome: ``reused`` prompt tokens
+        restored from cache out of ``prompt_tokens`` total."""
+        self._prefix_lookups += 1
+        if reused > 0:
+            self._prefix_hits += 1
+        self._prefix_reused += reused
+        self._prefix_prompt_tokens += prompt_tokens
+
+    def _kind(self, kind: str) -> tuple[np.ndarray, int]:
+        lat = np.array([s for k, s, _ in self._events if k == kind])
+        toks = sum(t for k, _, t in self._events if k == kind)
+        return lat, toks
+
+    def _by_label(self) -> dict:
+        """Per-tenant rollups keyed ``'<tenant>/<kind>'`` (string keys so
+        the dict survives a JSON round-trip in benchmark artifacts)."""
+        out: dict = {}
+        for (tenant, kind), (steps, toks) in sorted(self._label_steps.items()):
+            out[f"{tenant}/{kind}"] = {"steps": steps, "tokens": toks}
+        for (tenant, kind), n in sorted(self._label_waits.items()):
+            out.setdefault(f"{tenant}/{kind}", {})["n"] = n
+        return out
+
+    def summary(self) -> dict:
+        out: dict = {"wall_s": self._clock() - self._t0}
+        total_tokens = 0
+        for kind in STEP_KINDS:
+            lat, toks = self._kind(kind)
+            total_tokens += toks
+            if len(lat) == 0:
+                continue
+            out[f"{kind}_steps"] = len(lat)
+            out[f"{kind}_tokens"] = toks
+            p50, p99 = _pcts(lat)
+            out[f"{kind}_p50_ms"] = p50
+            out[f"{kind}_p99_ms"] = p99
+            out[f"{kind}_mean_ms"] = float(lat.mean() * 1e3)
+            out[f"{kind}_first_ms"] = float(self._first[kind] * 1e3)
+            # steady = the window minus the LIFETIME-first sample, which is
+            # at index 0 exactly when the window holds every event ever
+            # recorded for this kind (no pop_summary, no deque trim since)
+            steady = (lat[1:] if self._lifetime.get(kind) == len(lat)
+                      else lat)
+            if len(steady):
+                out[f"{kind}_steady_p50_ms"] = _pcts(steady)[0]
+        # lifetime-first latencies outlive pop_summary() windows: surface
+        # them even when the current window holds no samples of that kind
+        for kind, first in self._first.items():
+            out.setdefault(f"{kind}_first_ms", float(first * 1e3))
+        out["total_tokens"] = total_tokens
+        busy = sum(s for _, s, _ in self._events)
+        out["tokens_per_s"] = total_tokens / max(busy, 1e-9)
+        for kind in WAIT_KINDS:
+            lat = np.array([s for k, s in self._waits if k == kind])
+            if len(lat) == 0:
+                continue
+            p50, p99 = _pcts(lat)
+            out[f"{kind}_n"] = len(lat)
+            out[f"{kind}_p50_ms"] = p50
+            out[f"{kind}_p99_ms"] = p99
+        if self._prefix_lookups:
+            out["prefix_lookups"] = self._prefix_lookups
+            out["prefix_hit_rate"] = self._prefix_hits / self._prefix_lookups
+            out["prefill_tokens_saved"] = self._prefix_reused
+            out["prefix_reuse_frac"] = (
+                self._prefix_reused / max(self._prefix_prompt_tokens, 1))
+        if self._label_steps or self._label_waits:
+            out["by_label"] = self._by_label()
+        if self._kv:
+            out["kv"] = dict(self._kv)
+        return out
+
+    def pop_summary(self) -> dict:
+        """Summarize-and-reset: the bounded-memory way to consume metrics
+        from a long-lived engine (windows, per-tenant counters and the wall
+        clock all restart)."""
+        out = self.summary()
+        self._reset()
+        return out
+
+    def report(self) -> str:
+        s = self.summary()
+        parts = [f"{s['total_tokens']} tok @ {s['tokens_per_s']:.1f} tok/s"]
+        for kind in STEP_KINDS:
+            if f"{kind}_steps" in s:
+                parts.append(
+                    f"{kind}: {s[f'{kind}_steps']} steps "
+                    f"p50 {s[f'{kind}_p50_ms']:.1f}ms "
+                    f"p99 {s[f'{kind}_p99_ms']:.1f}ms")
+        for kind in WAIT_KINDS:
+            if f"{kind}_n" in s:
+                parts.append(
+                    f"{kind}: p50 {s[f'{kind}_p50_ms']:.1f}ms "
+                    f"p99 {s[f'{kind}_p99_ms']:.1f}ms")
+        if "prefix_hit_rate" in s:
+            parts.append(
+                f"prefix: {s['prefix_hit_rate']:.0%} hit, "
+                f"{s['prefill_tokens_saved']} tok saved")
+        for label, cell in s.get("by_label", {}).items():
+            if "tokens" in cell:
+                parts.append(f"{label}: {cell['tokens']} tok "
+                             f"in {cell['steps']} steps")
+        kv = s.get("kv")
+        if kv:
+            parts.append(
+                f"kv: {kv.get('kv_bytes_in_use', 0) / 1024:.1f}KiB "
+                f"({kv.get('blocks_in_use', 0)}/{kv.get('blocks_total', 0)} "
+                f"blocks, {kv.get('prefix_blocks', 0)} prefix, "
+                f"{kv.get('cow_forks', 0)} forks)")
+        return " | ".join(parts)
