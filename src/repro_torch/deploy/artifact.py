@@ -50,7 +50,10 @@ def deploy(params, plan: ExecutionPlan, calib_batches: Optional[list] = None,
     params         fp parameter tree (tensors, or numpy arrays).
     calib_batches  optional list of ``{'tokens': ...}`` batches: runs
                    activation-scale calibration (percentile-of-|input|,
-                   paper §3.1) through an unmasked fp forward before packing.
+                   paper §3.1) through an fp forward before packing: the
+                   unmasked encoder forward for encoder plans, the
+                   cacheless LM forward (``models.api.forward`` on an fp
+                   plan) for decoder plans.
     recalibrate    recompute weight scales abs-max/qmax (paper §3.1). Pass
                    False for QAT params whose ``s_w`` were learned.
     """
@@ -65,13 +68,21 @@ def deploy(params, plan: ExecutionPlan, calib_batches: Optional[list] = None,
         params = qat.calibrate_weight_scales(
             params, qat.default_bits_fn(cfg, plan.policy))
     if calib_batches:
-        from ..models.bert import bert_encode
-        fp_plan = ExecutionPlan.build(cfg, None, backend="reference",
-                                      mode="encoder")
-        # the quantized-site records come from the layer stack alone, so
-        # the unmasked encoder forward records the same sites in the same
-        # order as a full-model forward would
-        fwd = lambda p, b: bert_encode(p, fp_plan, b["tokens"])
+        if plan.mode == "encoder":
+            from ..models.bert import bert_encode
+            fp_plan = ExecutionPlan.build(cfg, None, backend="reference",
+                                          mode="encoder")
+            # the quantized-site records come from the layer stack alone,
+            # so the unmasked encoder forward records the same sites in the
+            # same order as a full-model forward would
+            fwd = lambda p, b: bert_encode(p, fp_plan, b["tokens"])
+        else:
+            from ..models import api
+            fp_plan = ExecutionPlan.build(cfg, None, backend="reference",
+                                          kv_bits=16,
+                                          prefill_mode=plan.prefill_mode,
+                                          decode_dtype=plan.decode_dtype)
+            fwd = lambda p, b: api.forward(p, fp_plan, tokens=b["tokens"])[0]
         with torch.no_grad():
             params = qat.calibrate_act_scales(params, cfg, plan.policy, fwd,
                                               calib_batches)

@@ -1,23 +1,30 @@
-"""ExecutionPlan: the resolved, validated execution recipe (encoder subset).
+"""ExecutionPlan: the resolved, validated execution recipe.
 
 Built once:
 
-    plan = ExecutionPlan.build(cfg, policy, backend="cuda", mode="encoder")
+    plan = ExecutionPlan.build(cfg, policy, backend="cuda", mode="decode",
+                               kv_bits=8, prefill_batch=4)
 
-it resolves the per-segment ``QuantSpec`` list (kernel selection included)
+it resolves the per-segment ``QuantSpec`` list (kernel selection included),
+the KV-cache precision, the decode dtype and the serving sampling defaults,
 and validates the knob combinations up front. ``plan_to_meta`` /
 ``plan_from_meta`` round-trip it through the artifact meta shared with the
 JAX package: the meta names the kernel backend ``"pallas"``, which the port
 loads as ``"cuda"`` and writes back as ``"pallas"``, so an artifact moves
 between the two packages unchanged.
 
-What later slices add raises ``ValueError`` naming that slice: decode
-serving, quantized KV caches, paged KV and tensor parallelism.
+Two modes are served: ``"encoder"`` (the bert family, prefill-only) and
+``"decode"`` (the dense decoder family over a dense slot KV cache at
+kv_bits 16, 8 or 4, chunked prefill). What later slices add raises
+``ValueError`` naming that slice: paged KV, tensor parallelism, token-mode
+prefill, the shared-prefix cache and the other model families.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 from ..configs.base import ModelConfig
 from ..core.policy import QuantPolicy
@@ -36,7 +43,8 @@ MODES = ("decode", "encoder")
 _META_BACKEND = {"cuda": "pallas"}
 _FROM_META_BACKEND = {"pallas": "cuda"}
 
-_DECODE_DTYPES = ("float32", "bfloat16")
+#: ``decode_dtype`` names -> the torch dtype of the fp decode state
+_DECODE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_segments(cfg: ModelConfig, policy: Optional[QuantPolicy],
@@ -54,8 +62,8 @@ def resolve_segments(cfg: ModelConfig, policy: Optional[QuantPolicy],
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """Everything the encoder forward and serving path need, resolved once.
-    Use :meth:`build`; the constructor performs no validation."""
+    """Everything the forward and serving path need, resolved once. Use
+    :meth:`build`; the constructor performs no validation."""
 
     cfg: ModelConfig
     policy: Optional[QuantPolicy]
@@ -65,10 +73,9 @@ class ExecutionPlan:
     decode_dtype: str
     fuse_epilogue: bool
     segments: tuple              # ((start, end, QuantSpec), ...)
-    #: serving sampling defaults as stored in the artifact meta (a dict of
-    #: ``SamplingParams`` kwargs or None); unused by encoder serving and
-    #: written back unchanged
-    default_sampling: Optional[dict] = None
+    #: resolved serving sampling defaults (``serving.api.SamplingParams``):
+    #: generation requests that carry ``sampling=None`` inherit these
+    default_sampling: object = None
     prefix_cache: int = 0
     #: max admissions grouped into ONE batch-N forward
     prefill_batch: int = 1
@@ -96,17 +103,20 @@ class ExecutionPlan:
                              f"got {backend!r}")
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if mode == "decode":
-            raise ValueError("mode='decode': decode serving is a later slice "
-                             "of the port; build mode='encoder'")
         if decode_dtype not in _DECODE_DTYPES:
-            raise ValueError(f"decode_dtype must be one of {_DECODE_DTYPES}, "
-                             f"got {decode_dtype!r}")
+            raise ValueError(f"decode_dtype must be one of "
+                             f"{sorted(_DECODE_DTYPES)}, got {decode_dtype!r}")
         kv_bits = cfg.kv_bits if kv_bits is None else kv_bits
-        if kv_bits != 16:
-            raise ValueError(
-                f"kv_bits={kv_bits}: quantized KV caches arrive with the "
-                "decode serving slice; mode='encoder' retains no KV cache")
+        if kv_bits not in (16, 8, 4):
+            raise ValueError(f"kv_bits must be 16, 8 or 4, got {kv_bits}")
+        if prefill_mode == "auto":
+            prefill_mode = "chunked"
+        if prefill_mode not in ("chunked", "token"):
+            raise ValueError(f"prefill_mode must be 'auto', 'chunked' or "
+                             f"'token', got {prefill_mode!r}")
+        if kv_paging not in ("dense", "paged"):
+            raise ValueError(f"kv_paging must be 'dense' or 'paged', "
+                             f"got {kv_paging!r}")
         if kv_paging != "dense":
             raise ValueError(f"kv_paging={kv_paging!r}: paged KV is a later "
                              "slice of the port")
@@ -114,25 +124,44 @@ class ExecutionPlan:
         if tp != 1:
             raise ValueError(f"tp={tp}: tensor parallelism is a later slice "
                              "of the port")
-        if prefill_mode == "auto":
-            prefill_mode = "chunked"
-        if prefill_mode != "chunked":
-            raise ValueError(
-                "mode='encoder' runs the batched bucketed forward; "
-                f"prefill_mode={prefill_mode!r} does not apply")
-        if cfg.family != "bert":
-            raise ValueError(
-                f"mode='encoder' needs a bidirectional encode path "
-                f"(family 'bert'), got family {cfg.family!r}")
         prefix_cache = int(prefix_cache)
         prefill_batch = int(prefill_batch)
-        if prefix_cache:
-            raise ValueError(
-                "mode='encoder' computes every request in one forward; "
-                "prefix_cache has no KV rows to reuse")
+        if prefix_cache < 0:
+            raise ValueError(f"prefix_cache must be >= 0 (bytes; 0 "
+                             f"disables), got {prefix_cache}")
         if prefill_batch < 1:
             raise ValueError(f"prefill_batch must be >= 1, "
                              f"got {prefill_batch}")
+        if mode == "encoder":
+            if cfg.family != "bert":
+                raise ValueError(
+                    f"mode='encoder' needs a bidirectional encode path "
+                    f"(family 'bert'), got family {cfg.family!r}")
+            if kv_bits != 16:
+                raise ValueError(
+                    "mode='encoder' retains no KV cache; kv_bits must stay "
+                    f"16 (got {kv_bits})")
+            if prefill_mode != "chunked":
+                raise ValueError(
+                    "mode='encoder' runs the batched bucketed forward; "
+                    f"prefill_mode={prefill_mode!r} does not apply")
+            if prefix_cache:
+                raise ValueError(
+                    "mode='encoder' computes every request in one forward; "
+                    "prefix_cache has no KV rows to reuse")
+        else:
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"mode='decode' serves the dense decoder family; family "
+                    f"{cfg.family!r} arrives with a later slice of the port")
+            if prefill_mode == "token":
+                raise ValueError(
+                    "prefill_mode='token': token-mode prefill is a later "
+                    "slice of the port; decode plans prefill chunked")
+            if prefix_cache:
+                raise ValueError(
+                    f"prefix_cache={prefix_cache}: the shared-prefix KV cache "
+                    "is a later slice of the port")
         if act_bits is not None:
             act_bits = int(act_bits)
             if act_bits not in (0, 4, 8):
@@ -151,6 +180,9 @@ class ExecutionPlan:
             fuse_epilogue = use_kernels
         segments = resolve_segments(cfg, policy, use_kernels, fuse_epilogue,
                                     act_bits=act_bits)
+        # lazy: repro_torch.serving imports deploy at module load
+        from ..serving.api import SamplingParams
+        sampling = SamplingParams.resolve(sampling)
         return cls(cfg=cfg, policy=policy, backend=backend, kv_bits=kv_bits,
                    prefill_mode=prefill_mode, decode_dtype=decode_dtype,
                    fuse_epilogue=bool(fuse_epilogue),
@@ -163,6 +195,25 @@ class ExecutionPlan:
         return self.backend == "cuda"
 
     @property
+    def torch_dtype(self) -> torch.dtype:
+        """The one fp dtype of the serving decode state."""
+        return _DECODE_DTYPES[self.decode_dtype]
+
+    def decode_state(self, batch: int, max_len: int, *,
+                     per_slot_len: bool = False,
+                     kv_bits: Optional[int] = None, device=None) -> dict:
+        """The decode state with the plan's dtype and kv_bits on ``device``.
+        The ``kv_bits`` override is for the engine's fp prefill scratch
+        cache: prefill runs at full precision and quantizes on slot
+        insert."""
+        from ..models import api
+        return api.decode_state(
+            self.cfg, batch, max_len, self.torch_dtype,
+            per_slot_len=per_slot_len,
+            kv_bits=self.kv_bits if kv_bits is None else kv_bits,
+            device=device)
+
+    @property
     def deployed(self) -> bool:
         """True when the segments carry deployed-int QuantSpecs."""
         return self.policy is not None and self.policy.mode == "int"
@@ -173,7 +224,8 @@ class ExecutionPlan:
                 "prefill_mode": self.prefill_mode,
                 "decode_dtype": self.decode_dtype,
                 "fuse_epilogue": self.fuse_epilogue,
-                "sampling": self.default_sampling,
+                "sampling": (None if self.default_sampling is None
+                             else dataclasses.asdict(self.default_sampling)),
                 "prefix_cache": self.prefix_cache,
                 "prefill_batch": self.prefill_batch,
                 "act_bits": self.act_bits,
@@ -184,8 +236,11 @@ class ExecutionPlan:
     def describe(self) -> str:
         segs = ", ".join(f"[{s}:{e}) w{sp.w_bits or 'fp'}/a{sp.a_bits or 'fp'}"
                          for s, e, sp in self.segments)
+        kv = "" if self.mode == "encoder" else (
+            f"kv_bits={self.kv_bits}, prefill={self.prefill_mode}, "
+            f"dtype={self.decode_dtype}, ")
         return (f"ExecutionPlan({self.cfg.name}, mode={self.mode}, "
-                f"backend={self.backend}, segments=({segs}))")
+                f"backend={self.backend}, {kv}segments=({segs}))")
 
 
 def plan_to_meta(plan: ExecutionPlan) -> dict:

@@ -1,10 +1,11 @@
-"""Activation quantization: f32 (M, K) -> int8 codes on the qrange grid.
+"""Activation quantization: f32 or bf16 (M, K) -> int8 codes on the qrange grid.
 
 Replaces ``src/repro/kernels/act_quant.py::act_quant_pallas`` (its
 ``pl.pallas_call`` at act_quant.py:42). CUDA source: ``csrc/act_quant.cu``.
-Bound on H100 by bytes (f32 in, int8 out); the kernel makes one pass with
-16-byte loads and masks the ragged end itself, so there is no pad-and-slice
-as in the TPU wrapper.
+Bound on H100 by bytes (f32 or bf16 in, int8 out); the kernel makes one
+pass with 16- or 8-byte loads and masks the ragged end itself, so there is
+no pad-and-slice as in the TPU wrapper. bf16 inputs widen to f32 before the
+division, as the reference's ``astype(f32)`` does.
 """
 from __future__ import annotations
 
@@ -22,11 +23,18 @@ def act_quant_plain(x: torch.Tensor, s: torch.Tensor, bits: int = 8) -> torch.Te
     return z.to(torch.int8)
 
 
+#: activation dtypes the kernel reads, by the flag its C entry takes
+IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def act_quant_cuda(x: torch.Tensor, s: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    """x: (M, K) f32 on the card, s: per-tensor f32 scale (device tensor)."""
+    """x: (M, K) f32 or bf16 on the card, s: per-tensor f32 scale (device
+    tensor)."""
     dev = x.device
     M, K = x.shape
-    build.check(x, "x", torch.float32, (M, K), dev)
+    if x.dtype not in IN_DTYPES:
+        raise TypeError(f"x: expected one of {list(IN_DTYPES)}, got {x.dtype}")
+    build.check(x, "x", x.dtype, (M, K), dev)
     build.check(s, "s", torch.float32, tuple(s.shape), dev)
     if s.numel() != 1:
         raise ValueError(f"s: expected a per-tensor scale, got shape {tuple(s.shape)}")
@@ -34,5 +42,5 @@ def act_quant_cuda(x: torch.Tensor, s: torch.Tensor, bits: int = 8) -> torch.Ten
     out = torch.empty((M, K), dtype=torch.int8, device=dev)
     if out.numel():
         build.launch("act_quant", dev, x.data_ptr(), s.data_ptr(),
-                     out.data_ptr(), M, K, qmin, qmax)
+                     out.data_ptr(), M, K, qmin, qmax, IN_DTYPES[x.dtype])
     return out

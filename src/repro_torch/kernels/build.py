@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("act_quant.cu", "int8_matmul.cu", "int4_matmul.cu")
+SOURCES = ("act_quant.cu", "int8_matmul.cu", "int4_matmul.cu",
+           "decode_attention.cu")
 HEADERS = ("int_gemm.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # no --use_fast_math: it makes '/' and tanhf approximate and breaks parity
@@ -33,13 +34,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: C entry -> argtypes (pointers and the stream as c_void_p, sizes as c_int)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C entry -> argtypes (pointers and the stream as c_void_p, sizes and flags
+#: as c_int, the softmax scale as c_float)
 SIGNATURES = {
-    "act_quant": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "int4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "int4_matmul_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "act_quant": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "int4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "int4_matmul_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 #: kernel launches since the last :func:`reset_counts`

@@ -4,6 +4,7 @@
 //   plain:  out[m, n] = float(acc[m, n]) * (s_a * s_w[n])
 //   fused:  r = float(acc) * (s_a * s_w[n]); r = r + bias[n]; out = act(r)
 //           act in {none, tanh-GELU, ReLU}
+//   the epilogue runs in f32; a bf16 output is rounded once, at the store
 //
 // Replaces: src/repro/kernels/int4_matmul.py::int4_matmul_pallas
 //           (pl.pallas_call at int4_matmul.py:105) and
@@ -26,24 +27,29 @@
 
 extern "C" int int4_matmul_launch(const void* x8, const void* wp,
                                   const void* s_a, const void* s_w, void* out,
-                                  int M, int N, int K, void* stream) {
+                                  int M, int N, int K, int out_bf16,
+                                  void* stream) {
   return repro_kernels::launch_int_gemm<true, repro_kernels::kScaleOnly>(
-      x8, wp, s_a, s_w, nullptr, out, M, N, K, stream);
+      x8, wp, s_a, s_w, nullptr, out, M, N, K, out_bf16, stream);
 }
 
 // act: 0 = none, 1 = tanh-GELU, 2 = ReLU
 extern "C" int int4_matmul_fused_launch(const void* x8, const void* wp,
                                         const void* s_a, const void* s_w,
                                         const void* bias, void* out, int M,
-                                        int N, int K, int act, void* stream) {
+                                        int N, int K, int act, int out_bf16,
+                                        void* stream) {
   using namespace repro_kernels;
   switch (act) {
     case 0:
-      return launch_int_gemm<true, kBiasNone>(x8, wp, s_a, s_w, bias, out, M, N, K, stream);
+      return launch_int_gemm<true, kBiasNone>(x8, wp, s_a, s_w, bias, out, M, N, K,
+                                              out_bf16, stream);
     case 1:
-      return launch_int_gemm<true, kBiasGelu>(x8, wp, s_a, s_w, bias, out, M, N, K, stream);
+      return launch_int_gemm<true, kBiasGelu>(x8, wp, s_a, s_w, bias, out, M, N, K,
+                                              out_bf16, stream);
     case 2:
-      return launch_int_gemm<true, kBiasRelu>(x8, wp, s_a, s_w, bias, out, M, N, K, stream);
+      return launch_int_gemm<true, kBiasRelu>(x8, wp, s_a, s_w, bias, out, M, N, K,
+                                              out_bf16, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
 // int8 x int8 -> int32 matmul with the fused dequant epilogue
-//   out[m, n] = float(acc[m, n]) * (s_a * s_w[n])
+//   out[m, n] = float(acc[m, n]) * (s_a * s_w[n])     (f32, or bf16 when the
+//                                                      activations are bf16)
 //
 // Replaces: src/repro/kernels/int8_matmul.py::int8_matmul_pallas
 //           (pl.pallas_call at int8_matmul.py:59).
@@ -18,7 +19,8 @@
 
 extern "C" int int8_matmul_launch(const void* x8, const void* w8,
                                   const void* s_a, const void* s_w, void* out,
-                                  int M, int N, int K, void* stream) {
+                                  int M, int N, int K, int out_bf16,
+                                  void* stream) {
   return repro_kernels::launch_int_gemm<false, repro_kernels::kScaleOnly>(
-      x8, w8, s_a, s_w, nullptr, out, M, N, K, stream);
+      x8, w8, s_a, s_w, nullptr, out, M, N, K, out_bf16, stream);
 }

@@ -6,7 +6,10 @@
 //   B   int8:  (K, N) int8 weight codes, row-major
 //       int4:  (K/2, N) uint8, two codes per byte along K (row 2k = low
 //              nibble, row 2k+1 = high nibble, both biased by +7)
-//   C   (M, N) float32, row-major
+//   C   (M, N) float32 or bf16 (the activations' dtype), row-major; the
+//       epilogue runs in f32 and a bf16 output is rounded to nearest even
+//       once, at the store (__float2bfloat16_rn), as the reference's
+//       .astype(out_dtype) does
 //
 // Design: one 64x64 output tile per block of 4 warps (2x2, 32x32 each).
 // K advances in 64-deep slabs staged in shared memory: A as [m][k], B
@@ -21,6 +24,7 @@
 // Not yet: wgmma, TMA, multi-stage pipelining, split-K.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,15 +70,20 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* row, int col,
   return v;
 }
 
+__device__ __forceinline__ void store_out(float* p, float r) { *p = r; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float r) {
+  *p = __float2bfloat16_rn(r);
+}
+
 __device__ __forceinline__ uint32_t unpack_nibble_byte(uint32_t b, int shift) {
   return uint32_t(uint8_t(int((b >> shift) & 0xF) - 7));
 }
 
-template <bool kInt4, int kEpi>
+template <bool kInt4, int kEpi, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 int_gemm_kernel(const int8_t* __restrict__ A, const uint8_t* __restrict__ B,
                 const float* __restrict__ sa, const float* __restrict__ sw,
-                const float* __restrict__ bias, float* __restrict__ C, int M,
+                const float* __restrict__ bias, OutT* __restrict__ C, int M,
                 int N, int K) {
   __shared__ __align__(16) uint8_t As[kBM][kLds];
   __shared__ __align__(16) uint8_t Bs[kBN][kLds];  // transposed: [n][k]
@@ -183,20 +192,32 @@ int_gemm_kernel(const int8_t* __restrict__ A, const uint8_t* __restrict__ B,
         if (kEpi != kScaleOnly) r = __fadd_rn(r, bias[col]);
         if (kEpi == kBiasGelu) r = gelu_tanh(r);
         if (kEpi == kBiasRelu) r = fmaxf(r, 0.0f);
-        C[size_t(row) * N + col] = r;
+        store_out(C + size_t(row) * N + col, r);
       }
 }
 
+template <bool kInt4, int kEpi, typename OutT>
+int launch_int_gemm_t(const void* x8, const void* w, const void* sa,
+                      const void* sw, const void* bias, void* out, int M,
+                      int N, int K, void* stream) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  int_gemm_kernel<kInt4, kEpi, OutT><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x8), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(sa), static_cast<const float*>(sw),
+      static_cast<const float*>(bias), static_cast<OutT*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out_bf16: 0 = f32 output, 1 = bf16 output
 template <bool kInt4, int kEpi>
 int launch_int_gemm(const void* x8, const void* w, const void* sa,
                     const void* sw, const void* bias, void* out, int M, int N,
-                    int K, void* stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  int_gemm_kernel<kInt4, kEpi><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x8), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(sa), static_cast<const float*>(sw),
-      static_cast<const float*>(bias), static_cast<float*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+                    int K, int out_bf16, void* stream) {
+  if (out_bf16)
+    return launch_int_gemm_t<kInt4, kEpi, __nv_bfloat16>(x8, w, sa, sw, bias,
+                                                         out, M, N, K, stream);
+  return launch_int_gemm_t<kInt4, kEpi, float>(x8, w, sa, sw, bias, out, M, N,
+                                               K, stream);
 }
 
 }  // namespace repro_kernels

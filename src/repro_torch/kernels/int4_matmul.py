@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .int8_matmul import int_matmul_exact
+from .int8_matmul import check_out_dtype, int_matmul_exact
 from .kv_pack import INT4_BIAS, unpack_nibbles_rows
 
 __all__ = ["INT4_BIAS", "EPILOGUE_ACTS", "gelu_tanh", "apply_epilogue",
@@ -46,21 +46,24 @@ def apply_epilogue(r: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def int4_matmul_plain(x8: torch.Tensor, wp: torch.Tensor, s_a: torch.Tensor,
-                      s_w: torch.Tensor) -> torch.Tensor:
-    """Plain version: unpack the nibbles, exact int matmul, dequant."""
+                      s_w: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version: unpack the nibbles, exact int matmul, dequant, cast."""
     build.note_plain(x8, "int4_matmul")
     acc = int_matmul_exact(x8, unpack_nibbles_rows(wp))
-    return acc.to(torch.float32) * (s_a * s_w)
+    return (acc.to(torch.float32) * (s_a * s_w)).to(out_dtype)
 
 
 def int4_matmul_fused_plain(x8: torch.Tensor, wp: torch.Tensor,
                             s_a: torch.Tensor, s_w: torch.Tensor,
-                            bias: torch.Tensor, act: str = "none") -> torch.Tensor:
-    """Plain version of the fused kernel: dequant, ``+ bias``, activation."""
+                            bias: torch.Tensor, act: str = "none",
+                            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of the fused kernel: dequant, ``+ bias``, activation,
+    all in f32, then one cast to ``out_dtype``."""
     build.note_plain(x8, "int4_matmul_fused")
     acc = int_matmul_exact(x8, unpack_nibbles_rows(wp))
     r = acc.to(torch.float32) * (s_a * s_w)
-    return apply_epilogue(r + bias, act)
+    return apply_epilogue(r + bias, act).to(out_dtype)
 
 
 def _check_operands(x8, wp, s_a, s_w):
@@ -77,27 +80,33 @@ def _check_operands(x8, wp, s_a, s_w):
 
 
 def int4_matmul_cuda(x8: torch.Tensor, wp: torch.Tensor, s_a: torch.Tensor,
-                     s_w: torch.Tensor) -> torch.Tensor:
-    """x8: (M, K) int8 codes, wp: (K/2, N) uint8, s_a: () f32, s_w: (1, N)."""
+                     s_w: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x8: (M, K) int8 codes, wp: (K/2, N) uint8, s_a: () f32, s_w: (1, N);
+    returns (M, N) ``out_dtype`` (f32 or bf16)."""
+    flag = check_out_dtype(out_dtype)
     dev, M, N, K = _check_operands(x8, wp, s_a, s_w)
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if out.numel():
         build.launch("int4_matmul", dev, x8.data_ptr(), wp.data_ptr(),
-                     s_a.data_ptr(), s_w.data_ptr(), out.data_ptr(), M, N, K)
+                     s_a.data_ptr(), s_w.data_ptr(), out.data_ptr(), M, N, K,
+                     flag)
     return out
 
 
 def int4_matmul_fused_cuda(x8: torch.Tensor, wp: torch.Tensor,
                            s_a: torch.Tensor, s_w: torch.Tensor,
-                           bias: torch.Tensor, act: str = "none") -> torch.Tensor:
+                           bias: torch.Tensor, act: str = "none",
+                           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """As :func:`int4_matmul_cuda` plus ``bias: (1, N) f32`` and ``act``."""
     if act not in EPILOGUE_ACTS:
         raise ValueError(f"unsupported fused activation {act!r}")
+    flag = check_out_dtype(out_dtype)
     dev, M, N, K = _check_operands(x8, wp, s_a, s_w)
     build.check(bias, "bias", torch.float32, (1, N), dev)
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if out.numel():
         build.launch("int4_matmul_fused", dev, x8.data_ptr(), wp.data_ptr(),
                      s_a.data_ptr(), s_w.data_ptr(), bias.data_ptr(),
-                     out.data_ptr(), M, N, K, EPILOGUE_ACTS[act])
+                     out.data_ptr(), M, N, K, EPILOGUE_ACTS[act], flag)
     return out

@@ -68,7 +68,7 @@ def bert_encode(params, plan, tokens, *, lengths=None):
         seg = layers[si] if presliced else slice_stack(layers, start, end)
         for i in range(end - start):
             lp = tree_map(lambda a: a[i], seg)
-            x = block_apply(x, lp, cfg, spec, kv_len=kv_len)
+            x, _ = block_apply(x, lp, cfg, spec, kv_len=kv_len)
     return _norm(x, params["final_norm"], cfg.norm)
 
 

@@ -1,7 +1,7 @@
 """Shared layer primitives: the quantizable linear, norms, activations.
 
 Structural quantization rule (paper §5): ONLY matmul inputs/weights are
-quantized. LayerNorm, softmax and GELU run in fp32. The embedding table is
+quantized. Norms, softmax, GELU/SiLU and RoPE run in fp32. The embedding table is
 never quantized.
 
 ``qlinear`` is the single quantized-matmul primitive:
@@ -21,6 +21,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core import calibration
 from ..core.packing import unpack_int4
@@ -28,7 +29,8 @@ from ..core.quantizer import quantize_to_int
 from ..kernels.int4_matmul import gelu_tanh
 from ..kernels.int8_matmul import int_matmul_exact
 
-__all__ = ["QuantSpec", "qlinear", "layernorm", "gelu_f32", "act_fn"]
+__all__ = ["QuantSpec", "qlinear", "rmsnorm", "layernorm", "gelu_f32",
+           "act_fn", "rope_tables", "apply_rope"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +108,7 @@ def _qlinear_int(x: torch.Tensor, p: dict, spec: QuantSpec,
         else:
             assert act is None, "fused epilogue is int4-only"
             out = kops.int8_matmul(x2, p["wq"], s_a, s_w, a_bits=a_bits)
+        # the kernels return x.dtype, so the bias below adds in it as well
         out = out.reshape(*lead, -1)
     else:
         assert act is None, "fused act requires the int4 kernel path"
@@ -122,6 +125,12 @@ def _qlinear_int(x: torch.Tensor, p: dict, spec: QuantSpec,
 
 
 # ---------------------------------------------------------------- norms/acts
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * scale.to(torch.float32)).to(x.dtype)
+
+
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -135,5 +144,29 @@ def gelu_f32(x: torch.Tensor) -> torch.Tensor:
     return gelu_tanh(x.to(torch.float32)).to(x.dtype)
 
 
+def silu_f32(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x.to(torch.float32)).to(x.dtype)
+
+
 def act_fn(name: str):
-    return {"gelu": gelu_f32, "relu": torch.relu}[name]
+    return {"gelu": gelu_f32, "silu": silu_f32, "relu": torch.relu}[name]
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope_tables(positions: torch.Tensor, dim: int, theta: float = 10000.0):
+    """cos/sin tables for positions: (..., S) -> (..., S, dim/2) each, f32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, dh); cos/sin: (B_or_1, S, dh/2) broadcast over heads
+    (the non-interleaved half split of the JAX package)."""
+    xf = x.to(torch.float32)
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)

@@ -30,8 +30,8 @@ from typing import Callable, Optional
 from .api import QueueFullError
 
 #: what the scheduler queues: any request object carrying ``rid``,
-#: ``priority``, ``deadline_s`` and the submit/admit stamps (the port serves
-#: ``EncodeRequest``; generation requests arrive with the decode slice)
+#: ``priority``, ``deadline_s`` and the submit/admit stamps
+#: (``api.GenerationRequest`` and ``encoder.EncodeRequest``)
 GenerationRequest = Request = object
 
 

@@ -22,6 +22,7 @@ from repro.deploy import deploy as jdeploy
 from repro.models.bert import bert_classify_logits as jbert_classify_logits
 from repro.models.bert import tinybert_config as jtinybert_config
 from repro_torch.checkpoint import manager
+from repro_torch.configs import get_config, reduced
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.deploy import (DeployedModel, ExecutionPlan, deploy,
                                 params_from_numpy)
@@ -138,8 +139,8 @@ def test_plan_meta_round_trip(backend, act_bits):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="decode"), "decode serving"),
-    (dict(kv_bits=8), "decode serving slice"),
+    (dict(mode="decode", prefill_mode="token"), "token-mode prefill"),
+    (dict(mode="decode", prefix_cache=1024), "shared-prefix KV cache"),
     (dict(kv_paging="paged"), "paged KV"),
     (dict(tp=2), "tensor parallelism"),
     (dict(backend="pallas"), "backend"),
@@ -148,9 +149,11 @@ def test_plan_meta_round_trip(backend, act_bits):
     (dict(prefix_cache=1024), "prefix_cache"),
 ])
 def test_plan_rejects_what_this_slice_does_not_serve(kw, match):
-    cfg = tinybert_config(**SMALL)
-    pol = QuantPolicy(num_layers=2, mode="int", last_k_int4=1)
     kw = {"mode": "encoder", **kw}
+    # decode plans serve the dense decoder family, encoder plans bert
+    cfg = (reduced(get_config("stablelm-3b")).replace(num_layers=2)
+           if kw["mode"] == "decode" else tinybert_config(**SMALL))
+    pol = QuantPolicy(num_layers=2, mode="int", last_k_int4=1)
     with pytest.raises(ValueError, match=match):
         ExecutionPlan.build(cfg, pol, **kw)
 

@@ -37,7 +37,10 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/kernels/ops.py",
+                 "src/repro_torch/kernels/decode_attention.py",
+                 "src/repro_torch/models/api.py",
                  "src/repro_torch/serving/engine.py",
+                 "src/repro_torch/serving/kv_cache.py",
                  "src/repro_torch/deploy/artifact.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
@@ -82,6 +85,16 @@ def test_deploy_and_params_default_to_the_card(no_cuda, tmp_path):
         deploy(fp, plan)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"a": np.zeros(2, np.float32)})
+
+
+def test_decode_entry_points_default_to_the_card(no_cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serving import SlotKVCache
+    cfg = reduced(get_config("stablelm-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlotKVCache(cfg, slots=2, max_len=8, kv_bits=8)
+    assert SlotKVCache(cfg, slots=2, max_len=8, kv_bits=8,
+                       device="cpu").state["k_q"].device.type == "cpu"
 
 
 def test_tf32_is_off_for_the_fp32_model():

@@ -144,9 +144,9 @@ def test_attention_block_with_kv_len_matches_reference(models, seg):
     assert torch.equal(lp["wq"], _t(_layer(jparams, seg, 0)["attn"]["wq"]["wq"]))
     tlp = {name: {k: v[0] for k, v in lin.items()}
            for name, lin in params["layers"][seg]["attn"].items()}
-    got = attention.attention_block(_t(x), tlp, n_heads=4, n_kv=4, hd=16,
-                                    spec=spec, causal=False,
-                                    kv_len=torch.as_tensor(lens))
+    got, _ = attention.attention_block(_t(x), tlp, n_heads=4, n_kv=4, hd=16,
+                                       spec=spec, causal=False,
+                                       kv_len=torch.as_tensor(lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
@@ -159,8 +159,8 @@ def test_block_apply_matches_reference(models, seg):
         jnp.asarray(x), _layer(jparams, seg, 0), jref_plan.cfg,
         jref_plan.segments[seg][2], kv_len=jnp.asarray(lens).reshape(-1, 1, 1, 1))
     tlp = _tree_index(params["layers"][seg], 0)
-    got = transformer.block_apply(_t(x), tlp, plan.cfg, plan.segments[seg][2],
-                                  kv_len=torch.as_tensor(lens))
+    got, _ = transformer.block_apply(_t(x), tlp, plan.cfg, plan.segments[seg][2],
+                                     kv_len=torch.as_tensor(lens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 

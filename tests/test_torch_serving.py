@@ -180,7 +180,19 @@ def test_bad_requests_rejected(models):
 
 
 def test_engine_needs_an_encoder_plan(models):
+    """Each mode refuses the other's requests: a decode engine has no
+    encode path (the decoder score task is a later slice) and an encoder
+    engine no decode loop."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import api
+    from repro_torch.serving import GenerationRequest
     _, model = models
-    decode_like = type("Plan", (), {"mode": "decode"})()
-    with pytest.raises(ValueError, match="decode serving"):
-        ServingEngine(model.params, decode_like)
+    enc = ServingEngine(model, slots=2, max_len=8)
+    with pytest.raises(ValueError, match="submit_encode"):
+        enc.submit(GenerationRequest(prompt=np.arange(1, 4)))
+    cfg = reduced(get_config("stablelm-3b")).replace(num_layers=1)
+    plan = ExecutionPlan.build(cfg, None, mode="decode")
+    dec = ServingEngine(api.init_model(cfg, torch.Generator().manual_seed(0),
+                                       "cpu"), plan, slots=2, max_len=8)
+    with pytest.raises(ValueError, match="later slice"):
+        dec.submit_encode(EncodeRequest(tokens=np.arange(1, 4), task="score"))
