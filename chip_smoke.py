@@ -6,7 +6,7 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device and build: the card's name and power limit, the torch and CUDA
-   versions, and the build of the five kernels from
+   versions, and the build of the six kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, timed);
 2. the four integer kernels against their plain PyTorch versions on the
    card, at the encoder shapes (M in {37, 512, 4096}, (K, N) in {(312, 312),
@@ -66,9 +66,41 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    share), a prefill forward of 4 x 256 tokens, and each kernel at its
    decode shapes beside its plain version, the library call
    (``torch._int_mm`` where it accepts M = 8; SDPA over a cache already
-   dequantized to bf16, which excludes the dequantization) and its bound.
+   dequantized to bf16, which excludes the dequantization) and its bound;
+8. ``decode_attention_paged`` against its plain version on the card, over
+   phase 5's grid (kv_bits 8 and 4, f32 and bf16, the two head shapes, B =
+   8, S in {64, 512, 520}, the same lengths) with tables that permute a
+   pool's blocks, share blocks between slots and carry the sentinel and
+   entries past it: within phase 5's tolerances of the plain version,
+   bit-equal to the dense kernel on the layout the tables describe, and
+   bit-unchanged when every pool row no table reaches below its slot's
+   length is poisoned (NaN scales, garbage codes);
+9. phase 6's traffic through a paged engine (``kv_paging="paged"``, the
+   dense-equivalent budget, prefix off) over phase 6's artifact at
+   kv_bits 8 and 4: every stream byte-identical to phase 6's dense run;
+   every decode step launches act_quant 224, int8_matmul 112, int4_matmul
+   112, decode_attention_paged 32 and decode_attention 0 times, prefill no
+   decode attention, no plain version on a CUDA tensor; every block
+   released after draining;
+10. shared-prefix traffic at kv_bits 8 (13 requests: one sampled, n = 2,
+   on a 200-token prompt; 8 sharing a 256-token system prompt followed by
+   8-72 distinct tokens; 4 unique prompts of 100-300 tokens) through (i) a
+   dense engine with a 256 MiB prefix cache, (ii) a paged engine with the
+   prefix registry at the dense-equivalent budget, (iii) the paged engine
+   at 60 % of that budget, served twice in a row. Every request finishes;
+   (ii) equals (i) byte for byte with the same hit count; in (iii) round 2
+   hits at least 8 times, a fork shares its prompt blocks and the
+   refcounts drain after each round, and each greedy stream equals (i)'s
+   or first differs at a near-tie under phase 6's rule (the noise taken
+   on the positions where the histories agree, the parting one included);
+11. paged times: a paged decode step (8 slots at length 448, a permuted
+   pool) eager and replayed from a CUDA graph, and
+   ``decode_attention_paged`` at that shape, each timed in turns with its
+   dense counterpart (dense, paged, paged, dense), the kernel beside its
+   plain version, SDPA over the gathered and dequantized bf16 cache and
+   its bound.
 
-The line before the last holds the five kernels; the last line of standard
+The line before the last holds the six kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero before printing any result.
 """
@@ -111,15 +143,22 @@ SOURCES = {
                           "src/repro/kernels/int4_matmul.py:143"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:102"),
+    "decode_attention_paged": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:143"),
 }
 #: kernels each main path must launch
 ENCODER_KERNELS = ("act_quant", "int8_matmul", "int4_matmul", "int4_matmul_fused")
 DECODER_KERNELS = ("act_quant", "int8_matmul", "int4_matmul", "decode_attention")
+PAGED_KERNELS = ("act_quant", "int8_matmul", "int4_matmul", "decode_attention_paged")
 #: stablelm-3b decode shapes: (K, N) -> calls per decode step, per kernel
 DECODE_MATMULS = {(2560, 2560): 4 * 16, (2560, 6912): 2 * 16, (6912, 2560): 1 * 16}
 DECODE_ACT_QUANT = {2560: 6 * 32, 6912: 1 * 32}
 PER_DECODE_STEP = {"act_quant": 224, "int8_matmul": 112, "int4_matmul": 112,
                    "decode_attention": 32}
+#: a paged decode step: the same linears, attention straight from the pool
+PAGED_DECODE_STEP = {**PER_DECODE_STEP, "decode_attention": 0,
+                     "decode_attention_paged": 32}
+BLOCK = 8                      # rows per KV block (serving/prefix_cache.PREFIX_BLOCK)
 DECODE_SLOTS, DECODE_MAX_LEN, DECODE_LEN = 8, 512, 448
 
 
@@ -597,7 +636,7 @@ def decode_inputs(dev, g, B, S, H, Hkv, dh, bits, dtype, lengths):
     return [q, k_q, v_q, k_s, v_s, kn, vn, lens]
 
 
-def decode_close(got, want) -> float:
+def decode_close(got, want, name: str = "decode_attention") -> float:
     """f32: atol 1e-5, rtol 0. bf16: one ulp of the output plus 1e-5 (the
     two softmax orders differ in f32 by up to 1e-5, which outputs near zero
     keep after rounding). Returns the largest |difference|."""
@@ -609,7 +648,7 @@ def decode_close(got, want) -> float:
         ulp = 2.0 ** (torch.frexp(torch.maximum(g.abs(), w.abs())).exponent - 8)
         ok = bool((diff <= ulp + 1e-5).all())
     if not ok:
-        raise AssertionError(f"decode_attention: kernel != plain (max |diff| "
+        raise AssertionError(f"{name}: kernel != plain (max |diff| "
                              f"{diff.max().item()})")
     return diff.max().item()
 
@@ -863,7 +902,7 @@ def decode_end_to_end(dev) -> dict:
     out = {"model": cfg.name, "policy": policy.describe(), "fp_params": fp_params,
            "deploy_s": deploy_s, "save_load_s": save_load_s,
            "artifact_bytes": art_bytes, "per_kv": {}}
-    models = {}
+    models, streams = {}, {}
     for kv, plan in plans.items():
         model = DeployedModel(plan=plan, params=loaded.params)
         models[kv] = model
@@ -897,6 +936,7 @@ def decode_end_to_end(dev) -> dict:
         _, ref = serve_decode(DeployedModel(plan=ref_plan, params=loaded.params),
                               tops=ref_tops, other=(again, tops))
         del tops                                    # the logits rows on the card
+        streams[kv] = [list(map(int, r.tokens)) for r in results]
         cmp = compare_streams(kv, again, ref, ref_tops, n_greedy=16)
         build.reset_counts()
         cmp["one_step"] = one_step_agreement(
@@ -912,6 +952,7 @@ def decode_end_to_end(dev) -> dict:
             "prefill_p50_ms": summary.get("prefill_p50_ms"),
             "ttft_p50_ms": summary.get("ttft_p50_ms")}
     out["models"] = models
+    out["streams"] = streams
     return out
 
 
@@ -1055,6 +1096,472 @@ def time_decode_kernels(dev) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------------ phase 8
+def paged_inputs(dev, g, B, S, H, Hkv, dh, bits, dtype, lengths):
+    """A pool of B * S / 8 + 8 blocks of random K/V (the port's quantize_kv)
+    and (B, S / 8) tables over it: a permutation of the pool's blocks, the
+    leading blocks of slot 4 shared with slot 3, and the sentinel (the pool
+    size) or an entry past it wherever a table runs past its slot's length.
+    Returns the paged kernel's arguments."""
+    from repro_torch.kernels import kv_pack
+    nb = S // BLOCK
+    NB = B * nb + 8
+    k_q, k_s = kv_pack.quantize_kv(
+        torch.randn((NB, BLOCK, Hkv, dh), generator=g, device=dev), bits)
+    v_q, v_s = kv_pack.quantize_kv(
+        torch.randn((NB, BLOCK, Hkv, dh), generator=g, device=dev), bits)
+    q = torch.randn((B, H, dh), generator=g, device=dev).to(dtype)
+    kn = torch.randn((B, Hkv, dh), generator=g, device=dev).to(dtype)
+    vn = torch.randn((B, Hkv, dh), generator=g, device=dev).to(dtype)
+    perm = np.random.default_rng(S + bits).permutation(NB)[:B * nb]
+    tables = perm.reshape(B, nb).astype(np.int32)
+    for i, n in enumerate(lengths):
+        used = -(-min(max(n, 0), S) // BLOCK)
+        tables[i, used:] = NB if i % 2 else NB + 5
+    if B > 4:
+        tables[4, :2] = tables[3, :2]             # blocks shared between slots
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return [q, k_q, v_q, k_s, v_s, torch.as_tensor(tables, device=dev), kn, vn, lens]
+
+
+def live_rows(tables: np.ndarray, lengths, NB: int) -> np.ndarray:
+    """(NB, BLOCK) mask of the pool rows some table reaches below its
+    slot's length (entries clamped to [0, NB - 1], as the kernel does)."""
+    live = np.zeros((NB, BLOCK), bool)
+    S = tables.shape[1] * BLOCK
+    for b, n in enumerate(lengths):
+        pos = np.arange(min(max(n, 0), S))
+        live[np.clip(tables[b, pos // BLOCK], 0, NB - 1), pos % BLOCK] = True
+    return live
+
+
+def check_decode_attention_paged(dev) -> tuple[float, int]:
+    """Phase 5's grid through the paged kernel: within phase 5's tolerances
+    of the plain version, bit-equal to the dense kernel on the layout the
+    tables describe, and bit-unchanged when every pool row no table reaches
+    below its slot's length is poisoned (NaN scales, garbage codes)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_paged_cuda,
+        decode_attention_paged_plain, gather_kv_blocks)
+    g = torch.Generator(device=dev).manual_seed(78)
+    err, cases = 0.0, 0
+    for H, Hkv, dh in ((32, 32, 80), (48, 8, 128)):
+        for S in (64, 512, 520):
+            lengths = [0, 1, 7, 33, S // 2, S - 1, S, S + 37]
+            for bits in (8, 4):
+                for dtype in (torch.float32, torch.bfloat16):
+                    args = paged_inputs(dev, g, 8, S, H, Hkv, dh, bits, dtype, lengths)
+                    q, pool, tables, (kn, vn, lens) = args[0], args[1:5], args[5], args[6:]
+                    name = (f"decode_attention_paged H={H} Hkv={Hkv} dh={dh} S={S} "
+                            f"bits={bits} {dtype}")
+                    got = decode_attention_paged_cuda(*args)
+                    err = max(err, decode_close(
+                        got, decode_attention_paged_plain(*args), name))
+                    dense = [gather_kv_blocks(b, tables).contiguous() for b in pool]
+                    if not torch.equal(got, decode_attention_cuda(q, *dense, kn, vn, lens)):
+                        raise AssertionError(f"{name}: != the dense kernel on the "
+                                             "gathered layout")
+                    dead = torch.as_tensor(~live_rows(tables.cpu().numpy(), lengths,
+                                                      pool[0].shape[0]), device=dev)
+                    for codes in pool[:2]:
+                        codes[dead] = 0x5A if bits == 8 else 0xF3
+                    for scales in pool[2:]:
+                        scales[dead] = float("nan")
+                    if not torch.equal(decode_attention_paged_cuda(*args), got):
+                        raise AssertionError(f"{name}: rows no table reaches moved "
+                                             "the output")
+                    cases += 1
+    torch.cuda.synchronize()
+    return err, cases
+
+
+# ------------------------------------------------------------------ phase 9
+def paged_model(model, kv_paging: str = "paged", prefix_cache: int = 0):
+    """``model``'s artifact under the same plan with another KV layout."""
+    from repro_torch.deploy import DeployedModel, ExecutionPlan
+    p = model.plan
+    plan = ExecutionPlan.build(p.cfg, p.policy, backend=p.backend, mode=p.mode,
+                               kv_bits=p.kv_bits, prefill_batch=p.prefill_batch,
+                               kv_paging=kv_paging, prefix_cache=prefix_cache)
+    return DeployedModel(plan=plan, params=model.params)
+
+
+def check_launches(tag: str, record: dict, per_step: dict) -> None:
+    """Every decode step launched ``per_step``; no prefill forward (or
+    prefix chunk forward) launched a decode attention of either kind; no
+    plain version ran on a CUDA tensor."""
+    from repro_torch.kernels import build
+    for step in record["decode"]:
+        if {k: step[k] for k in per_step} != per_step:
+            raise AssertionError(f"{tag}: decode step launched {step}, "
+                                 f"expected {per_step}")
+    for step in record["prefill"] + record.get("chunk", []):
+        if step["decode_attention"] or step["decode_attention_paged"]:
+            raise AssertionError(f"{tag}: a prefill forward launched {step}")
+    if any(build.PLAIN_ON_CUDA.values()):
+        raise AssertionError(f"{tag}: plain versions ran on CUDA tensors: "
+                             f"{build.PLAIN_ON_CUDA}")
+
+
+def paged_end_to_end(models: dict, dense_streams: dict) -> dict:
+    """Phase 6's traffic through a paged engine (dense-equivalent budget,
+    prefix off) at kv_bits 8 and 4: byte-identical streams to phase 6's
+    dense run, and every decode step through the paged kernel."""
+    from repro_torch.kernels import build
+    out = {}
+    for kv, model in models.items():
+        pm = paged_model(model)
+        record = {}
+        build.reset_counts()
+        t0 = time.perf_counter()
+        eng, results = serve_decode(pm, launches=record)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        check_launches(f"paged kv{kv}", record, PAGED_DECODE_STEP)
+        got = [list(map(int, r.tokens)) for r in results]
+        equal = sum(a == b for a, b in zip(got, dense_streams[kv]))
+        if equal != len(got):
+            raise AssertionError(f"paged kv{kv}: {len(got) - equal} of {len(got)} "
+                                 "streams differ from the dense engine's")
+        st = eng.pool.stats()
+        if (eng.pool.refs != 0).any() or st["blocks_in_use"]:
+            raise AssertionError(f"paged kv{kv}: blocks still held after draining: {st}")
+        summary = eng.metrics.summary()
+        out[kv] = {"plan": pm.plan.describe(), "streams": len(got),
+                   "streams_equal_to_dense": equal,
+                   "decode_steps": len(record["decode"]),
+                   "prefill_forwards": len(record["prefill"]),
+                   "launches": launches, "plain_on_cuda": dict(build.PLAIN_ON_CUDA),
+                   "pool": st, "serve_s": serve_s,
+                   "decode_p50_ms": summary.get("decode_p50_ms"),
+                   "prefill_p50_ms": summary.get("prefill_p50_ms")}
+    return out
+
+
+# ----------------------------------------------------------------- phase 10
+def prefix_traffic(vocab: int):
+    """13 requests from a fixed seed: one sampled (T 0.8, top-k 50, top-p
+    0.9, n = 2) on a 200-token prompt, submitted first so its two samples
+    prefill together; 8 that share a 256-token system prompt followed by
+    8-72 distinct tokens (16-48 new tokens); 4 unique prompts of 100-300
+    tokens. Returns the requests and the indices of the greedy ones."""
+    from repro_torch.serving import GenerationRequest, SamplingParams
+    rng = np.random.default_rng(21)
+    ints = lambda n: rng.integers(1, vocab, n).astype(np.int32)
+    reqs = [GenerationRequest(prompt=ints(200), max_new_tokens=32, sampling=SamplingParams(
+        temperature=0.8, top_k=50, top_p=0.9, seed=11, n=2))]
+    system = ints(256)
+    for tail, new in zip((8, 17, 24, 33, 40, 51, 64, 72), (16, 48, 24, 40, 32, 16, 48, 24)):
+        reqs.append(GenerationRequest(prompt=np.concatenate([system, ints(tail)]),
+                                      max_new_tokens=new))
+    for n, new in zip((100, 150, 220, 300), (32, 16, 48, 24)):
+        reqs.append(GenerationRequest(prompt=ints(n), max_new_tokens=new))
+    return reqs, list(range(1, len(reqs)))
+
+
+def serve_prefix(model, *, rounds: int = 1, kv_budget_bytes=None, ref_rows=None):
+    """Serve the prefix traffic ``rounds`` times on one engine. Per round:
+    the streams in submission order (the sampled request's samples as a
+    list), the launches of every forward, the pool's or prefix cache's
+    stats, the peak number of concurrent requests, and, per greedy
+    request and sampled position, the logits row (kept on the card) or,
+    given ``ref_rows`` of an earlier run, the largest |logit difference|
+    to that run's row at the same position."""
+    import copy
+
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.kernels import build
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN,
+                        kv_budget_bytes=kv_budget_bytes)
+    record = {"prefill": [], "decode": [], "chunk": []}
+
+    def delta(fn, kind):
+        def wrapped(*a, **k):
+            before = dict(build.LAUNCHES)
+            out = fn(*a, **k)
+            record[kind].append({n: build.LAUNCHES[n] - before[n] for n in before})
+            return out
+        return wrapped
+    for kind in ("prefill", "decode", "chunk"):
+        setattr(eng, f"{kind}_forward", delta(getattr(eng, f"{kind}_forward"), kind))
+    rows: dict = {}        # rid -> per position: logits row, or |diff| to ref_rows
+    index: dict = {}       # rid -> index of its greedy request
+
+    def note(rid, row):
+        if rid not in index:
+            return
+        seen = rows.setdefault(rid, [])
+        if ref_rows is None:
+            seen.append(row.float().clone())
+        else:
+            ref = ref_rows[index[rid]]
+            seen.append((row.float() - ref[len(seen)]).abs().max()
+                        if len(seen) < len(ref) else None)
+    sample_first = eng._sample_first
+
+    def first_spy(logits_row, slot):
+        note(eng.scheduler.active[slot].rid, logits_row)
+        return sample_first(logits_row, slot)
+    eng._sample_first = first_spy
+    orig = engine_mod.sample_batch
+
+    def batch_spy(logits, *a):
+        for s, req in enumerate(eng.scheduler.active):
+            if req is not None:
+                note(req.rid, logits[s])
+        return orig(logits, *a)
+    engine_mod.sample_batch = batch_spy
+    reqs, greedy = prefix_traffic(model.plan.cfg.vocab_size)
+    out = []
+    try:
+        for _ in range(rounds):
+            for key in record:
+                record[key] = []
+            rows.clear()
+            index.clear()
+            streams = []
+            for i, req in enumerate(reqs):
+                st = eng.submit(copy.deepcopy(req))
+                streams.append(st)
+                if i in greedy:
+                    index[st.rid] = i
+            peak = 0
+            while eng.scheduler.has_work:
+                eng.engine_step()
+                peak = max(peak, eng.scheduler.num_active)
+            torch.cuda.synchronize()
+            results = [[s.result() for s in st] if isinstance(st, list) else st.result()
+                       for st in streams]
+            for r in results:
+                for x in r if isinstance(r, list) else [r]:
+                    if x.finish_reason not in ("length", "stop"):
+                        raise AssertionError(f"request {x.rid} finished "
+                                             f"{x.finish_reason!r}")
+            tokens = [[list(map(int, x.tokens)) for x in r] if isinstance(r, list)
+                      else list(map(int, r.tokens)) for r in results]
+            if eng.pool is not None:
+                stats = eng.pool.stats()
+                if (eng.pool.refs != 0).any():
+                    raise AssertionError(f"refcounts did not drain: {stats}")
+            else:
+                stats = eng.prefix_cache.stats()
+            by_index = {index[rid]: v for rid, v in rows.items()}
+            out.append({"tokens": tokens, "rows": by_index, "peak": peak,
+                        "stats": stats, "record": {k: list(v) for k, v in record.items()},
+                        "decode_p50_ms": eng.metrics.summary().get("decode_p50_ms")})
+    finally:
+        engine_mod.sample_batch = orig
+    return out
+
+
+def compare_prefix(ref, run) -> dict:
+    """Greedy streams of ``run`` against ``ref`` (both one round of
+    ``serve_prefix``; ``run`` recorded against ``ref``'s rows): equal, or
+    first differing at a near-tie under phase 6's rule, with the noise
+    taken over the positions up to and including the parting one (their
+    histories agree)."""
+    equal, parted = 0, []
+    for i, want in enumerate(ref["tokens"]):
+        if i not in ref["rows"]:
+            continue                                   # the sampled request
+        got = run["tokens"][i]
+        diff = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+        if not diff:
+            equal += 1
+            continue
+        j = diff[0]
+        noise = max(float(d) for d in run["rows"][i][:j + 1])
+        row = ref["rows"][i][j]
+        top = float(row.max())
+        gap = top - float(row[got[j]])
+        parted.append({"request": i, "step": j, "token": got[j], "ref_token": want[j],
+                       "gap": gap, "noise": noise, "ulp": bf16_ulp(top)})
+        if gap > 2 * noise + bf16_ulp(top):
+            raise AssertionError(f"prefix request {i}: the streams part at token {j} "
+                                 f"({got[j]} vs {want[j]}), {gap} below the top logit "
+                                 f"> 2 x {noise} + one bf16 ulp")
+    return {"greedy_equal": equal, "greedy": len(ref["rows"]),
+            "parted_at_near_ties": parted}
+
+
+def prefix_end_to_end(models: dict) -> dict:
+    """The shared-prefix traffic at kv_bits 8 through (i) a dense engine
+    with a 256 MiB prefix cache, (ii) a paged engine with the prefix
+    registry at the dense-equivalent budget, (iii) the same paged engine
+    at 60 % of that budget, served twice in a row."""
+    from repro_torch.kernels import build
+    model = models[8]
+    dense = paged_model(model, "dense", 256 << 20)
+    paged = paged_model(model, "paged", 256 << 20)
+    out = {}
+    build.reset_counts()
+    t0 = time.perf_counter()
+    (ref,) = serve_prefix(dense)
+    out["dense_prefix"] = {"seconds": time.perf_counter() - t0,
+                           "launches": dict(build.LAUNCHES)}
+    check_launches("prefix dense", ref["record"], PER_DECODE_STEP)
+    build.reset_counts()
+    t0 = time.perf_counter()
+    (full,) = serve_prefix(paged, ref_rows=ref["rows"])
+    out["paged_prefix"] = {"seconds": time.perf_counter() - t0,
+                           "launches": dict(build.LAUNCHES)}
+    check_launches("prefix paged", full["record"], PAGED_DECODE_STEP)
+    if full["tokens"] != ref["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(full["tokens"], ref["tokens"])) if a != b]
+        raise AssertionError(f"paged prefix streams differ from the dense prefix "
+                             f"engine's: requests {bad}")
+    if full["stats"]["hits"] != ref["stats"]["hits"]:
+        raise AssertionError(f"hits differ: paged {full['stats']['hits']}, dense "
+                             f"{ref['stats']['hits']}")
+    from repro_torch.serving import BlockPool
+    block_bytes = BlockPool.block_bytes(paged.plan.cfg, 8, paged.plan.torch_dtype)
+    budget = int(0.6 * DECODE_SLOTS * (DECODE_MAX_LEN // BLOCK) * block_bytes)
+    build.reset_counts()
+    t0 = time.perf_counter()
+    tight = serve_prefix(paged, rounds=2, kv_budget_bytes=budget, ref_rows=ref["rows"])
+    out["paged_prefix_60pct"] = {"seconds": time.perf_counter() - t0,
+                                 "launches": dict(build.LAUNCHES),
+                                 "budget_bytes": budget}
+    hits_before = 0
+    for r, rnd in enumerate(tight):
+        check_launches(f"prefix paged 60% round {r + 1}", rnd["record"], PAGED_DECODE_STEP)
+        rnd["hits_this_round"] = rnd["stats"]["hits"] - hits_before
+        hits_before = rnd["stats"]["hits"]
+    if tight[1]["hits_this_round"] < 8:
+        raise AssertionError(f"60% budget, round 2: {tight[1]['hits_this_round']} hits, "
+                             "expected at least 8")
+    if tight[1]["stats"]["cow_forks"] < 1:
+        raise AssertionError("60% budget: no copy-on-write fork")
+    cmp = [compare_prefix(ref, rnd) for rnd in tight]
+
+    def summary(run):
+        return {"peak_concurrent": run["peak"], "stats": run["stats"],
+                "decode_steps": len(run["record"]["decode"]),
+                "prefill_forwards": len(run["record"]["prefill"]),
+                "chunk_forwards": len(run["record"]["chunk"]),
+                "decode_p50_ms": run["decode_p50_ms"]}
+    out["dense_prefix"].update(summary(ref))
+    out["paged_prefix"].update(summary(full), streams_equal_to_dense_prefix=len(ref["tokens"]))
+    out["paged_prefix_60pct"]["rounds"] = [
+        {**summary(rnd), "hits_this_round": rnd["hits_this_round"], **c}
+        for rnd, c in zip(tight, cmp)]
+    return out
+
+
+# ----------------------------------------------------------------- phase 11
+def time_paged_decode(models, dev) -> dict:
+    """One paged decode step with 8 active slots at cache length 448 (a
+    permuted pool; the tables, lengths and write targets in static device
+    tensors), eager and replayed from a CUDA graph, timed in turns with
+    phase 7's dense step in the same call: dense, paged, paged, dense."""
+    from repro_torch.models import api
+    from repro_torch.serving import BlockPool, sample_batch
+
+    out = {}
+    zeros = np.zeros(DECODE_SLOTS)
+    nb = DECODE_MAX_LEN // BLOCK
+    for kv, model in models.items():
+        pm = paged_model(model)
+        pool = BlockPool(pm.plan.cfg, DECODE_SLOTS * nb * BlockPool.block_bytes(
+            pm.plan.cfg, kv, pm.plan.torch_dtype), dtype=pm.plan.torch_dtype,
+            kv_bits=kv, device=dev)
+        g = torch.Generator(device=dev).manual_seed(4)
+        for key in ("k_q", "v_q"):
+            pool.bufs[key].copy_(torch.randint(0, 255, pool.bufs[key].shape, generator=g,
+                                               device=dev, dtype=torch.int32)
+                                 .to(pool.bufs[key].dtype))
+        for key in ("k_scale", "v_scale"):
+            pool.bufs[key].copy_(torch.rand(pool.bufs[key].shape, generator=g, device=dev)
+                                 * 0.05)
+        tables = np.random.default_rng(kv).permutation(pool.num_blocks).reshape(
+            DECODE_SLOTS, nb).astype(np.int32)
+        paged_st = {**pool.bufs, "tables": torch.as_tensor(tables, device=dev),
+                    "len": torch.full((DECODE_SLOTS,), DECODE_LEN, dtype=torch.int32,
+                                      device=dev),
+                    "write_block": torch.as_tensor(tables[:, DECODE_LEN // BLOCK],
+                                                   dtype=torch.int64, device=dev),
+                    "write_off": torch.full((DECODE_SLOTS,), DECODE_LEN % BLOCK,
+                                            dtype=torch.int64, device=dev)}
+        dense_st = decode_state_at(model, dev, DECODE_LEN)
+        toks = torch.randint(1, pm.plan.cfg.vocab_size, (DECODE_SLOTS, 1), device=dev)
+
+        def stepper(m, st):
+            def step():
+                with torch.no_grad():
+                    logits, _ = api.forward(m.params, m.plan, state=st, tokens=toks)
+                    return sample_batch(logits[:, -1], zeros, zeros, zeros, zeros,
+                                        np.ones(DECODE_SLOTS))
+            return step
+        runs = {"dense": [], "paged": []}
+        for name in ("dense", "paged", "paged", "dense"):
+            step = stepper(pm, paged_st) if name == "paged" else stepper(model, dense_st)
+            runs[name].append((cuda_ms(step, reps=1, samples=10, graph=False),
+                               cuda_ms(step, reps=1, samples=10)))
+        for name, pairs in runs.items():
+            eager = statistics.mean(e for e, _ in pairs)
+            device = statistics.mean(d for _, d in pairs)
+            out[f"{name}_decode_step_kv{kv}"] = {
+                "slots": DECODE_SLOTS, "cache_len": DECODE_LEN,
+                "eager_ms": eager, "device_ms": device,
+                "eager_ms_runs": [e for e, _ in pairs],
+                "device_ms_runs": [d for _, d in pairs],
+                "eager_tokens_per_s": DECODE_SLOTS / (eager / 1e3),
+                "device_tokens_per_s": DECODE_SLOTS / (device / 1e3),
+                "device_idle_share_eager": 1.0 - device / eager}
+        del pool, paged_st, dense_st
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_paged_kernel(dev) -> list[dict]:
+    """``decode_attention_paged`` at the decode shape (8 slots at length
+    448, S 512, a permuted pool), timed in turns with the dense kernel on
+    the gathered layout (dense, paged, paged, dense), beside its plain
+    version, SDPA over the already gathered and dequantized bf16 cache and
+    its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import kv_pack
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    B, S, H, Hkv, dh = DECODE_SLOTS, DECODE_MAX_LEN, 32, 32, 80
+    rows = []
+    for bits in (8, 4):
+        args = paged_inputs(dev, g, B, S, H, Hkv, dh, bits, torch.bfloat16, [DECODE_LEN] * B)
+        q, tables, (kn, vn, lens) = args[0], args[5], args[6:]
+        dense = [da.gather_kv_blocks(b, tables).contiguous() for b in args[1:5]]
+        kd = kv_pack.dequantize_kv(dense[0], dense[2], torch.bfloat16).transpose(1, 2)
+        vd = kv_pack.dequantize_kv(dense[1], dense[3], torch.bfloat16).transpose(1, 2)
+        qd = q[:, :, None, :]
+        mask = (torch.arange(S, device=dev) < DECODE_LEN)[None, None, None, :]
+        nbytes = da.bound_bytes_paged(B, S // BLOCK, BLOCK, Hkv, H, dh, bits,
+                                      [DECODE_LEN] * B, 2)
+        b_ms, b_by = bound(nbytes, 4 * B * H * (DECODE_LEN + 1) * dh, FP32_OPS_PER_S)
+        fns = {"paged": lambda: da.decode_attention_paged_cuda(*args),
+               "dense": lambda: da.decode_attention_cuda(q, *dense, kn, vn, lens)}
+        runs = {"dense": [], "paged": []}
+        for name in ("dense", "paged", "paged", "dense"):
+            runs[name].append(cuda_ms(fns[name]))
+        rows.append({"kernel": "decode_attention_paged", "M": B,
+                     "shape": [B, S, DECODE_LEN, H, Hkv, dh],
+                     "calls": PAGED_DECODE_STEP["decode_attention_paged"],
+                     "ms": statistics.mean(runs["paged"]), "ms_runs": runs["paged"],
+                     "dense_kernel_ms": statistics.mean(runs["dense"]),
+                     "dense_kernel_ms_runs": runs["dense"],
+                     "eager_ms": cuda_ms(fns["paged"], graph=False),
+                     "plain_ms": cuda_ms(lambda: da.decode_attention_paged_plain(*args)),
+                     "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                         qd, kd, vd, attn_mask=mask)),
+                     "library_note": "SDPA over the cache already gathered and "
+                                     "dequantized to bf16 (excludes both)",
+                     "bound_ms": b_ms, "bound_by": b_by, "kv_bits": bits})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1119,7 +1626,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     dec = decode_end_to_end(dev)
-    models = dec.pop("models")
+    models, dense_streams = dec.pop("models"), dec.pop("streams")
     seconds["decode_end_to_end"] = time.perf_counter() - t0
     emit({"phase": "decode_end_to_end", **dec, "seconds": seconds["decode_end_to_end"]})
 
@@ -1137,11 +1644,45 @@ def main() -> int:
           "kernels_share_of_device": dec_kernels_ms / step8["device_ms"]})
     seconds["decode_times"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    errors["decode_attention_paged"], cases = check_decode_attention_paged(dev)
+    seconds["decode_attention_paged_vs_plain"] = time.perf_counter() - t0
+    emit({"phase": "decode_attention_paged_vs_plain", "cases": cases,
+          "max_abs_err": errors["decode_attention_paged"],
+          "seconds": seconds["decode_attention_paged_vs_plain"]})
+
+    t0 = time.perf_counter()
+    paged = paged_end_to_end(models, dense_streams)
+    seconds["paged_end_to_end"] = time.perf_counter() - t0
+    emit({"phase": "paged_end_to_end", "per_kv": paged,
+          "seconds": seconds["paged_end_to_end"]})
+
+    t0 = time.perf_counter()
+    prefix = prefix_end_to_end(models)
+    seconds["prefix_end_to_end"] = time.perf_counter() - t0
+    emit({"phase": "prefix_end_to_end", **prefix, "seconds": seconds["prefix_end_to_end"]})
+
+    t0 = time.perf_counter()
+    paged_times = time_paged_decode(models, dev)
+    emit({"phase": "paged_decode_times", **paged_times})
+    paged_rows = time_paged_kernel(dev)
+    for r in paged_rows:
+        emit({"phase": "decode_kernel_time", **r})
+    dec_rows += paged_rows
+    seconds["paged_times"] = time.perf_counter() - t0
+
     launches_by_path = {"encoder": e2e["launches"],
                         **{f"decode_kv{kv}": v["launches"]
-                           for kv, v in dec["per_kv"].items()}}
+                           for kv, v in dec["per_kv"].items()},
+                        **{f"paged_kv{kv}": v["launches"] for kv, v in paged.items()},
+                        "prefix_dense_kv8": prefix["dense_prefix"]["launches"],
+                        "prefix_paged_kv8": prefix["paged_prefix"]["launches"],
+                        "prefix_paged_60pct_kv8": prefix["paged_prefix_60pct"]["launches"]}
     for path, need in (("encoder", ENCODER_KERNELS), ("decode_kv8", DECODER_KERNELS),
-                       ("decode_kv4", DECODER_KERNELS)):
+                       ("decode_kv4", DECODER_KERNELS), ("paged_kv8", PAGED_KERNELS),
+                       ("paged_kv4", PAGED_KERNELS), ("prefix_dense_kv8", DECODER_KERNELS),
+                       ("prefix_paged_kv8", PAGED_KERNELS),
+                       ("prefix_paged_60pct_kv8", PAGED_KERNELS)):
         idle = [k for k in need if not launches_by_path[path][k]]
         if idle:
             raise AssertionError(f"{path}: kernels never launched on the main "
@@ -1153,7 +1694,11 @@ def main() -> int:
     report.write_text(json.dumps({"card": card, "kernels": entries,
                                   "end_to_end": e2e, "forward_32x128": enc_fwd,
                                   "decode_end_to_end": dec,
-                                  "decode_times": dec_times, "seconds": seconds},
+                                  "decode_times": dec_times,
+                                  "paged_end_to_end": paged,
+                                  "prefix_end_to_end": prefix,
+                                  "paged_decode_times": paged_times,
+                                  "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})
     print(card_line(), flush=True)

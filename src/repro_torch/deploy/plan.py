@@ -14,10 +14,11 @@ loads as ``"cuda"`` and writes back as ``"pallas"``, so an artifact moves
 between the two packages unchanged.
 
 Two modes are served: ``"encoder"`` (the bert family, prefill-only) and
-``"decode"`` (the dense decoder family over a dense slot KV cache at
-kv_bits 16, 8 or 4, chunked prefill). What later slices add raises
-``ValueError`` naming that slice: paged KV, tensor parallelism, token-mode
-prefill, the shared-prefix cache and the other model families.
+``"decode"`` (the dense decoder family over a dense slot KV cache or a
+paged block pool, ``kv_paging``, at kv_bits 16, 8 or 4, chunked prefill,
+with the shared-prefix cache when ``prefix_cache > 0``). What later slices
+add raises ``ValueError`` naming that slice: tensor parallelism, token-mode
+prefill and the other model families.
 """
 from __future__ import annotations
 
@@ -114,12 +115,6 @@ class ExecutionPlan:
         if prefill_mode not in ("chunked", "token"):
             raise ValueError(f"prefill_mode must be 'auto', 'chunked' or "
                              f"'token', got {prefill_mode!r}")
-        if kv_paging not in ("dense", "paged"):
-            raise ValueError(f"kv_paging must be 'dense' or 'paged', "
-                             f"got {kv_paging!r}")
-        if kv_paging != "dense":
-            raise ValueError(f"kv_paging={kv_paging!r}: paged KV is a later "
-                             "slice of the port")
         tp = int(tp)
         if tp != 1:
             raise ValueError(f"tp={tp}: tensor parallelism is a later slice "
@@ -132,6 +127,15 @@ class ExecutionPlan:
         if prefill_batch < 1:
             raise ValueError(f"prefill_batch must be >= 1, "
                              f"got {prefill_batch}")
+        if prefix_cache and prefill_mode != "chunked":
+            raise ValueError(
+                "prefix_cache needs the chunked slot-cache prefill path; "
+                f"prefill_mode={prefill_mode!r} has no KV rows to reuse")
+        if prefix_cache and cfg.learned_pos:
+            raise ValueError(
+                "prefix_cache: block-chunked prefill derives positions from "
+                "the KV cursor (RoPE); learned-pos embeddings index from 0 "
+                "and would disagree between chunked and whole-prompt runs")
         if mode == "encoder":
             if cfg.family != "bert":
                 raise ValueError(
@@ -158,10 +162,19 @@ class ExecutionPlan:
                 raise ValueError(
                     "prefill_mode='token': token-mode prefill is a later "
                     "slice of the port; decode plans prefill chunked")
-            if prefix_cache:
+        if kv_paging not in ("dense", "paged"):
+            raise ValueError(f"kv_paging must be 'dense' or 'paged', "
+                             f"got {kv_paging!r}")
+        if kv_paging == "paged":
+            if mode != "decode":
                 raise ValueError(
-                    f"prefix_cache={prefix_cache}: the shared-prefix KV cache "
-                    "is a later slice of the port")
+                    "kv_paging='paged' pages the decode KV cache; "
+                    f"mode={mode!r} retains none")
+            if prefill_mode != "chunked":
+                raise ValueError(
+                    "kv_paging='paged' needs the chunked slot-cache prefill "
+                    f"path; prefill_mode={prefill_mode!r} has no KV rows "
+                    "to page")
         if act_bits is not None:
             act_bits = int(act_bits)
             if act_bits not in (0, 4, 8):
@@ -237,7 +250,8 @@ class ExecutionPlan:
         segs = ", ".join(f"[{s}:{e}) w{sp.w_bits or 'fp'}/a{sp.a_bits or 'fp'}"
                          for s, e, sp in self.segments)
         kv = "" if self.mode == "encoder" else (
-            f"kv_bits={self.kv_bits}, prefill={self.prefill_mode}, "
+            ("" if self.kv_paging == "dense" else "kv_paging=paged, ")
+            + f"kv_bits={self.kv_bits}, prefill={self.prefill_mode}, "
             f"dtype={self.decode_dtype}, ")
         return (f"ExecutionPlan({self.cfg.name}, mode={self.mode}, "
                 f"backend={self.backend}, {kv}segments=({segs}))")

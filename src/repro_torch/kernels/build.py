@@ -44,6 +44,8 @@ SIGNATURES = {
     "int4_matmul_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "decode_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 #: kernel launches since the last :func:`reset_counts`

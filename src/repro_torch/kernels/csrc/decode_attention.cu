@@ -1,21 +1,34 @@
-// One-token decode attention over an int8 / packed-int4 KV cache
+// One-token decode attention over an int8 / packed-int4 KV cache, dense or
+// paged
 //
 //   for each slot b and query head hq (KV head h = hq / (H / Hkv)):
 //     q'      = q[b, hq] * (1 / sqrt(dh))                       f32
-//     k_j     = codes_k[b, j, h] * k_scale[b, j, h]             f32, j < S
+//     k_j     = codes_k[row(b, j), h] * k_scale[row(b, j), h]   f32, j < S
 //     s_j     = q' . k_j            (s_j = -2e38 for j >= lengths[b])
 //     s_new   = q' . k_new[b, h]
 //     out     = softmax([s ; s_new]) @ [v ; v_new[b, h]]        in q's dtype
 //
-// Replaces: src/repro/kernels/decode_attention.py::decode_attention_pallas
-//           (pl.pallas_call at decode_attention.py:102).
+// Two entries:
+//   decode_attention_launch        dense cache, row(b, j) = (b, j).
+//     Replaces src/repro/kernels/decode_attention.py::decode_attention_pallas
+//     (pl.pallas_call at decode_attention.py:102).
+//   decode_attention_paged_launch  block pool, row(b, j) =
+//     (clamp(tables[b, j / blk], 0, NB - 1), j % blk), S = nb * blk.
+//     Replaces src/repro/kernels/decode_attention.py::decode_attention_paged
+//     (decode_attention.py:143, which gathers the blocks and reaches the
+//     pl.pallas_call at :102 through decode_attention_pallas at :166).
 //
 // Layouts (all row-major, contiguous):
 //   q, out          (B, H, dh)          f32 or bf16
 //   k_q, v_q        (B, S, Hkv, dhp)    int8 (dhp = dh) or uint8 nibbles
 //                                       packed along head_dim (dhp = dh / 2,
 //                                       element 2i in the low nibble, +7 bias)
+//                   paged: (NB, blk, Hkv, dhp), one layer of the pool
 //   k_scale,v_scale (B, S, Hkv)         f32, one scale per (token, head)
+//                   paged: (NB, blk, Hkv)
+//   tables          (B, nb)             int32 block ids (paged only); entries
+//                                       out of [0, NB) are clamped, as
+//                                       jnp.take(mode="clip") does
 //   k_new, v_new    (B, Hkv, dh)        q's dtype, the current token
 //   lengths         (B,)                int32 per-slot cursors
 //
@@ -28,12 +41,18 @@
 // never changes the output, and blocks wholly past the length are skipped
 // (the same result bit for bit). The loop runs over min(len, S) rows: an
 // idle slot whose cursor walked past S attends the whole buffer and never
-// reads beyond it.
+// reads beyond it. The paged kernel is the dense one with the table lookup
+// in its row addressing: the same tiles from position 0, the same order of
+// sums, so on a pool it is bit-equal to the dense kernel on the layout its
+// tables describe (the gathered cache).
 //
 // Bound on H100: bytes. A decode step reads each slot's codes and scales
 // once: at B = 8, S = 512, Hkv = 32, dh = 80 that is 22.0 MB for an int8
 // cache (6.6 us at 3.35 TB/s) and 11.5 MB for int4 (3.4 us); the arithmetic
-// is about 2 * B * H * len * dh * 2 flops, far below the f32 rate.
+// is about 2 * B * H * len * dh * 2 flops, far below the f32 rate. The
+// paged kernel moves the same bytes plus 4 * B * nb of table: it reads the
+// pool in place, where gathering a dense copy first would read and write
+// the whole cache once more.
 //
 // Design (simple first): one block of 128 threads per (KV head, slot), which
 // owns the G = H / Hkv query heads of its group. The cache is walked in
@@ -41,8 +60,12 @@
 // memory (K rows padded to an odd stride, so lane j reading row j is free of
 // bank conflicts); warp w scores query heads w, w + 4, ... with one lane per
 // row and updates (m, l) with warp shuffles; then every thread updates its
-// share of the G x dh accumulator. Not yet: wide or asynchronous (cp.async /
-// TMA) loads, a split over S for few slots, tensor cores.
+// share of the G x dh accumulator. The paged kernel resolves each tile's 32
+// physical rows (table entry clamped, times blk, plus the offset) into
+// shared memory once, while the tile before it accumulates P.V, so its code
+// loads wait on no table load and divide by nothing. Not yet: wide or
+// asynchronous (cp.async / TMA) loads, a split over S for few slots, tensor
+// cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,15 +101,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Dequantize cache rows [pos0, pos0 + n) of one (slot, KV head) into
 // dst[j * ld + d]; rows n .. kBS-1 are zero-filled. `codes` points at the
-// (slot, position 0, head) code row, `scales` at its scale. Every load of
-// the block is issued before the first is used, so a tile waits on the
-// memory latency once, not once per code byte.
-template <bool kInt4>
+// code row of physical row 0 of the KV head, `scales` at its scale; the
+// dense cache's physical row is (slot, pos), the pool's prow[j] (row
+// pos0 + j of the slot through its table). Every load of the block is
+// issued before the first is used, so a tile waits on the memory latency
+// once, not once per code byte.
+template <bool kInt4, bool kPaged>
 __device__ __forceinline__ void load_rows(const uint8_t* __restrict__ codes,
                                           const float* __restrict__ scales,
                                           long long row_stride, int Hkv,
                                           int pos0, int n, int dhp, float* dst,
-                                          int ld) {
+                                          int ld, const int* prow) {
   constexpr int kPer = kBS * (kInt4 ? kMaxDh / 2 : kMaxDh) / kThreads;
   uint32_t byte[kPer];
   float s[kPer];
@@ -97,9 +122,9 @@ __device__ __forceinline__ void load_rows(const uint8_t* __restrict__ codes,
     byte[i] = 0u;
     s[i] = 0.f;
     if (idx < kBS * dhp && j < n) {
-      const long long pos = pos0 + j;
-      byte[i] = codes[pos * row_stride + (idx - j * dhp)];
-      s[i] = scales[pos * Hkv];
+      const long long row = kPaged ? prow[j] : pos0 + j;
+      byte[i] = codes[row * row_stride + (idx - j * dhp)];
+      s[i] = scales[row * Hkv];
     }
   }
 #pragma unroll
@@ -120,20 +145,36 @@ __device__ __forceinline__ void load_rows(const uint8_t* __restrict__ codes,
   }
 }
 
-template <typename T, bool kInt4>
+// Paged: rows [p0, p0 + kBS) of the slot -> their pool rows in prow: block
+// tb[pos / blk] clamped to [0, NB - 1] (as jnp.take(mode="clip") does),
+// offset pos % blk. One thread per row.
+template <bool kPaged>
+__device__ __forceinline__ void resolve_rows(int* prow, const int* tb, int p0,
+                                             int n_rows, int NB, int blk) {
+  const int pos = p0 + static_cast<int>(threadIdx.x);
+  if (kPaged && threadIdx.x < kBS && pos < n_rows)
+    prow[threadIdx.x] = min(max(tb[pos / blk], 0), NB - 1) * blk + pos % blk;
+}
+
+// S is the dense extent (paged: nb * blk); `tables` (B, nb), NB and blk are
+// read only when kPaged
+template <typename T, bool kInt4, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kq,
                         const uint8_t* __restrict__ vq,
                         const float* __restrict__ ks,
                         const float* __restrict__ vs, const T* __restrict__ kn,
                         const T* __restrict__ vn,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        int S, int H, int Hkv, int dh, float scale) {
+                        const int* __restrict__ lengths,
+                        const int* __restrict__ tables, T* __restrict__ out,
+                        int S, int nb, int blk, int NB, int H, int Hkv, int dh,
+                        float scale) {
   __shared__ float Ks[kBS][kMaxDh + 1];
   __shared__ float Vs[kBS][kMaxDh];
   __shared__ float qs[kMaxG][kMaxDh];
   __shared__ float ps[kMaxG][kBS];
   __shared__ float ms[kMaxG], ls[kMaxG], cs[kMaxG];
+  __shared__ int prow[kPaged ? kBS : 1];  // the next tile's physical rows
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int G = H / Hkv;
@@ -154,18 +195,27 @@ decode_attention_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kq,
   const int len = lengths[b];
   const int n_rows = len <= 0 ? 0 : (len < S ? len : S);
   const long long row_stride = (long long)Hkv * dhp;
-  const long long slot_row0 = (long long)b * S * Hkv + h;  // (b, 0, h)
-  const uint8_t* kb = kq + slot_row0 * dhp;
-  const uint8_t* vb = vq + slot_row0 * dhp;
-  const float* ksb = ks + slot_row0;
-  const float* vsb = vs + slot_row0;
+  // physical row 0 of KV head h: (b, 0, h) of the dense cache, (0, 0, h) of
+  // the pool
+  const long long row0 = (kPaged ? 0LL : (long long)b * S * Hkv) + h;
+  const uint8_t* kb = kq + row0 * dhp;
+  const uint8_t* vb = vq + row0 * dhp;
+  const float* ksb = ks + row0;
+  const float* vsb = vs + row0;
+  const int* tb = kPaged ? tables + (long long)b * nb : nullptr;
+  resolve_rows<kPaged>(prow, tb, 0, n_rows, NB, blk);
   __syncthreads();
 
   for (int pos0 = 0; pos0 < n_rows; pos0 += kBS) {
     const int n = min(kBS, n_rows - pos0);
-    load_rows<kInt4>(kb, ksb, row_stride, Hkv, pos0, n, dhp, &Ks[0][0], kMaxDh + 1);
-    load_rows<kInt4>(vb, vsb, row_stride, Hkv, pos0, n, dhp, &Vs[0][0], kMaxDh);
+    load_rows<kInt4, kPaged>(kb, ksb, row_stride, Hkv, pos0, n, dhp, &Ks[0][0],
+                             kMaxDh + 1, prow);
+    load_rows<kInt4, kPaged>(vb, vsb, row_stride, Hkv, pos0, n, dhp, &Vs[0][0],
+                             kMaxDh, prow);
     __syncthreads();
+    // prow is read only above: resolve the next tile's rows now, visible
+    // to it after the barrier that closes this tile
+    resolve_rows<kPaged>(prow, tb, pos0 + kBS, n_rows, NB, blk);
     for (int g = warp; g < G; g += kWarps) {
       float s = kNegInf;
       if (lane < n) {
@@ -229,19 +279,40 @@ decode_attention_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kq,
   }
 }
 
-template <typename T, bool kInt4>
+template <typename T, bool kInt4, bool kPaged>
 int launch(const void* q, const void* kq, const void* vq, const void* ks,
            const void* vs, const void* kn, const void* vn, const void* lengths,
-           void* out, int B, int S, int H, int Hkv, int dh, float scale,
-           cudaStream_t st) {
+           const void* tables, void* out, int B, int S, int nb, int blk, int NB,
+           int H, int Hkv, int dh, float scale, cudaStream_t st) {
   const dim3 grid(Hkv, B);
-  decode_attention_kernel<T, kInt4><<<grid, kThreads, 0, st>>>(
+  decode_attention_kernel<T, kInt4, kPaged><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(q), static_cast<const uint8_t*>(kq),
       static_cast<const uint8_t*>(vq), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const T*>(kn),
       static_cast<const T*>(vn), static_cast<const int*>(lengths),
-      static_cast<T*>(out), S, H, Hkv, dh, scale);
+      static_cast<const int*>(tables), static_cast<T*>(out), S, nb, blk, NB, H,
+      Hkv, dh, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPaged>
+int dispatch(const void* q, const void* kq, const void* vq, const void* ks,
+             const void* vs, const void* kn, const void* vn,
+             const void* lengths, const void* tables, void* out, int B, int S,
+             int nb, int blk, int NB, int H, int Hkv, int dh, int kv_bits,
+             int in_bf16, float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxG || dh > kMaxDh ||
+      dh <= 0 || (kv_bits == 4 && dh % 2 != 0) || (kv_bits != 4 && kv_bits != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_DA_ARGS q, kq, vq, ks, vs, kn, vn, lengths, tables, out, B, S, nb, blk, NB, H, Hkv, dh, scale, st
+  if (in_bf16) {
+    return kv_bits == 4 ? launch<__nv_bfloat16, true, kPaged>(REPRO_DA_ARGS)
+                        : launch<__nv_bfloat16, false, kPaged>(REPRO_DA_ARGS);
+  }
+  return kv_bits == 4 ? launch<float, true, kPaged>(REPRO_DA_ARGS)
+                      : launch<float, false, kPaged>(REPRO_DA_ARGS);
+#undef REPRO_DA_ARGS
 }
 
 }  // namespace
@@ -255,16 +326,20 @@ extern "C" int decode_attention_launch(const void* q, const void* kq,
                                        void* out, int B, int S, int H, int Hkv,
                                        int dh, int kv_bits, int in_bf16,
                                        float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxG || dh > kMaxDh ||
-      dh <= 0 || (kv_bits == 4 && dh % 2 != 0) || (kv_bits != 4 && kv_bits != 8))
+  return dispatch<false>(q, kq, vq, ks, vs, kn, vn, lengths, nullptr, out, B, S,
+                         0, 1, 0, H, Hkv, dh, kv_bits, in_bf16, scale, stream);
+}
+
+// The paged entry: kq/vq/ks/vs are one layer of the pool, NB blocks of blk
+// rows; tables (B, nb) int32; the dense extent is nb * blk.
+extern "C" int decode_attention_paged_launch(
+    const void* q, const void* kq, const void* vq, const void* ks,
+    const void* vs, const void* tables, const void* kn, const void* vn,
+    const void* lengths, void* out, int B, int nb, int blk, int NB, int H,
+    int Hkv, int dh, int kv_bits, int in_bf16, float scale, void* stream) {
+  if (nb <= 0 || blk <= 0 || NB <= 0 || (long long)nb * blk > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_bf16) {
-    return kv_bits == 4
-               ? launch<__nv_bfloat16, true>(q, kq, vq, ks, vs, kn, vn, lengths, out, B, S, H, Hkv, dh, scale, st)
-               : launch<__nv_bfloat16, false>(q, kq, vq, ks, vs, kn, vn, lengths, out, B, S, H, Hkv, dh, scale, st);
-  }
-  return kv_bits == 4
-             ? launch<float, true>(q, kq, vq, ks, vs, kn, vn, lengths, out, B, S, H, Hkv, dh, scale, st)
-             : launch<float, false>(q, kq, vq, ks, vs, kn, vn, lengths, out, B, S, H, Hkv, dh, scale, st);
+  return dispatch<true>(q, kq, vq, ks, vs, kn, vn, lengths, tables, out, B,
+                        nb * blk, nb, blk, NB, H, Hkv, dh, kv_bits, in_bf16,
+                        scale, stream);
 }

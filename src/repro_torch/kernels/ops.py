@@ -15,7 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from .act_quant import act_quant_cuda, act_quant_plain
-from .decode_attention import decode_attention_cuda, decode_attention_plain
+from .decode_attention import (decode_attention_cuda,
+                               decode_attention_paged_cuda,
+                               decode_attention_paged_plain,
+                               decode_attention_plain)
 from .int4_matmul import (int4_matmul_cuda, int4_matmul_fused_cuda,
                           int4_matmul_fused_plain, int4_matmul_plain)
 from .int8_matmul import int8_matmul_cuda, int8_matmul_plain
@@ -77,4 +80,23 @@ def decode_attention(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
     fn = decode_attention_cuda if q.is_cuda else decode_attention_plain
     return fn(q.contiguous(), k_q.contiguous(), v_q.contiguous(),
               k_scale.contiguous(), v_scale.contiguous(), k_new.contiguous(),
+              v_new.contiguous(), lens)
+
+
+def decode_attention_paged(q: torch.Tensor, k_q: torch.Tensor,
+                           v_q: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor, tables: torch.Tensor,
+                           k_new: torch.Tensor, v_new: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention straight from one layer of a block pool: q (B, H,
+    dh), ONE new token per slot; k_q/v_q (NB, block, Hkv, dhp) codes;
+    k_scale/v_scale (NB, block, Hkv); tables (B, nb) block ids (out-of-range
+    entries clamp); k_new/v_new (B, Hkv, dh); lengths (B,). Returns (B, H,
+    dh) in q's dtype."""
+    B = q.shape[0]
+    lens = lengths.to(torch.int32).reshape(-1).expand(B).contiguous()
+    fn = decode_attention_paged_cuda if q.is_cuda else decode_attention_paged_plain
+    return fn(q.contiguous(), k_q.contiguous(), v_q.contiguous(),
+              k_scale.contiguous(), v_scale.contiguous(),
+              tables.to(torch.int32).contiguous(), k_new.contiguous(),
               v_new.contiguous(), lens)

@@ -5,8 +5,10 @@ the scores and the softmax stay in fp32 (paper §5). The cacheless and the
 fp-cache branches are plain PyTorch, as the JAX package computes them
 outside any Pallas kernel. One-token decode steps over a quantized cache
 under a kernel plan go through ``ops.decode_attention`` (the hand-written
-decode-attention kernel); every other quantized-cache step dequantizes and
-attends in PyTorch.
+decode-attention kernel), or ``ops.decode_attention_paged`` over a paged
+block pool; every other quantized-cache step dequantizes and attends in
+PyTorch, and every other paged step first gathers the slots' blocks
+through their tables (``gather_kv_blocks``), as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -88,10 +90,12 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
 
     cache: one layer's decode cache, fp ``{'k', 'v', 'len'}`` or quantized
         ``{'k_q', 'v_q', 'k_scale', 'v_scale', 'len'}``; ``len`` is a 0-d
-        cursor or (B,) per-slot lengths. With a cache the new tokens sit at
-        positions ``len ...`` and attend the cache masked to ``len`` plus
-        themselves; ``new_kv`` is their (k, v), which the caller writes
-        (quantizing on append), so a token attends itself at full precision.
+        cursor or (B,) per-slot lengths. A paged cache also holds
+        ``tables`` (B, nb), and its buffers are one layer of the block pool,
+        (NB, block, ...). With a cache the new tokens sit at positions
+        ``len ...`` and attend the cache masked to ``len`` plus themselves;
+        ``new_kv`` is their (k, v), which the caller writes (quantizing on
+        append), so a token attends itself at full precision.
     kv_len: (B,) per-row valid lengths for the cacheless path: keys at or
         past a row's length are masked before the softmax, which keeps
         bucket-padded bidirectional (encoder) rows independent of their
@@ -111,12 +115,28 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         k = apply_rope(k, cos, sin)
     groups = n_heads // n_kv
     new_kv = None
+    paged = cache is not None and "tables" in cache
+    if paged and not ("k_q" in cache and spec.use_kernels and Sq == 1):
+        # no kernel for this step: gather the dense layout the tables
+        # describe and attend as the dense cache would
+        from ..kernels.decode_attention import gather_kv_blocks
+        cache = {key: (gather_kv_blocks(val, cache["tables"])
+                       if key in ("k", "v", "k_q", "v_q", "k_scale",
+                                  "v_scale") else val)
+                 for key, val in cache.items()}
+        paged = False
     if cache is not None and "k_q" in cache:
         if spec.use_kernels and Sq == 1:
             from ..kernels import ops as kops
-            out = kops.decode_attention(
-                q[:, 0], cache["k_q"], cache["v_q"], cache["k_scale"],
-                cache["v_scale"], k[:, 0], v[:, 0], cache["len"])[:, None]
+            if paged:
+                out = kops.decode_attention_paged(
+                    q[:, 0], cache["k_q"], cache["v_q"], cache["k_scale"],
+                    cache["v_scale"], cache["tables"], k[:, 0], v[:, 0],
+                    cache["len"])[:, None]
+            else:
+                out = kops.decode_attention(
+                    q[:, 0], cache["k_q"], cache["v_q"], cache["k_scale"],
+                    cache["v_scale"], k[:, 0], v[:, 0], cache["len"])[:, None]
         else:
             from ..kernels.kv_pack import dequantize_kv
             kk_c = _repeat_kv(dequantize_kv(cache["k_q"], cache["k_scale"],

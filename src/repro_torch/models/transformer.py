@@ -170,11 +170,17 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, offset: int = 0):
 
 
 # ------------------------------------------------------------ decoder LM
+#: keys of the paged cache dict that are per step, not per layer
+PAGED_STEP_KEYS = ("len", "tables", "write_block", "write_off")
+
+
 def layer_cache(cs: dict, idx: int) -> dict:
     """Layer ``idx`` of the stacked cache (views, not copies); works for the
     fp {'k','v'} and the quantized {'k_q','v_q','k_scale','v_scale'}
-    layouts alike."""
-    return {key: (val if key == "len" else val[idx]) for key, val in cs.items()}
+    layouts alike, dense (L, B, S, ...) or paged (L, NB, block, ...). The
+    cursors, and a paged cache's tables and write targets, pass through."""
+    return {key: (val if key in PAGED_STEP_KEYS else val[idx])
+            for key, val in cs.items()}
 
 
 def write_new_kv(cs: dict, idx: int, new_kv) -> None:
@@ -188,7 +194,10 @@ def write_new_kv(cs: dict, idx: int, new_kv) -> None:
     one token per step; a slot whose cursor reached the end of the buffer
     (an idle slot that keeps decoding) writes nothing: the JAX package drops
     such writes with ``mode='drop'``, and here the index is clamped and the
-    old row written back, with no host synchronisation."""
+    old row written back, with no host synchronisation. A paged cache (a
+    ``tables`` key, see ``serving/block_pool.py``) takes each slot's row at
+    its own ``(write_block, write_off)``, which the host aimed at the
+    slot's cursor or, for an idle slot, at the pool's trash block."""
     k_new, v_new = new_kv
     if "k_q" in cs:
         from ..kernels.kv_pack import quantize_kv
@@ -208,8 +217,14 @@ def write_new_kv(cs: dict, idx: int, new_kv) -> None:
         return
     if Sq != 1:
         raise NotImplementedError(
-            "multi-token writes at per-slot cursors belong to the prefix "
-            "cache path, a later slice of the port")
+            "per-slot cursors take one token per step; multi-token writes "
+            "(prefill, the prefix-cache chunks) run on a scratch cache with "
+            "a 0-d cursor")
+    if "tables" in cs:
+        wb, wo = cs["write_block"], cs["write_off"]
+        for key, val in rows.items():
+            cs[key][idx][wb, wo] = val[:, 0]
+        return
     S = cs[next(iter(rows))].shape[2]
     pos = lens.to(torch.int64)
     keep = pos < S
@@ -228,8 +243,10 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
     activation dtype, padded-vocab entries at -1e9.
 
     caches: stacked per-layer KV caches ``{'k': (L,B,Smax,Hkv,hd), ...,
-    'len'}`` or the quantized layout, or None. They are updated in place;
-    ``new_caches`` holds the same buffers and ``len + S``."""
+    'len'}`` or the quantized layout, or a paged cache dict
+    (``serving/block_pool.PagedKVCache.decode_state``), or None. They are
+    updated in place; ``new_caches`` holds the same buffers and
+    ``len + S``."""
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
     x = _embed(params, cfg, tokens)

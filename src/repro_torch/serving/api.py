@@ -250,9 +250,18 @@ class TokenStream:
 
 
 # ----------------------------------------------------------------- sampling
+_M64 = (1 << 64) - 1
+
+
 def _generator_seed(seed: int, step: int) -> int:
-    """One 63-bit generator seed per (request seed, token index)."""
-    return ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+    """One 64-bit generator seed per (request seed, token index): the pair
+    packed into 64 bits and mixed by splitmix64's finalizer, so that the
+    low 32 bits, all the CPU generator keeps, depend on both."""
+    z = ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
 
 
 def sample_token(logits: torch.Tensor, seed: int, step: int,

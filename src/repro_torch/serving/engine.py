@@ -1,5 +1,6 @@
-"""Serving engine: generation over a dense slot KV cache (decode mode) and
-prefill-only classify / embed / score (encoder mode).
+"""Serving engine: generation over a dense slot KV cache or a paged block
+pool (decode mode), with shared-prefix KV reuse, and prefill-only classify /
+embed / score (encoder mode).
 
 Requests ride the scheduler (priority heap, bounded queue, deadline
 shedding, cancellation, injectable clock). ``engine_step()`` is the public
@@ -17,6 +18,22 @@ pump; it returns the ``(rid, token)`` pairs it emitted.
   one-token attention over the quantized cache run through the
   hand-written kernels, and the decode forward makes no host
   synchronisation until the sampled ids are read back.
+* **paged KV** (``plan.kv_paging='paged'``, DESIGN.md §15): the slot cache
+  is a refcounted block pool (``serving/block_pool.py``) under ONE byte
+  budget (``kv_budget_bytes``, by default the bytes the dense layout would
+  preallocate). A request admits only if its worst-case block need fits;
+  prompt blocks are written once at prefill; ``n > 1`` samples share their
+  full prompt blocks copy-on-write; each decode step attends straight from
+  the pool through the slots' block tables (on the card, the paged
+  decode-attention kernel) and writes each active slot's new row to its
+  own block. Streams are byte-identical to the dense layout's.
+* **shared prefix** (``plan.prefix_cache > 0``, DESIGN.md §11): the longest
+  cached block-aligned prefix of a prompt is restored — quantized codes
+  and scales copy directly, from the host ``PrefixCache`` on a dense
+  engine, or by attaching the pool's resident blocks by reference on a
+  paged one — and only the suffix is computed, one ``PREFIX_BLOCK`` chunk
+  per forward, so the rows a cold run attends to are bit-equal to the rows
+  a hit restores.
 * **encoder mode** (a ``mode='encoder'`` plan over bert): admissions are
   grouped the same way and resolved by ONE bidirectional forward with
   per-row length masking; every request frees its slot inside the step
@@ -24,8 +41,8 @@ pump; it returns the ``(rid, token)`` pairs it emitted.
 
 Greedy streams are ``argmax``; sampled ones draw from a per-request
 generator seeded from (seed, token index), so a request's tokens depend on
-(prompt, seed) only. Left for later slices: the shared-prefix cache, paged
-KV, token-mode prefill and the decoder ``score`` task.
+(prompt, seed) only. Left for later slices: token-mode prefill and the
+decoder ``score`` task.
 """
 from __future__ import annotations
 
@@ -36,14 +53,17 @@ import numpy as np
 import torch
 
 from ..deploy import DeployedModel, ExecutionPlan
+from ..kernels.kv_pack import kv_buffer_keys
 from ..models import api as model_api
 from ..models.bert import bert_encode, bert_pool
 from .api import (GenerationRequest, SamplingParams, TokenStream,
                   sample_batch, sample_seed, sample_token)
+from .block_pool import BlockPool, PagedKVCache, blocks_needed
 from .clock import SYSTEM_CLOCK, Clock
 from .encoder import EncodeHandle, EncodeRequest
 from .kv_cache import SlotKVCache
 from .metrics import ServeMetrics
+from .prefix_cache import PREFIX_BLOCK, PrefixCache
 from .scheduler import Scheduler, group_admits
 
 
@@ -58,6 +78,12 @@ def _pow2_ceil(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def _host_bits(t: torch.Tensor) -> np.ndarray:
+    """A host copy for the prefix store; bf16 keeps its bits as int16."""
+    t = t.cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
 class ServingEngine:
     """Continuous-batching engine over a deployed quantized model.
 
@@ -65,13 +91,15 @@ class ServingEngine:
     tree with ``plan`` passed explicitly. The engine runs where the params
     lie (a deployed model on the card serves on the card). ``max_queue``
     bounds the pending queue (``submit``/``submit_encode`` raise
-    ``QueueFullError`` past it).
+    ``QueueFullError`` past it). ``kv_budget_bytes`` sizes the block pool
+    of a ``kv_paging='paged'`` plan (default: the dense layout's bytes).
     """
 
     def __init__(self, model, plan: Optional[ExecutionPlan] = None, *,
                  slots: int = 8, max_len: int = 512,
                  max_queue: Optional[int] = None,
-                 clock: Clock = SYSTEM_CLOCK):
+                 clock: Clock = SYSTEM_CLOCK,
+                 kv_budget_bytes: Optional[int] = None):
         if isinstance(model, DeployedModel):
             if plan is not None and plan != model.plan:
                 raise ValueError(
@@ -108,20 +136,60 @@ class ServingEngine:
         self._temp = np.zeros(slots, np.float32)
         self._topk = np.zeros(slots, np.int32)
         self._topp = np.ones(slots, np.float32)
-        self.kv = (None if self.mode == "encoder"
-                   else SlotKVCache.from_plan(plan, slots, max_len,
-                                              device=self.device))
+        self.prefix_cache: Optional[PrefixCache] = None
+        self._prefix_refs: dict[int, tuple] = {}   # rid -> pinned block keys
+        # paged KV layout (DESIGN.md §15): plan.kv_paging='paged' routes the
+        # slot cache through the refcounted block pool
+        self.paged = plan.kv_paging == "paged"
+        self.pool: Optional[BlockPool] = None
+        self._prefix_on = False    # paged-mode prefix registry switch
+        self._reserved = 0         # blocks reserved within one admit round
+        if kv_budget_bytes is not None and not self.paged:
+            raise ValueError(
+                "kv_budget_bytes applies to kv_paging='paged' plans only "
+                "(the dense layout preallocates slots*max_len rows)")
+        if self.mode == "encoder":
+            self.kv = None
+        elif self.paged:
+            if max_len % PREFIX_BLOCK:
+                raise ValueError(
+                    f"kv_paging='paged' needs max_len % {PREFIX_BLOCK} "
+                    f"== 0 (block granularity), got {max_len}")
+            if kv_budget_bytes is None:
+                # dense-equivalent default: exactly the bytes the dense
+                # layout would preallocate, so flipping kv_paging alone
+                # changes the layout, never the capacity
+                kv_budget_bytes = slots * (max_len // PREFIX_BLOCK) * \
+                    BlockPool.block_bytes(self.cfg, plan.kv_bits,
+                                          plan.torch_dtype)
+            self.pool = BlockPool(self.cfg, kv_budget_bytes,
+                                  dtype=plan.torch_dtype, kv_bits=plan.kv_bits,
+                                  device=self.device)
+            self.kv = PagedKVCache(self.pool, slots, max_len)
+            # plan.prefix_cache > 0 switches prefix reuse on; the BYTE value
+            # is absorbed by the pool budget (the registry shares the pool's
+            # blocks instead of owning a second store)
+            self._prefix_on = plan.prefix_cache > 0
+        else:
+            self.kv = SlotKVCache.from_plan(plan, slots, max_len,
+                                            device=self.device)
+            if plan.prefix_cache:
+                self.prefix_cache = PrefixCache(plan.prefix_cache)
 
     # ------------------------------------------------------------------ API
     def submit(self, req: GenerationRequest, *,
                on_token: Optional[Callable[[int, int], None]] = None):
         """Validate + enqueue; returns the request's :class:`TokenStream`.
-        Malformed requests are rejected here, before any KV row is written.
+        Malformed requests are rejected here, before any KV row is written;
+        on a paged engine, so is a request whose worst-case block need
+        exceeds the whole pool.
 
         ``sampling.n > 1`` fans out into ``n`` child requests (sample ``i``
-        decodes with seed ``sample_seed(seed, i)``) in plain slots and
-        returns a LIST of ``n`` streams. A ``QueueFullError`` mid-fanout
-        propagates; children already enqueued stay queued."""
+        decodes with seed ``sample_seed(seed, i)``) and returns a LIST of
+        ``n`` streams. On a paged engine the children share the prompt's KV
+        blocks copy-on-write; on a dense engine they expand into plain
+        slots — the streams are identical either way. A ``QueueFullError``
+        mid-fanout propagates; children already enqueued stay queued."""
         if self.mode == "encoder":
             raise ValueError(
                 "this engine serves a mode='encoder' plan: no decode loop "
@@ -137,6 +205,13 @@ class ServingEngine:
                 f"request {req.rid}: prompt ({plen}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds engine max_len "
                 f"({self.max_len})")
+        if self.paged:
+            need = blocks_needed(plen, req.max_new_tokens)
+            if need > self.pool.num_blocks:
+                raise ValueError(
+                    f"request {req.rid}: needs {need} KV blocks but the "
+                    f"pool budget holds {self.pool.num_blocks} total — "
+                    "raise kv_budget_bytes or shrink the request")
         req.sampling = SamplingParams.resolve(
             req.sampling if req.sampling is not None
             else self.default_sampling)
@@ -200,9 +275,9 @@ class ServingEngine:
 
     def cancel(self, rid: int) -> bool:
         """Cancel a queued or mid-flight request. An occupied slot is freed
-        at once (its KV rows zeroed, its cursor rewound); tokens already
-        generated stay on ``req.out``. False when ``rid`` is unknown or
-        already finished."""
+        at once (its KV rows zeroed, or its pool blocks released, and its
+        cursor rewound); tokens already generated stay on ``req.out``.
+        False when ``rid`` is unknown or already finished."""
         req = self.scheduler.cancel(rid)
         if req is not None:                      # still queued: never ran
             self._finalize_unslotted(req, "cancelled")
@@ -251,7 +326,13 @@ class ServingEngine:
         (decode mode) or one batched encode per group (encoder mode).
         Returns the ``(rid, token)`` pairs emitted this step."""
         self._events = []
-        placed = self._admit()
+        fits = None
+        if self.paged:
+            # ONE byte budget drives admission: reservations are per round
+            # (prefill below turns them into real allocations)
+            self._reserved = 0
+            fits = self._paged_fits
+        placed = self._admit(fits)
         if self.mode == "encoder":
             if placed:
                 self._encode_admitted(placed)
@@ -261,13 +342,16 @@ class ServingEngine:
             self._decode_active()
         for req in self.scheduler.pop_shed():
             self._finalize_unslotted(req, "shed")
+        if self.paged:
+            self.metrics.update_kv(self.pool.stats())
         return self._events
 
     # ------------------------------------------------------------ lifecycle
-    def _admit(self) -> list:
-        """Scheduler admit + per-slot sampling state + queue-wait metric.
-        Clears the slot's stale token tally up front."""
-        placed = self.scheduler.admit()
+    def _admit(self, fits: Optional[Callable] = None) -> list:
+        """Scheduler admit (``fits``: the paged engine's budget predicate) +
+        per-slot sampling state + queue-wait metric. Clears the slot's
+        stale token tally up front."""
+        placed = self.scheduler.admit(fits=fits)
         for s, req in placed:
             self.generated[s] = []
             sp = getattr(req, "sampling", None)  # EncodeRequests don't sample
@@ -295,6 +379,11 @@ class ServingEngine:
         if handle is not None:
             handle._finish()
 
+    def _release_prefix(self, req) -> None:
+        keys = self._prefix_refs.pop(req.rid, None)
+        if keys and self.prefix_cache is not None:
+            self.prefix_cache.release(keys)
+
     def _finalize_unslotted(self, req, reason: str) -> None:
         """Finish a request that never occupied a slot (queued-cancel or
         deadline shed): empty output, straight to done."""
@@ -305,18 +394,25 @@ class ServingEngine:
         req.finish_reason = reason
         req.finish_t = self.clock()
         self.scheduler.done.append(req)
+        self._release_prefix(req)
         self._close_stream(req)
 
     def _finalize_slotted(self, slot: int, req, reason: str) -> None:
         """The one exit path for slotted requests (length/stop/cancel):
         output truncated to the request's own ``max_new_tokens``, slot
-        returned to the scheduler, stream closed."""
+        returned to the scheduler, prefix pins and pool blocks released,
+        stream closed."""
         if not isinstance(req, EncodeRequest):
             req.out = np.array(self.generated[slot][:req.max_new_tokens],
                                np.int32)
+        if self.paged:
+            # drop every block reference the request holds (shared blocks
+            # survive under their other holders / the prefix registry)
+            self.kv.release_slot(slot)
         req.finish_reason = reason
         req.finish_t = self.clock()
         self.scheduler.complete(slot)
+        self._release_prefix(req)
         self._close_stream(req)
 
     def _maybe_complete(self, slot: int, req: GenerationRequest) -> None:
@@ -353,23 +449,60 @@ class ServingEngine:
             if self.scheduler.active[s] is req:   # ... or a self-cancel
                 self._maybe_complete(s, req)
 
+    def chunk_forward(self, state: dict, tokens: torch.Tensor):
+        """One prefix-block forward over a plan-precision scratch cache
+        (``plan.decode_state(n, S)``, a 0-d cursor): the (n, block) tokens
+        attend the quantized rows of every earlier block (exactly what a
+        prefix hit restores) and fp rows within their own block; their rows
+        quantize on append. Returns (logits, the advanced scratch)."""
+        with torch.no_grad():
+            return model_api.forward(self.params, self.plan, state=state,
+                                     tokens=tokens)
+
     def _prefill_admitted(self, placed) -> None:
-        """Group this round's admissions by bucket (``prefill_batch`` caps
-        a group) and prefill each group in one forward."""
-        jobs = [(s, req, _bucket_for(len(req.prompt), self.max_len))
-                for s, req in placed]
-        groups = group_admits(jobs, key_fn=lambda j: j[2],
+        """Group this round's admissions and prefill each group in one
+        forward. The group key is (bucket, prefix-hit length, prefix block
+        keys): same-bucket requests sharing a cached prefix (or sharing
+        none) batch together; ``prefill_batch`` caps the group size."""
+        jobs = []
+        for s, req in placed:
+            plen = len(req.prompt)
+            bucket = _bucket_for(plen, self.max_len)
+            m, keys = 0, ()
+            if self.paged:
+                self.kv.open_slot(s, req.rid)
+                if self._prefix_on:
+                    # registry hit: attach resident blocks BY REFERENCE —
+                    # refcount++ pins them, no row copy ever happens
+                    m, ids = self.pool.match(req.prompt)
+                    if m:
+                        self.pool.attach(req.rid, ids)
+                        self.kv.extend_table(s, ids)
+                    keys = tuple(ids)
+                    self.metrics.record_prefix(m, plen)
+            elif self.prefix_cache is not None:
+                m, keys = self.prefix_cache.match(req.prompt)
+                self._prefix_refs[req.rid] = keys
+                self.metrics.record_prefix(m, plen)
+            jobs.append((s, req, bucket, m, keys))
+        groups = group_admits(jobs, key_fn=lambda j: (j[2], j[3], j[4]),
                               max_batch=self.prefill_batch)
-        for bucket, members in groups:
-            group = [(s, req) for s, req, _ in members
+        blocks_path = (self._prefix_on if self.paged
+                       else self.prefix_cache is not None)
+        for (bucket, m, keys), members in groups:
+            group = [(s, req) for s, req, *_ in members
                      if self.scheduler.active[s] is req]
-            if group:      # empty when cancelled by a callback mid-round
+            if not group:      # cancelled by a callback mid-round
+                continue
+            if blocks_path:
+                self._prefill_group_blocks(bucket, m, keys, group)
+            else:
                 self._prefill_group(bucket, group)
 
     def _prefill_group(self, bucket: int, group) -> None:
         """One batch-n fp forward covering every request in ``group``; each
         request's first token samples from its own logits row and its KV
-        rows scatter (quantize-on-insert) into its own slot."""
+        rows scatter (quantize-on-insert) into its own slot or blocks."""
         n = _pow2_ceil(len(group))
         toks = np.zeros((n, bucket), np.int64)
         for i, (s, req) in enumerate(group):
@@ -378,14 +511,184 @@ class ServingEngine:
         logits, pstate = self.prefill_forward(
             torch.as_tensor(toks, device=self.device))
         firsts, total = [], 0
+        fork_leaders: dict = {}
         for i, (s, req) in enumerate(group):
             plen = len(req.prompt)
             total += plen
             firsts.append(self._sample_first(logits[i, plen - 1], s))
-            self.kv.reset_slot(s)
-            self.kv.insert_prefill(s, pstate, plen, bucket, row=i)
+            if self.paged:
+                self._paged_insert_fp(s, req, pstate, i, fork_leaders)
+            else:
+                self.kv.reset_slot(s)
+                self.kv.insert_prefill(s, pstate, plen, bucket, row=i)
         self.metrics.record("prefill", self.clock() - t0, total)
         self._emit_first_tokens(group, firsts)
+
+    def _prefill_group_blocks(self, bucket: int, m: int, keys, group) -> None:
+        """Prefix-reuse prefill (DESIGN.md §11): restore the ``m`` cached
+        prefix tokens (codes + scales copy straight into the scratch cache,
+        no requantization) and compute only the suffix, one prefix block per
+        forward so hit and cold runs attend bit-identical rows.
+
+        Serves both layouts: dense restores host rows from the PrefixCache
+        store; paged gathers the resident pool blocks on the device (the
+        same values: the pool's blocks hold exactly the rows a dense publish
+        would have copied out)."""
+        B = self.pool.block if self.paged else self.prefix_cache.block
+        n = _pow2_ceil(len(group))
+        t0 = self.clock()
+        # scratch capacity on the BLOCK grid: a bucket capped at a
+        # non-multiple-of-B max_len would make the last chunk's write run
+        # past the buffer. Rounding up keeps every chunk write in bounds;
+        # the slot insert below copies only the first min(S, max_len) rows.
+        S = -(-bucket // B) * B
+        state = self.plan.decode_state(n, S, device=self.device)
+        if m:
+            if self.paged:
+                rows = self.pool.gather_rows(list(keys))
+            else:
+                # host rows hold raw bits (bf16 has no numpy dtype)
+                rows = {key: torch.as_tensor(val, device=self.device).view(
+                            state[key].dtype)
+                        for key, val in self.prefix_cache.gather(keys).items()}
+            for key, val in rows.items():
+                state[key][:, :, :m] = val[:, None]
+            state["len"] = torch.tensor(m, dtype=torch.int32,
+                                        device=self.device)
+        max_plen = max(len(req.prompt) for _, req in group)
+        n_chunks = -(-(max_plen - m) // B)
+        toks = np.zeros((n, n_chunks * B), np.int64)
+        for i, (s, req) in enumerate(group):
+            toks[i, :len(req.prompt) - m] = req.prompt[m:]
+        toks = torch.as_tensor(toks, device=self.device)
+        first_logits = [None] * len(group)
+        for c in range(n_chunks):
+            logits, state = self.chunk_forward(state, toks[:, c * B:(c + 1) * B])
+            for i, (s, req) in enumerate(group):
+                ci, pi = divmod(len(req.prompt) - 1 - m, B)
+                if ci == c:    # this chunk holds the request's last token
+                    first_logits[i] = logits[i, pi]
+        firsts, total = [], 0
+        copy = min(S, self.max_len)     # slot rows past plen stay masked
+        fork_leaders: dict = {}
+        for i, (s, req) in enumerate(group):
+            plen = len(req.prompt)
+            total += plen - m
+            firsts.append(self._sample_first(first_logits[i], s))
+            if self.paged:
+                self._paged_insert_state(s, req, state, i, m, fork_leaders)
+                self._paged_publish(req)
+            else:
+                self.kv.reset_slot(s)
+                self.kv.insert_rows(s, state, plen, copy, row=i)
+                self._publish_prefix(req, m, state, i)
+        self.metrics.record("prefill", self.clock() - t0, total)
+        self._emit_first_tokens(group, firsts)
+
+    def _publish_prefix(self, req, m: int, state: dict, row: int) -> None:
+        """Insert the request's newly computed full blocks into the prefix
+        cache (lazy device→host copy: hits never pay it)."""
+        plen = len(req.prompt)
+        upto = (plen // self.prefix_cache.block) * self.prefix_cache.block
+        if upto <= m:
+            return
+        buf_keys = kv_buffer_keys(self.kv.kv_bits)
+        host: dict = {}
+
+        def rows_for_block(lo, hi):
+            if not host:
+                host.update({key: _host_bits(state[key][:, row])
+                             for key in buf_keys})
+            return {key: host[key][:, lo:hi].copy() for key in buf_keys}
+
+        self.prefix_cache.insert(req.prompt, upto, rows_for_block)
+
+    # --------------------------------------------------------------- paged
+    def _paged_fits(self, req) -> bool:
+        """Admission predicate (DESIGN.md §15): a request admits only if
+        its WORST-CASE block need — every prompt + generated token, whole
+        blocks — fits in free + evictable pool blocks, minus what this
+        round's earlier admissions already reserved. Prefix hits only ever
+        reduce the blocks actually allocated, so a reservation can never be
+        exceeded."""
+        need = blocks_needed(len(req.prompt), req.max_new_tokens)
+        if self.pool.available() - self._reserved < need:
+            return False
+        self._reserved += need
+        return True
+
+    def _fork_share(self, slot: int, req, fork_leaders: dict, lo: int,
+                    nb_full: int) -> int:
+        """Copy-on-write fork bookkeeping for one prefill-group member.
+
+        The first member of a fork group in this prefill group is the
+        leader (recorded); later members attach the leader's FULL prompt
+        blocks ``[lo, nb_full)`` by reference and only write their own tail
+        block + decode blocks — prompt KV is stored once per group, decode
+        divergence stays private. (Fork members split across prefill groups
+        fall back to private blocks here; with the prefix registry on they
+        still converge to shared blocks via ``match`` on later arrivals.)
+        Returns the first block index this member must WRITE itself."""
+        if req.fork_group is None:
+            return lo
+        leader = fork_leaders.get(req.fork_group)
+        if leader is None or leader[1] != len(req.prompt):
+            fork_leaders[req.fork_group] = (slot, len(req.prompt))
+            return lo
+        share = self.kv.block_ids(leader[0])[lo:nb_full]
+        if not share:
+            return lo
+        self.pool.attach(req.rid, share)
+        self.kv.extend_table(slot, share)
+        self.pool.cow_forks += 1
+        return nb_full
+
+    def _paged_insert_fp(self, slot: int, req, pstate: dict, row: int,
+                         fork_leaders: dict) -> None:
+        """Paged analogue of ``insert_prefill``: allocate the request's
+        worst-case block need up front (admission already reserved it) and
+        write the prompt blocks from the fp prefill row, quantize-on-insert
+        at kv_bits < 16. Decode blocks are allocated NOW and written by the
+        decode steps — a request can never run out of KV mid-decode."""
+        B = self.pool.block
+        plen = len(req.prompt)
+        nb_full, nb_fill = plen // B, -(-plen // B)
+        start = self._fork_share(slot, req, fork_leaders, 0, nb_full)
+        own = self.pool.alloc(req.rid,
+                              blocks_needed(plen, req.max_new_tokens) - start)
+        self.kv.extend_table(slot, own)
+        write_n = nb_fill - start
+        if write_n:
+            self.kv.write_fp_blocks(own[:write_n], pstate, row, start, write_n)
+        self.kv.set_length(slot, plen)
+
+    def _paged_insert_state(self, slot: int, req, state: dict, row: int,
+                            m: int, fork_leaders: dict) -> None:
+        """Paged analogue of ``insert_rows`` (the prefix-chunked path):
+        blocks ``[0, m/B)`` are already attached by reference, so only the
+        computed-suffix blocks copy out of the plan-precision scratch —
+        same precision, no requantization."""
+        B = self.pool.block
+        plen = len(req.prompt)
+        nb_full, nb_fill = plen // B, -(-plen // B)
+        start = self._fork_share(slot, req, fork_leaders, m // B, nb_full)
+        own = self.pool.alloc(req.rid,
+                              blocks_needed(plen, req.max_new_tokens) - start)
+        self.kv.extend_table(slot, own)
+        write_n = nb_fill - start
+        if write_n:
+            self.kv.write_state_blocks(own[:write_n], state, row, start * B,
+                                       write_n)
+        self.kv.set_length(slot, plen)
+
+    def _paged_publish(self, req) -> None:
+        """Register the request's full prompt blocks in the pool's prefix
+        registry (pure bookkeeping — the blocks ARE the cache; no device→
+        host copy)."""
+        plen = len(req.prompt)
+        upto = (plen // self.pool.block) * self.pool.block
+        if upto:
+            self.pool.publish(req.rid, req.prompt, upto)
 
     # -------------------------------------------------------------- decode
     def _gen_steps(self) -> np.ndarray:
@@ -398,11 +701,20 @@ class ServingEngine:
     def decode_forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """One batched decode step over every slot: tokens (slots, 1) on
         the engine's device -> sampled ids (slots,) on that device. The
-        slot cache is updated in place (idle slots' writes drop); nothing
-        here waits for the device."""
+        slot cache is updated in place (idle slots' writes drop) and the
+        cursors advance; nothing here waits for the device. A paged engine
+        uploads the host's tables, cursors and write targets and attends
+        straight from the pool (``PagedKVCache.decode_state``)."""
         with torch.no_grad():
-            logits, self.kv.state = model_api.forward(
-                self.params, self.plan, state=self.kv.state, tokens=tokens)
+            if self.paged:
+                active = self.scheduler.active_slots()
+                logits, _ = model_api.forward(
+                    self.params, self.plan,
+                    state=self.kv.decode_state(active), tokens=tokens)
+                self.kv.advance(active)
+            else:
+                logits, self.kv.state = model_api.forward(
+                    self.params, self.plan, state=self.kv.state, tokens=tokens)
             return sample_batch(logits[:, -1], self._seed, self._gen_steps(),
                                 self._temp, self._topk, self._topp)
 

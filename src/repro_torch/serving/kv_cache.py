@@ -10,7 +10,9 @@ Each slot masks and appends at its own cursor, so refilling a finished slot
 cannot read the previous occupant's rows. Prefill writes through the
 quantizer: the prefill cache stays fp (one forward at full precision) and
 ``insert_prefill`` quantizes its rows on the way into the slot buffers;
-decode appends quantize in ``models/transformer.write_new_kv``. The buffers
+decode appends quantize in ``models/transformer.write_new_kv``. The
+prefix-reuse prefill computes in the table's precision, and
+``insert_rows`` copies its rows as they are. The buffers
 are updated in place on the device they were allocated on.
 """
 from __future__ import annotations
@@ -79,6 +81,20 @@ class SlotKVCache:
             rows = {key: pstate[key][:, row] for key in ("k", "v")}
         for key in kv_buffer_keys(self.kv_bits):
             self.state[key][:, slot, :bucket] = rows[key]
+        self.state["len"][slot] = length
+
+    def insert_rows(self, slot: int, src: dict, length: int, bucket: int,
+                    row: int = 0) -> None:
+        """Install row ``row`` of a scratch cache that ALREADY matches this
+        table's precision (the prefix-reuse chunked prefill, DESIGN.md §11):
+        quantized codes + per-(token, head) scales — or fp rows at kv_bits
+        16 — copy directly, no requantization. The scratch may hold more
+        than ``bucket`` rows (block-grid rounding); only the first
+        ``bucket`` copy."""
+        if bucket > self.max_len:
+            raise ValueError(f"bucket {bucket} exceeds max_len {self.max_len}")
+        for key in kv_buffer_keys(self.kv_bits):
+            self.state[key][:, slot, :bucket] = src[key][:, row, :bucket]
         self.state["len"][slot] = length
 
     def lengths(self) -> np.ndarray:

@@ -14,6 +14,8 @@ plus 1e-5 for bf16 (the online and the one-pass softmax sum in different
 orders, and that f32 difference survives the rounding of outputs near
 zero), and
 bit-unchanged when the cache rows past each slot's length are poisoned.
+Paged decode attention within the same bounds of its plain version, and
+bit-equal to the dense kernel on the layout its tables describe.
 """
 import pytest
 import torch
@@ -22,7 +24,10 @@ import torch.nn.functional as F
 from repro_torch.core.packing import pack_int4
 from repro_torch.kernels import build, kv_pack, ops
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  decode_attention_plain)
+                                                  decode_attention_paged_cuda,
+                                                  decode_attention_paged_plain,
+                                                  decode_attention_plain,
+                                                  gather_kv_blocks)
 from repro_torch.kernels.act_quant import act_quant_cuda, act_quant_plain
 from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
                                              int4_matmul_fused_cuda,
@@ -111,7 +116,8 @@ def test_ops_launch_kernels_and_count_them(dev):
     torch.cuda.synchronize()
     assert build.LAUNCHES == {"act_quant": 3, "int8_matmul": 1,
                               "int4_matmul": 1, "int4_matmul_fused": 1,
-                              "decode_attention": 0}
+                              "decode_attention": 0,
+                              "decode_attention_paged": 0}
     assert not any(build.PLAIN_ON_CUDA.values())
 
 
@@ -175,6 +181,43 @@ def test_decode_attention_kernel_matches_plain(dev, H, Hkv, dh, bits, dtype):
         for t in (3, 4):            # scales, finite garbage
             args[t][i, n:] = 3.0e4
     assert torch.equal(decode_attention_cuda(*args), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 80), (48, 8, 128), (4, 2, 16)])
+def test_decode_attention_paged_kernel_matches_plain_and_dense(dev, H, Hkv, dh,
+                                                               bits, dtype):
+    """A pool of 40 blocks; tables (8 slots x 9 entries, S = 72) that
+    permute the blocks, share some between slots and pad with the sentinel
+    (40) and entries past it; lengths 0, 1, partial, S and past S."""
+    NB, nb, blk = 40, 9, 8
+    lengths = [0, 1, 5, 31, 33, 64, nb * blk, nb * blk + 37]
+    g = torch.Generator().manual_seed(bits + H)
+    tables = torch.cat([torch.randperm(NB, generator=g),
+                        torch.randperm(NB, generator=g)])[:8 * nb].reshape(8, nb)
+    tables[3, 2:4] = tables[2, 2:4]          # blocks shared between slots
+    tables[1, 1:] = NB                       # the sentinel past the length
+    tables[0, 3] = NB + 7
+    tables = tables.to(torch.int32).to(dev)
+    args = _decode_inputs(dev, NB, blk, H, Hkv, dh, bits, dtype, [0] * NB, seed=1)
+    q, kn, vn = (t[:8] for t in (args[0], args[5], args[6]))
+    pool = args[1:5]                          # (NB, blk, Hkv, dhp) codes, scales
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = decode_attention_paged_cuda(q, *pool, tables, kn, vn, lens)
+    _assert_decode_close(got, decode_attention_paged_plain(q, *pool, tables, kn, vn, lens))
+    dense = [gather_kv_blocks(b, tables).contiguous() for b in pool]
+    assert torch.equal(got, decode_attention_cuda(q, *dense, kn, vn, lens))
+    # poison every pool row no table reaches below its slot's length
+    live = torch.zeros((NB, blk), dtype=torch.bool, device=dev)
+    for b, n in enumerate(lengths):
+        for pos in range(min(n, nb * blk)):
+            live[int(tables[b, pos // blk].clamp(0, NB - 1)), pos % blk] = True
+    for t in (pool[0], pool[1]):
+        t[~live] = 0x5A if bits == 8 else 0xF3
+    for t in (pool[2], pool[3]):
+        t[~live] = 3.0e4
+    assert torch.equal(decode_attention_paged_cuda(q, *pool, tables, kn, vn, lens), got)
 
 
 def test_decode_step_launches_through_ops(dev):

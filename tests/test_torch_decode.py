@@ -42,7 +42,8 @@ from repro_torch.deploy import DeployedModel, ExecutionPlan, deploy
 from repro_torch.deploy.plan import plan_from_meta, plan_to_meta
 from repro_torch.models import api
 from repro_torch.serving import (GenerationRequest, SamplingParams,
-                                 ServingEngine, VirtualClock, sample_seed)
+                                 ServingEngine, VirtualClock, sample_seed,
+                                 sample_token)
 
 VARIANTS = {"mha": {}, "gqa": {"num_kv_heads": 2}}
 
@@ -295,3 +296,16 @@ def test_port_artifact_serves_in_jax(jax_deployed, tmp_path):
     jl = japi.forward(jmodel.params, jmodel.plan, tokens=jnp.asarray(toks))[0]
     tl = api.forward(model.params, model.plan, tokens=torch.as_tensor(toks))[0]
     _logits_close(tl, jl)
+
+
+def test_request_seeds_draw_apart():
+    """Two request seeds at the same token index draw different noise. The
+    CPU generator keeps only the low 32 bits of a seed, so a seed that put
+    the request seed in the high bits alone drew the same token for every
+    request seed on the CPU."""
+    logits = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 0.15, 256).astype(np.float32))
+    draws = {int(sample_token(logits, seed, 1, 2.0, 0, 1.0)) for seed in range(16)}
+    assert len(draws) >= 8
+    again = {int(sample_token(logits, seed, 1, 2.0, 0, 1.0)) for seed in range(16)}
+    assert again == draws

@@ -140,8 +140,9 @@ def test_plan_meta_round_trip(backend, act_bits):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mode="decode", prefill_mode="token"), "token-mode prefill"),
-    (dict(mode="decode", prefix_cache=1024), "shared-prefix KV cache"),
-    (dict(kv_paging="paged"), "paged KV"),
+    (dict(mode="decode", prefill_mode="token", prefix_cache=1024),
+     "prefix_cache needs the chunked"),
+    (dict(kv_paging="paged"), "pages the decode KV cache"),
     (dict(tp=2), "tensor parallelism"),
     (dict(backend="pallas"), "backend"),
     (dict(act_bits=0, backend="cuda"), "reference-backend"),

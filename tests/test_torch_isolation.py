@@ -41,6 +41,8 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
                  "src/repro_torch/models/api.py",
                  "src/repro_torch/serving/engine.py",
                  "src/repro_torch/serving/kv_cache.py",
+                 "src/repro_torch/serving/block_pool.py",
+                 "src/repro_torch/serving/prefix_cache.py",
                  "src/repro_torch/deploy/artifact.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
@@ -95,6 +97,16 @@ def test_decode_entry_points_default_to_the_card(no_cuda):
         SlotKVCache(cfg, slots=2, max_len=8, kv_bits=8)
     assert SlotKVCache(cfg, slots=2, max_len=8, kv_bits=8,
                        device="cpu").state["k_q"].device.type == "cpu"
+
+
+def test_block_pool_defaults_to_the_card(no_cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serving import BlockPool
+    cfg = reduced(get_config("stablelm-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BlockPool(cfg, 1 << 20, kv_bits=4)
+    pool = BlockPool(cfg, 1 << 20, kv_bits=4, device="cpu")
+    assert pool.bufs["k_q"].device.type == "cpu"
 
 
 def test_tf32_is_off_for_the_fp32_model():
