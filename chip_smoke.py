@@ -6,7 +6,7 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. device and build: the card's name and power limit, the torch and CUDA
-   versions, and the build of the six kernels from
+   versions, and the build of the seven kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, timed);
 2. the four integer kernels against their plain PyTorch versions on the
    card, at the encoder shapes (M in {37, 512, 4096}, (K, N) in {(312, 312),
@@ -98,14 +98,53 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``decode_attention_paged`` at that shape, each timed in turns with its
    dense counterpart (dense, paged, paged, dense), the kernel beside its
    plain version, SDPA over the gathered and dequantized bf16 cache and
-   its bound.
+   its bound;
+12. ``flash_attention`` against its plain version on the card: (B, S, H,
+   Hkv, dh) in {(2, 256, 4, 2, 16), (1, 512, 8, 8, 64), (1, 4096, 32, 32,
+   80) stablelm-3b, (1, 4096, 32, 8, 128) llava-next-mistral-7b}, causal
+   and not, f32 and bf16, the plain version at blocks (64, 64), (128, 64)
+   and (1024, 1024): f32 within |diff| <= 1e-5 + 1e-5 |plain|, bf16 within
+   one bf16 ulp plus 1e-5; a causal row 0 equals row 0 of v in its KV head
+   exactly;
+13. long-context prefill at full width and depth: phase 6's stablelm-3b
+   artifact (not deployed or saved again) and llava-next-mistral-7b (32
+   layers, d 4096, 32 query and 8 KV heads of 128, d_ff 14336 SwiGLU, vocab
+   32000; fp params from a seeded generator on the card -> ``deploy`` with 4
+   calibration batches of (4, 32) tokens, W8A8 layers 0-15 and W4A4 16-31,
+   bf16 activations; the fp params freed, nothing saved). One cacheless
+   forward of B = 1, S = 8192 tokens each, the vlm with (1, 1152, 4096)
+   bf16 patch embeddings at positions 32-1183: each launches flash_attention
+   32 times, act_quant 224, int8_matmul 112, int4_matmul 112 and no decode
+   attention, runs no plain version on a CUDA tensor and never calls
+   ``full_attention`` (no (S, S) score tensor). Gates: every layer's
+   kernel output within phase 12's tolerances of the plain version on that
+   layer's own q, k and v; and the first act_quant, int8_matmul and
+   int4_matmul call of each shape (one qlinear of each width per W8A8 and
+   W4A4 segment, bf16, M = 8192) bit-equal to the plain version on its own
+   inputs. Then the same artifact under the reference plan on the card:
+   the largest logit difference and the share of equal argmaxes, held
+   against the same readings between two runs of the reference plan that
+   differ only in the plain version's blocks (chunk 512 against 1024): the
+   difference at most twice, the share at least half of theirs (the
+   random-weight stack amplifies a change in the order of attention's f32
+   sums to logit differences of about 3); peak device memory;
+14. flash_attention alone at (1, S, 32, 32, 80) and (1, S, 32, 8, 128),
+   causal, bf16, S in {4096, 8192, 32768}, held against its plain version
+   at phase 12's tolerances and timed beside it, SDPA on the same tensors
+   (timed only) and its bound; then one forward of each model at S = 32768
+   (the JAX system's prefill_32k length) with phase 13's launch checks:
+   eager ms, the flash kernels' device ms, tokens/s, peak memory; and a
+   second such forward that records the first layer's flash attention and
+   the first int-kernel call of each shape, each held against its plain
+   version as in phase 13.
 
-The line before the last holds the six kernels; the last line of standard
+The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -145,6 +184,8 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:102"),
     "decode_attention_paged": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:143"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:68"),
 }
 #: kernels each main path must launch
 ENCODER_KERNELS = ("act_quant", "int8_matmul", "int4_matmul", "int4_matmul_fused")
@@ -600,7 +641,9 @@ def kernel_entries(enc_rows, dec_rows, launches_by_path, errors) -> list[dict]:
     """One entry per kernel. Kernels on the decoder path report their time
     per decode step (8 slots, cache length 448, stablelm-3b) and carry the
     encoder forward's numbers under 'encoder_forward'; int4_matmul_fused,
-    on the encoder path only, reports per forward of 32 x 128 tokens.
+    on the encoder path only, reports per forward of 32 x 128 tokens;
+    flash_attention per cacheless forward of stablelm-3b at S = 32768 (its
+    rows name their unit under 'per').
     ``launches`` sums the main-path runs (``launches_by_path``)."""
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -610,11 +653,12 @@ def kernel_entries(enc_rows, dec_rows, launches_by_path, errors) -> list[dict]:
         by_path = {path: counts[name] for path, counts in launches_by_path.items()
                    if counts[name]}
         main = _sums(dec) if dec else _sums(enc)
+        per = (dec[0].get("per", "decode step at kv_bits 8, 8 slots at cache "
+                                 "length 448")
+               if dec else "encoder forward of 32 x 128 tokens")
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
-                 "max_abs_err": errors[name], **main,
-                 "per": ("decode step at kv_bits 8, 8 slots at cache length 448"
-                         if dec else "encoder forward of 32 x 128 tokens"),
+                 "max_abs_err": errors[name], **main, "per": per,
                  "per_shape": dec_all or enc}
         if dec and enc:
             entry["encoder_forward"] = {**_sums(enc), "per_shape": enc}
@@ -636,14 +680,15 @@ def decode_inputs(dev, g, B, S, H, Hkv, dh, bits, dtype, lengths):
     return [q, k_q, v_q, k_s, v_s, kn, vn, lens]
 
 
-def decode_close(got, want, name: str = "decode_attention") -> float:
-    """f32: atol 1e-5, rtol 0. bf16: one ulp of the output plus 1e-5 (the
-    two softmax orders differ in f32 by up to 1e-5, which outputs near zero
-    keep after rounding). Returns the largest |difference|."""
+def decode_close(got, want, name: str = "decode_attention",
+                 rtol: float = 0.0) -> float:
+    """f32: atol 1e-5 plus ``rtol`` |want|. bf16: one ulp of the output plus
+    1e-5 (the two softmax orders differ in f32 by up to 1e-5, which outputs
+    near zero keep after rounding). Returns the largest |difference|."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     if got.dtype == torch.float32:
-        ok = bool((diff <= 1e-5).all())
+        ok = bool((diff <= 1e-5 + rtol * w.abs()).all())
     else:
         ulp = 2.0 ** (torch.frexp(torch.maximum(g.abs(), w.abs())).exponent - 8)
         ok = bool((diff <= ulp + 1e-5).all())
@@ -1562,6 +1607,371 @@ def time_paged_kernel(dev) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------------ phase 12
+#: (B, S, H, Hkv, dh) of the flash-attention checks: small GQA and MHA
+#: shapes, then stablelm-3b's and llava-next-mistral-7b's heads at S = 4096
+FLASH_CASES = ((2, 256, 4, 2, 16), (1, 512, 8, 8, 64), (1, 4096, 32, 32, 80),
+               (1, 4096, 32, 8, 128))
+FLASH_PLAIN_BLOCKS = ((64, 64), (128, 64), (1024, 1024))
+
+
+def flash_inputs(dev, g, B, S, H, Hkv, dh, dtype):
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, S, H, dh), (B, S, Hkv, dh), (B, S, Hkv, dh))]
+
+
+def check_flash_attention(dev) -> tuple[float, int]:
+    """``flash_attention`` against its plain version on the card at
+    ``FLASH_CASES``, causal and not, f32 and bf16, the plain version at each
+    of ``FLASH_PLAIN_BLOCKS``, within ``decode_close`` with rtol 1e-5 (the
+    tiles sum in another order than the plain version's blocks); a causal
+    row 0 must equal row 0 of v in its KV head exactly (it attends key 0
+    alone)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(14)
+    err, cases = 0.0, 0
+    for B, S, H, Hkv, dh in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(dev, g, B, S, H, Hkv, dh, dtype)
+            for causal in (True, False):
+                got = flash_attention_cuda(q, k, v, causal=causal)
+                for bq, bk in FLASH_PLAIN_BLOCKS:
+                    want = flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
+                    err = max(err, decode_close(
+                        got, want, f"flash_attention {(B, S, H, Hkv, dh)} "
+                        f"{dtype} causal={causal} plain at ({bq}, {bk})", rtol=1e-5))
+                if causal:
+                    heads = torch.arange(H, device=dev) // (H // Hkv)
+                    if not torch.equal(got[:, 0], v[:, 0, heads]):
+                        raise AssertionError(f"flash_attention {(B, S, H, Hkv, dh)} "
+                                             f"{dtype}: causal row 0 != v row 0")
+                cases += 1
+    torch.cuda.synchronize()
+    return err, cases
+
+
+# ------------------------------------------------------------------ phase 13
+#: launches of one long (S > 2048) forward of a 32-layer W8A8/W4A4 model:
+#: 7 quantized linears a layer, half the layers int8 and half int4, and one
+#: flash attention a layer
+PER_LONG_FORWARD = {"act_quant": 224, "int8_matmul": 112, "int4_matmul": 112,
+                    "int4_matmul_fused": 0, "decode_attention": 0,
+                    "decode_attention_paged": 0, "flash_attention": 32}
+PREFILL_KERNELS = ("act_quant", "int8_matmul", "int4_matmul", "flash_attention")
+#: the int kernels a long forward runs, spied by their ``ops`` names
+GEMM_KERNELS = ("act_quant", "int8_matmul", "int4_matmul")
+PREFILL_LENGTHS = (8192, 32768)
+FLASH_TIMED_LENGTHS = (4096, 8192, 32768)
+PATCH_START = 32                 # llava: a text prefix, 2 x 576 patch rows, text
+
+
+def llava_model(dev) -> tuple:
+    """llava-next-mistral-7b at full width and depth: fp params from a
+    seeded generator on the card, deployed with 4 calibration batches of (4,
+    32) tokens under the serve CLI's policy (W8A8 layers 0-15, W4A4 16-31),
+    bf16 activations; the fp params are freed, nothing is saved."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy import ExecutionPlan, deploy
+    from repro_torch.models import api
+
+    cfg = get_config("llava-next-mistral-7b")
+    n = cfg.num_layers
+    policy = QuantPolicy(num_layers=n, mode="int", last_k_int4=n // 2)
+    plan = ExecutionPlan.build(cfg, policy, backend="cuda", mode="decode")
+    t0 = time.perf_counter()
+    fp = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    fp_params = sum(int(t.numel()) for t in _leaves(fp))
+    rng = np.random.default_rng(0)
+    calib = [{"tokens": rng.integers(1, cfg.vocab_size, (4, 32)).astype(np.int32)}
+             for _ in range(4)]
+    model = deploy(fp, plan, calib, device=dev)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    del fp
+    torch.cuda.empty_cache()
+    return model, {"fp_params": fp_params, "deploy_s": deploy_s,
+                   "policy": policy.describe(), "plan": plan.describe()}
+
+
+def prefill_inputs(cfg, S: int, dev) -> dict:
+    """One forward of B = 1 and ``S`` tokens from a seed; for the vlm also
+    (1, 1152, d) bf16 patch embeddings at positions 32-1183."""
+    toks = torch.as_tensor(np.random.default_rng(S).integers(
+        1, cfg.vocab_size, (1, S)), device=dev)
+    if cfg.family != "vlm":
+        return {"tokens": toks}
+    g = torch.Generator(device=dev).manual_seed(S)
+    pe = (torch.randn((1, cfg.num_patches, cfg.d_model), generator=g, device=dev)
+          * 0.02).to(torch.bfloat16)
+    mask = torch.zeros((1, S), dtype=torch.bool, device=dev)
+    mask[:, PATCH_START:PATCH_START + cfg.num_patches] = True
+    return {"tokens": toks, "patch_embeds": pe, "patch_mask": mask}
+
+
+def long_forward(model, inputs: dict, *, flash_layers: int = 0,
+                 gemms: bool = False) -> dict:
+    """One cacheless forward under the model's kernel plan with every count
+    at 0 just before it. Spies: ``full_attention`` must never be called;
+    each ``ops.flash_attention`` call is timed between CUDA events and the
+    first ``flash_layers`` keep their q, k, v and output; with ``gemms``,
+    the first act_quant, int8_matmul and int4_matmul kernel call of each
+    shape keeps clones of its inputs and output. Returns the logits, the
+    launches, the plain versions on CUDA tensors, eager ms, the flash
+    kernels' device ms, the device memory allocated just before it (after
+    a garbage collection) and the peak (the kept tensors included)."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import api, attention
+
+    calls = {"full_attention": 0}
+    events, taken, kept = [], [], {}
+    orig_full, orig_flash = attention.full_attention, ops.flash_attention
+    orig_gemms = {name: getattr(ops, f"{name}_cuda") for name in GEMM_KERNELS}
+
+    def full(*a, **kw):
+        calls["full_attention"] += 1
+        return orig_full(*a, **kw)
+
+    def flash(q, k, v, *, causal):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_flash(q, k, v, causal=causal)
+        e1.record()
+        events.append((e0, e1))
+        if len(taken) < flash_layers:
+            taken.append((q, k, v, out, causal))
+        return out
+
+    def spy(name):
+        def call(*a, **kw):
+            out = orig_gemms[name](*a, **kw)
+            key = (name, *((tuple(t.shape), t.dtype) if torch.is_tensor(t) else t
+                           for t in a), *sorted(kw.items()))
+            if key not in kept:
+                kept[key] = (name, [t.clone() if torch.is_tensor(t) else t for t in a],
+                             kw, out.clone())
+            return out
+        return call
+
+    attention.full_attention, ops.flash_attention = full, flash
+    if gemms:
+        for name in GEMM_KERNELS:
+            setattr(ops, f"{name}_cuda", spy(name))
+    try:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = api.forward(model.params, model.plan, **inputs)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+    finally:
+        attention.full_attention, ops.flash_attention = orig_full, orig_flash
+        for name, fn in orig_gemms.items():
+            setattr(ops, f"{name}_cuda", fn)
+    S = int(inputs["tokens"].shape[1])
+    tag = f"{model.plan.cfg.name} S={S}"
+    if launches != PER_LONG_FORWARD:
+        raise AssertionError(f"{tag}: launched {launches}, expected {PER_LONG_FORWARD}")
+    if any(plain.values()):
+        raise AssertionError(f"{tag}: plain versions ran on CUDA tensors: {plain}")
+    if calls["full_attention"]:
+        raise AssertionError(f"{tag}: full_attention ran {calls['full_attention']} times")
+    V = model.plan.cfg.padded_vocab
+    if tuple(logits.shape) != (1, S, V) or not bool(torch.isfinite(
+            logits[..., :model.plan.cfg.vocab_size]).all()):
+        raise AssertionError(f"{tag}: logits {tuple(logits.shape)} not finite "
+                             f"(1, {S}, {V})")
+    flash_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    return {"logits": logits, "taken": taken, "kept": list(kept.values()), "S": S,
+            "launches": launches, "plain_on_cuda": plain,
+            "full_attention_calls": calls["full_attention"],
+            "eager_ms": eager_ms, "tokens_per_s": S / (eager_ms / 1e3),
+            "flash_attention_ms": flash_ms, "flash_attention_share": flash_ms / eager_ms,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "resident_bytes_before": resident}
+
+
+def compare_logits(kern: torch.Tensor, ref: torch.Tensor, vocab: int) -> dict:
+    """Two forwards' logits over every position: the largest |logit
+    difference| and the share of equal argmaxes."""
+    n = kern.shape[1]
+    max_diff, equal = 0.0, 0
+    for s0 in range(0, n, 1024):
+        kf = kern[0, s0:s0 + 1024, :vocab].float()
+        rf = ref[0, s0:s0 + 1024, :vocab].float()
+        max_diff = max(max_diff, (kf - rf).abs().max().item())
+        equal += int((kf.argmax(-1) == rf.argmax(-1)).sum())
+    return {"logits_max_diff": max_diff, "argmax_equal_share": equal / n,
+            "positions": n}
+
+
+def check_layers(taken, tag: str) -> float:
+    """Each recorded layer's kernel output against the plain version on the
+    same q, k and v on the card, at the chunk's blocks, within phase 12's
+    tolerances."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    err = 0.0
+    for i, (q, k, v, out, causal) in enumerate(taken):
+        want = flash_attention_plain(q, k, v, causal=causal, bq=1024, bk=1024)
+        err = max(err, decode_close(out, want, f"{tag}: flash_attention layer {i}",
+                                    rtol=1e-5))
+    return err
+
+
+def check_gemms(kept, tag: str) -> dict:
+    """Each kept int-kernel call bit-equal to its plain version on the same
+    inputs; returns the shapes checked per kernel."""
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import int8_matmul as i8
+    plain = {"act_quant": aq.act_quant_plain, "int8_matmul": i8.int8_matmul_plain,
+             "int4_matmul": i4.int4_matmul_plain}
+    shapes = {name: [] for name in GEMM_KERNELS}
+    for name, args, kw, out in kept:
+        want = plain[name](*args, **kw)
+        shape = [list(args[0].shape),                 # x and bits, or x8 and w
+                 args[2] if name == "act_quant" else list(args[1].shape)]
+        if not torch.equal(out, want):
+            diff = (out.double() - want.double()).abs().max().item()
+            raise AssertionError(f"{tag}: {name} {shape} {kw}: kernel != plain "
+                                 f"(max |diff| {diff})")
+        shapes[name].append(shape)
+    missing = [name for name, s in shapes.items() if not s]
+    if missing:
+        raise AssertionError(f"{tag}: no call of {missing} was checked")
+    return shapes
+
+
+def long_prefill(models: dict, dev) -> dict:
+    """Phase 13 at S = 8192 for each model: the kernel plan's forward
+    (launches, no full attention, no plain version on the card), each
+    layer's flash attention and each int-kernel shape against the plain
+    version, and the whole forward against the same artifact under the
+    reference plan on the card, held against two reference runs that differ
+    only in the chunk."""
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.models import api
+
+    out = {}
+    for name, model in models.items():
+        cfg = model.plan.cfg
+        S = PREFILL_LENGTHS[0]
+        inputs = prefill_inputs(cfg, S, dev)
+        t0 = time.perf_counter()
+        run = long_forward(model, inputs, flash_layers=cfg.num_layers, gemms=True)
+        tag = f"{name} S={S}"
+        layer_err = check_layers(run.pop("taken"), tag)
+        gemm_shapes = check_gemms(run.pop("kept"), tag)
+        ref_plan = ExecutionPlan.build(cfg, model.plan.policy, backend="reference",
+                                       mode="decode")
+        ref512_plan = ExecutionPlan.build(cfg.replace(attn_chunk=512),
+                                          model.plan.policy, backend="reference",
+                                          mode="decode")
+        with torch.no_grad():
+            ref, _ = api.forward(model.params, ref_plan, **inputs)
+            ref512, _ = api.forward(model.params, ref512_plan, **inputs)
+        cmp = compare_logits(run.pop("logits"), ref, cfg.vocab_size)
+        blocks = compare_logits(ref512, ref, cfg.vocab_size)
+        del ref, ref512
+        torch.cuda.empty_cache()
+        limit = {"logits_max_diff": 2 * blocks["logits_max_diff"],
+                 "argmax_equal_share": blocks["argmax_equal_share"] / 2}
+        if (cmp["logits_max_diff"] > limit["logits_max_diff"]
+                or cmp["argmax_equal_share"] < limit["argmax_equal_share"]):
+            raise AssertionError(
+                f"{tag}: kernel vs reference plan {cmp} outside {limit} (twice the "
+                f"difference, half the share of chunk 512 vs 1024: {blocks})")
+        out[name] = {**run, "layers_max_abs_err_vs_plain": layer_err,
+                     "gemm_shapes_bit_equal": gemm_shapes,
+                     "vs_reference_plan": cmp,
+                     "reference_chunk512_vs_reference": blocks,
+                     "vs_reference_plan_limit": limit,
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
+# ------------------------------------------------------------------ phase 14
+def time_flash_kernel(dev) -> list[dict]:
+    """``flash_attention`` alone at stablelm-3b's and llava's heads, causal,
+    bf16, S in ``FLASH_TIMED_LENGTHS``: held against the plain version at
+    the chunk's blocks within phase 12's tolerances, then device ms (CUDA
+    events, median after warm-up) beside the plain version's, SDPA on the
+    same bf16 tensors (timed only) and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = []
+    for S in FLASH_TIMED_LENGTHS:
+        for arch, H, Hkv, dh in (("stablelm-3b", 32, 32, 80),
+                                 ("llava-next-mistral-7b", 32, 8, 128)):
+            q, k, v = flash_inputs(dev, g, 1, S, H, Hkv, dh, torch.bfloat16)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            if S > 4096:      # a call takes 0.1-0.3 s: timed as issued
+                timer = lambda fn: cuda_ms(fn, samples=3, reps=1, warmup=1, graph=False)
+                eager = timer
+            else:
+                timer = lambda fn: cuda_ms(fn, samples=10, reps=3)
+                eager = lambda fn: cuda_ms(fn, samples=10, reps=3, graph=False)
+            kern = lambda: fa.flash_attention_cuda(q, k, v, causal=True)
+            plain = lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                     bq=1024, bk=1024)
+            err = decode_close(kern(), plain(), f"flash_attention {(1, S, H, Hkv, dh)} "
+                               "bf16 causal", rtol=1e-5)
+            b_ms, b_by = bound(fa.bound_bytes(1, S, H, Hkv, dh, 2),
+                               fa.bound_flops(1, S, H, dh, True), BF16_OPS_PER_S)
+            rows.append({
+                "kernel": "flash_attention", "model": arch, "M": S,
+                "shape": [1, S, H, Hkv, dh], "kv_bits": None,
+                "calls": 32 if (S == PREFILL_LENGTHS[-1] and arch == "stablelm-3b") else 0,
+                "per": "cacheless forward of stablelm-3b at S = 32768, B = 1 "
+                       "(32 layers, bf16, causal)",
+                "ms": timer(kern), "eager_ms": eager(kern),
+                "max_abs_err": err, "plain_ms": timer(plain),
+                "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                "library_note": "scaled_dot_product_attention(is_causal=True, "
+                                "enable_gqa=True) on the same bf16 tensors",
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_f32_rate": fa.bound_flops(1, S, H, dh, True) / FP32_OPS_PER_S * 1e3})
+            del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_long_forwards(models: dict, dev) -> dict:
+    """One forward of each model at S = 32768, B = 1 (the JAX system's
+    prefill_32k length), with phase 13's launch checks: eager ms, the flash
+    kernels' device ms, tokens/s and peak memory. Then a second forward
+    that keeps the first layer's flash attention and the first int-kernel
+    call of each shape, each held against its plain version."""
+    out = {}
+    for name, model in models.items():
+        inputs = prefill_inputs(model.plan.cfg, PREFILL_LENGTHS[-1], dev)
+        run = long_forward(model, inputs)
+        del run["logits"], run["taken"], run["kept"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        checked = long_forward(model, inputs, flash_layers=1, gemms=True)
+        del checked["logits"]
+        tag = f"{name} S={PREFILL_LENGTHS[-1]}"
+        run["layer0_max_abs_err_vs_plain"] = check_layers(checked["taken"], tag)
+        run["gemm_shapes_bit_equal"] = check_gemms(checked["kept"], tag)
+        run["check_seconds"] = time.perf_counter() - t0
+        del checked
+        torch.cuda.empty_cache()
+        out[name] = run
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1671,18 +2081,58 @@ def main() -> int:
     dec_rows += paged_rows
     seconds["paged_times"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    errors["flash_attention"], cases = check_flash_attention(dev)
+    seconds["flash_attention_vs_plain"] = time.perf_counter() - t0
+    emit({"phase": "flash_attention_vs_plain", "cases": cases,
+          "max_abs_err": errors["flash_attention"],
+          "seconds": seconds["flash_attention_vs_plain"]})
+
+    t0 = time.perf_counter()
+    llava, llava_info = llava_model(dev)
+    seconds["llava_deploy"] = time.perf_counter() - t0
+    emit({"phase": "llava_deploy", **llava_info, "seconds": seconds["llava_deploy"]})
+    prefill_models = {"stablelm-3b": models[8], "llava-next-mistral-7b": llava}
+    t0 = time.perf_counter()
+    prefill = long_prefill(prefill_models, dev)
+    seconds["long_prefill"] = time.perf_counter() - t0
+    emit({"phase": "long_prefill", "S": PREFILL_LENGTHS[0], "per_model": prefill,
+          "seconds": seconds["long_prefill"]})
+
+    t0 = time.perf_counter()
+    flash_rows = time_flash_kernel(dev)
+    for r in flash_rows:
+        emit({"phase": "flash_kernel_time", **r})
+    dec_rows += flash_rows
+    long_times = time_long_forwards(prefill_models, dev)
+    seconds["long_times"] = time.perf_counter() - t0
+    emit({"phase": "long_forward_times", "S": PREFILL_LENGTHS[-1],
+          "per_model": long_times, "seconds": seconds["long_times"]})
+    del llava, prefill_models
+    torch.cuda.empty_cache()
+    errors["flash_attention"] = max(
+        errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
+        *(run["layers_max_abs_err_vs_plain"] for run in prefill.values()),
+        *(run["layer0_max_abs_err_vs_plain"] for run in long_times.values()))
+
     launches_by_path = {"encoder": e2e["launches"],
                         **{f"decode_kv{kv}": v["launches"]
                            for kv, v in dec["per_kv"].items()},
                         **{f"paged_kv{kv}": v["launches"] for kv, v in paged.items()},
                         "prefix_dense_kv8": prefix["dense_prefix"]["launches"],
                         "prefix_paged_kv8": prefix["paged_prefix"]["launches"],
-                        "prefix_paged_60pct_kv8": prefix["paged_prefix_60pct"]["launches"]}
+                        "prefix_paged_60pct_kv8": prefix["paged_prefix_60pct"]["launches"],
+                        **{f"prefill_{name}_{PREFILL_LENGTHS[0]}": run["launches"]
+                           for name, run in prefill.items()},
+                        **{f"prefill_{name}_{PREFILL_LENGTHS[-1]}": run["launches"]
+                           for name, run in long_times.items()}}
     for path, need in (("encoder", ENCODER_KERNELS), ("decode_kv8", DECODER_KERNELS),
                        ("decode_kv4", DECODER_KERNELS), ("paged_kv8", PAGED_KERNELS),
                        ("paged_kv4", PAGED_KERNELS), ("prefix_dense_kv8", DECODER_KERNELS),
                        ("prefix_paged_kv8", PAGED_KERNELS),
-                       ("prefix_paged_60pct_kv8", PAGED_KERNELS)):
+                       ("prefix_paged_60pct_kv8", PAGED_KERNELS),
+                       *((path, PREFILL_KERNELS) for path in launches_by_path
+                         if path.startswith("prefill_"))):
         idle = [k for k in need if not launches_by_path[path][k]]
         if idle:
             raise AssertionError(f"{path}: kernels never launched on the main "
@@ -1698,6 +2148,9 @@ def main() -> int:
                                   "paged_end_to_end": paged,
                                   "prefix_end_to_end": prefix,
                                   "paged_decode_times": paged_times,
+                                  "llava_deploy": llava_info,
+                                  "long_prefill": prefill,
+                                  "long_forward_times": long_times,
                                   "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})

@@ -1,5 +1,5 @@
-"""Architecture registry of the port (bert and dense decoder families)
-plus ``reduced``, the CPU-sized variant of a config."""
+"""Architecture registry of the port (bert, dense decoder and vlm
+families) plus ``reduced``, the CPU-sized variant of a config."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +17,7 @@ def get_config(name: str) -> ModelConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant: same family and wiring, tiny dims (the JAX
     package's ``configs.reduced`` for the families the port serves)."""
-    if cfg.family not in ("dense", "bert"):
+    if cfg.family not in ("dense", "bert", "vlm"):
         raise ValueError(f"reduced(): family {cfg.family!r} is not served by "
                          "the port yet")
     kw = dict(
@@ -28,6 +28,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     )
     kw["num_kv_heads"] = (min(cfg.num_kv_heads, 4)
                           if cfg.num_kv_heads < cfg.num_heads else 4)
+    if cfg.family == "vlm":
+        kw.update(num_patches=8)
     return dataclasses.replace(cfg, **kw)
 
 

@@ -1,6 +1,7 @@
-"""Architectures the port serves: the paper's own BERT configurations and
-the dense decoders of the decode serving path (copied from the JAX
-package's registry, same fields and values)."""
+"""Architectures the port serves: the paper's own BERT configurations, the
+dense decoders of the decode serving path and the vlm of the long-context
+prefill path (copied from the JAX package's registry, same fields and
+values)."""
 from __future__ import annotations
 
 from .base import ModelConfig
@@ -40,3 +41,13 @@ _reg(ModelConfig(
     name="internlm2-20b", family="dense", num_layers=48, d_model=6144,
     num_heads=48, num_kv_heads=8, d_ff=16384, vocab_size=92544,
     act="swiglu", rope_theta=1e6))
+
+
+# --- vlm -------------------------------------------------------------------
+# anyres tiling [hf:llava-hf/llava-v1.6-mistral-7b-hf; unverified];
+# Mistral-7B backbone; patch embeddings stubbed (anyres 2x576 grid).
+_reg(ModelConfig(
+    name="llava-next-mistral-7b", family="vlm", num_layers=32, d_model=4096,
+    num_heads=32, num_kv_heads=8, d_ff=14336, vocab_size=32000,
+    act="swiglu", rope_theta=1e6, num_patches=1152,
+    input_kind="tokens+patches"))

@@ -14,11 +14,11 @@ loads as ``"cuda"`` and writes back as ``"pallas"``, so an artifact moves
 between the two packages unchanged.
 
 Two modes are served: ``"encoder"`` (the bert family, prefill-only) and
-``"decode"`` (the dense decoder family over a dense slot KV cache or a
-paged block pool, ``kv_paging``, at kv_bits 16, 8 or 4, chunked prefill,
-with the shared-prefix cache when ``prefix_cache > 0``). What later slices
-add raises ``ValueError`` naming that slice: tensor parallelism, token-mode
-prefill and the other model families.
+``"decode"`` (the dense decoder and vlm families over a dense slot KV cache
+or a paged block pool, ``kv_paging``, at kv_bits 16, 8 or 4, chunked
+prefill, with the shared-prefix cache when ``prefix_cache > 0``). What
+later slices add raises ``ValueError`` naming that slice: tensor
+parallelism, token-mode prefill and the other model families.
 """
 from __future__ import annotations
 
@@ -39,6 +39,9 @@ __all__ = ["ExecutionPlan", "resolve_segments", "plan_to_meta",
 #: versions for CPU tensors); 'reference' is the plain integer path.
 BACKENDS = ("reference", "cuda")
 MODES = ("decode", "encoder")
+#: families whose decode plans the port builds (the vlm is served on tokens,
+#: as the JAX engine serves it)
+DECODE_FAMILIES = ("dense", "vlm")
 
 #: the artifact meta's name for the kernel backend
 _META_BACKEND = {"cuda": "pallas"}
@@ -154,10 +157,11 @@ class ExecutionPlan:
                     "mode='encoder' computes every request in one forward; "
                     "prefix_cache has no KV rows to reuse")
         else:
-            if cfg.family != "dense":
+            if cfg.family not in DECODE_FAMILIES:
                 raise ValueError(
-                    f"mode='decode' serves the dense decoder family; family "
-                    f"{cfg.family!r} arrives with a later slice of the port")
+                    f"mode='decode' serves the {DECODE_FAMILIES} families; "
+                    f"family {cfg.family!r} arrives with a later slice of "
+                    "the port")
             if prefill_mode == "token":
                 raise ValueError(
                     "prefill_mode='token': token-mode prefill is a later "

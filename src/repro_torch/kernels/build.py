@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("act_quant.cu", "int8_matmul.cu", "int4_matmul.cu",
-           "decode_attention.cu")
+           "decode_attention.cu", "flash_attention.cu")
 HEADERS = ("int_gemm.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # no --use_fast_math: it makes '/' and tanhf approximate and breaks parity
@@ -46,6 +46,7 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "decode_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 #: kernel launches since the last :func:`reset_counts`

@@ -1,7 +1,8 @@
 """Dispatch layer for the kernels (shapes, padding, device choice).
 
-``qlinear`` lands here when its ``QuantSpec.use_kernels`` is set, and the
-quantized-cache branch of ``attention_block`` for one-token decode steps. A
+``qlinear`` lands here when its ``QuantSpec.use_kernels`` is set, the
+quantized-cache branch of ``attention_block`` for one-token decode steps,
+and ``chunked_attention`` (the cacheless branch of long forwards). A
 tensor on the card goes to the hand-written CUDA kernel, a tensor on the CPU
 to the kernel's plain PyTorch version, and nothing else decides between them.
 Activation codes are quantized before every matmul; the kernels mask their
@@ -9,6 +10,7 @@ ragged edges, so no divisor tiles are picked here.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -19,6 +21,8 @@ from .decode_attention import (decode_attention_cuda,
                                decode_attention_paged_cuda,
                                decode_attention_paged_plain,
                                decode_attention_plain)
+from .flash_attention import (TILE, flash_attention_cuda,
+                              flash_attention_plain)
 from .int4_matmul import (int4_matmul_cuda, int4_matmul_fused_cuda,
                           int4_matmul_fused_plain, int4_matmul_plain)
 from .int8_matmul import int8_matmul_cuda, int8_matmul_plain
@@ -100,3 +104,16 @@ def decode_attention_paged(q: torch.Tensor, k_q: torch.Tensor,
               k_scale.contiguous(), v_scale.contiguous(),
               tables.to(torch.int32).contiguous(), k_new.contiguous(),
               v_new.contiguous(), lens)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
+    """Forward attention: q (B, S, H, dh), k/v (B, S, Hkv, dh) with H % Hkv
+    == 0, unrepeated (query head h reads KV head h // (H // Hkv)). Returns
+    (B, S, H, dh) in q's dtype. On the CPU the plain version runs at the
+    kernel's tile, or at the largest divisor of S below it."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal)
+    blk = math.gcd(q.shape[1], TILE)
+    return flash_attention_plain(q, k, v, causal=causal, bq=blk, bk=blk)

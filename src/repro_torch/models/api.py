@@ -1,11 +1,12 @@
 """Family-dispatching model API: init / forward / decode state.
 
-``forward(params, plan, state=..., tokens=...) -> (logits, new_state)``
-for the transformer families the port serves (dense decoders, and the bert
-stack as an LM). The JAX package's ``forward`` also returns taps and an aux
-loss, which belong to the QAT and MoE slices. Families without a KV slot
-cache (xlstm, hybrid, encdec), MoE and the vlm inputs raise a
-``ValueError`` that names the slice they arrive with.
+``forward(params, plan, state=..., tokens=..., patch_embeds=...,
+patch_mask=...) -> (logits, new_state)`` for the transformer families the
+port serves (dense decoders, the vlm with its patch-embedding stub, and the
+bert stack as an LM). The JAX package's ``forward`` also returns taps and
+an aux loss, which belong to the QAT and MoE slices. Families without a KV
+slot cache (xlstm, hybrid, encdec) and MoE raise a ``ValueError`` that
+names the slice they arrive with.
 """
 from __future__ import annotations
 
@@ -17,14 +18,14 @@ from ..configs.base import ModelConfig
 from . import transformer
 
 #: families whose forward and decode state this slice of the port serves
-FAMILIES = ("dense", "bert")
+FAMILIES = ("dense", "bert", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(
             f"family {cfg.family!r}: the port serves {FAMILIES} so far; "
-            "moe, vlm and the token-mode families (xlstm, hybrid, encdec) "
+            "moe and the token-mode families (xlstm, hybrid, encdec) "
             "arrive with the other-families slice")
 
 
@@ -35,13 +36,16 @@ def init_model(cfg: ModelConfig, g: torch.Generator, device) -> dict:
     return transformer.init_lm(cfg, g, device)
 
 
-def forward(params, plan, *, state: Optional[dict] = None, tokens):
+def forward(params, plan, *, state: Optional[dict] = None, tokens,
+            patch_embeds=None, patch_mask=None):
     """One forward under ``plan`` (an ``ExecutionPlan``): logits (B, S,
     padded_vocab) and the decode state advanced by S tokens (updated in
-    place; None without a state)."""
+    place; None without a state). vlm inputs: ``patch_embeds`` (B, P, d)
+    placed at the True positions of ``patch_mask`` (B, S)."""
     _check_family(plan.cfg)
     return transformer.lm_forward(params, plan.cfg, plan.segments,
-                                  tokens=tokens, caches=state)
+                                  tokens=tokens, patch_embeds=patch_embeds,
+                                  patch_mask=patch_mask, caches=state)
 
 
 def decode_state(cfg: ModelConfig, batch: int, max_len: int,

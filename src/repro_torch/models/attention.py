@@ -1,10 +1,16 @@
-"""GQA multi-head attention: cacheless (encoder, prefill) and KV-cache decode.
+"""GQA multi-head attention: cacheless (encoder, prefill), chunked (long
+cacheless forwards) and KV-cache decode.
 
 All projections route through ``qlinear`` (quantizable per the MKQ policy);
 the scores and the softmax stay in fp32 (paper §5). The cacheless and the
 fp-cache branches are plain PyTorch, as the JAX package computes them
-outside any Pallas kernel. One-token decode steps over a quantized cache
-under a kernel plan go through ``ops.decode_attention`` (the hand-written
+outside any Pallas kernel. A cacheless forward longer than the config's
+``attn_chunk_threshold`` whose length the chunk divides takes
+``chunked_attention``, the flash pattern that never holds the (S, S) score
+tensor: under a kernel plan it runs the hand-written flash-attention kernel
+(``ops.flash_attention``), otherwise the kernel's plain version at
+chunk-sized blocks. One-token decode steps over a quantized cache under a
+kernel plan go through ``ops.decode_attention`` (the hand-written
 decode-attention kernel), or ``ops.decode_attention_paged`` over a paged
 block pool; every other quantized-cache step dequantizes and attends in
 PyTorch, and every other paged step first gathers the slots' blocks
@@ -56,6 +62,20 @@ def full_attention(q, k, v, *, causal: bool,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
 
 
+def chunked_attention(q, k, v, *, causal: bool, chunk: int,
+                      use_kernel: bool) -> torch.Tensor:
+    """Flash-style attention, the counterpart of the JAX package's
+    ``chunked_attention``: q (B, S, H, dh), k/v (B, S, Hkv, dh) unrepeated,
+    S a multiple of ``chunk``. ``use_kernel`` (a kernel plan) runs
+    ``ops.flash_attention``; otherwise the kernel's plain version walks
+    ``chunk``-sized query and key blocks with an online softmax."""
+    if use_kernel:
+        from ..kernels import ops as kops
+        return kops.flash_attention(q, k, v, causal=causal)
+    from ..kernels.flash_attention import flash_attention_plain
+    return flash_attention_plain(q, k, v, causal=causal, bq=chunk, bk=chunk)
+
+
 def cached_decode_attention(q, k_cache, v_cache, k_new, v_new, length):
     """Decode attention: q (B,Sq,H,dh) over cache (B,Smax,H,dh) masked to
     ``length`` plus the Sq new tokens (causal among themselves), fp32
@@ -84,7 +104,7 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                     hd: int, spec: QuantSpec, causal: bool = True,
                     rope: bool = False, rope_theta: float = 10000.0,
                     cache: Optional[dict] = None,
-                    kv_len: Optional[torch.Tensor] = None):
+                    kv_len: Optional[torch.Tensor] = None, chunk: int = 0):
     """One attention sublayer (the residual is the caller's). Returns
     ``(out, new_kv)``.
 
@@ -100,6 +120,9 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         past a row's length are masked before the softmax, which keeps
         bucket-padded bidirectional (encoder) rows independent of their
         zero tail.
+    chunk: the block of ``chunked_attention`` (0: off). The cacheless path
+        takes it, as the JAX package does, when ``Sq > chunk``, ``Sq %
+        chunk == 0`` and no ``kv_len`` is given.
     """
     B, Sq, _ = x.shape
     q = _split_heads(qlinear(x, p["wq"], spec), n_heads)
@@ -152,6 +175,9 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
             _repeat_kv(cache["v"].to(q.dtype), groups),
             _repeat_kv(k, groups), _repeat_kv(v, groups), cache["len"])
         new_kv = (k, v)
+    elif chunk and Sq > chunk and Sq % chunk == 0 and kv_len is None:
+        out = chunked_attention(q, k, v, causal=causal, chunk=chunk,
+                                use_kernel=spec.use_kernels)
     else:
         out = full_attention(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
                              causal=causal,

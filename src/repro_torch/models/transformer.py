@@ -1,5 +1,5 @@
-"""The decoder-only LM (dense family) and the BERT subset of the shared
-transformer stack.
+"""The decoder-only LM (dense and vlm families) and the BERT subset of the
+shared transformer stack.
 
 Layer parameters are stacked (leading dim = layers), as in the JAX package.
 The MKQ mixed-precision policy (int4 from the last layer backwards, int8
@@ -74,16 +74,19 @@ def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
     """One block. Pre-LN (decoders): x += attn(LN(x)); x += ffn(LN(x)).
     Post-LN (BERT): x = LN(x + attn(x)); x = LN(x + ffn(x)). Returns
     ``(x, new_kv)``; ``new_kv`` is the new tokens' (k, v) when ``cache``
-    is given, else None."""
+    is given, else None. Forwards longer than ``cfg.attn_chunk_threshold``
+    offer attention the chunk ``cfg.attn_chunk``."""
     if cfg.family == "moe":
         raise NotImplementedError("MoE layers arrive with a later slice")
     pre = cfg.norm == "rms" or not cfg.learned_pos  # BERT uses post-LN
+    chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk_threshold else 0
 
     def attn(h):
         return attention_block(
             h, p["attn"], n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
             hd=cfg.hd, spec=spec, causal=cfg.causal, rope=cfg.rope,
-            rope_theta=cfg.rope_theta, cache=cache, kv_len=kv_len)
+            rope_theta=cfg.rope_theta, cache=cache, kv_len=kv_len,
+            chunk=chunk)
 
     if pre:
         a, new_kv = attn(_norm(x, p["ln1"], cfg.norm))
@@ -122,11 +125,11 @@ def init_norm(d: int, stacked: Optional[int], device, kind: str = "ln") -> dict:
 
 
 def init_lm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
-    """The JAX ``init_lm`` tree (same keys and shapes) for the bert and
-    dense families. Values come from ``g``, so they differ from
+    """The JAX ``init_lm`` tree (same keys and shapes) for the bert, dense
+    and vlm families. Values come from ``g``, so they differ from
     ``jax.random``'s; parity tests carry JAX's arrays across instead
     (``deploy.params_from_numpy``)."""
-    if cfg.family not in ("bert", "dense"):
+    if cfg.family not in ("bert", "dense", "vlm"):
         raise ValueError(f"init_lm: family {cfg.family!r} arrives with a "
                          "later slice of the port")
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
@@ -161,8 +164,20 @@ def init_lm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
     return params
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor, offset: int = 0):
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           patch_embeds: Optional[torch.Tensor] = None,
+           patch_mask: Optional[torch.Tensor] = None, offset: int = 0):
     x = params["embed"][tokens].to(cfg.torch_dtype)
+    if patch_embeds is not None:
+        # the anyres stub: the k-th masked position takes patch row k
+        # (clipped to the last row when more positions are masked)
+        d = x.shape[-1]
+        npatch = patch_embeds.shape[1]
+        idx = torch.cumsum(patch_mask.to(torch.int32), dim=1) - 1
+        idx = torch.clamp(idx, 0, npatch - 1).to(torch.int64)
+        gathered = torch.gather(patch_embeds, 1,
+                                idx[..., None].expand(*idx.shape, d))
+        x = torch.where(patch_mask[..., None], gathered.to(x.dtype), x)
     if cfg.learned_pos:
         S = x.shape[1]
         x = x + params["pos_embed"][offset:offset + S][None].to(x.dtype)
@@ -238,9 +253,13 @@ def write_new_kv(cs: dict, idx: int, new_kv) -> None:
 
 
 def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
+               patch_embeds=None, patch_mask=None,
                caches: Optional[dict] = None):
     """Returns ``(logits, new_caches)``; logits (B, S, padded_vocab) in the
     activation dtype, padded-vocab entries at -1e9.
+
+    patch_embeds / patch_mask (vlm): (B, P, d) patch embeddings placed, in
+    order, at the True positions of the (B, S) bool mask.
 
     caches: stacked per-layer KV caches ``{'k': (L,B,Smax,Hkv,hd), ...,
     'len'}`` or the quantized layout, or a paged cache dict
@@ -249,7 +268,10 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
     ``len + S``."""
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-    x = _embed(params, cfg, tokens)
+    if patch_embeds is not None:
+        patch_embeds = torch.as_tensor(patch_embeds, device=dev)
+        patch_mask = torch.as_tensor(patch_mask, dtype=torch.bool, device=dev)
+    x = _embed(params, cfg, tokens, patch_embeds, patch_mask)
     layers = params["layers"]
     # deployed int mode: layers arrive as a per-segment list (packed
     # weights cannot live in one stacked array across bit-width segments)

@@ -15,7 +15,10 @@ orders, and that f32 difference survives the rounding of outputs near
 zero), and
 bit-unchanged when the cache rows past each slot's length are poisoned.
 Paged decode attention within the same bounds of its plain version, and
-bit-equal to the dense kernel on the layout its tables describe.
+bit-equal to the dense kernel on the layout its tables describe. Flash
+attention within rtol = atol = 1e-5 (f32) and the decode bf16 bound of its
+plain version (the tiles sum in another order), and exact where a causal
+row attends one key.
 """
 import pytest
 import torch
@@ -29,6 +32,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain,
                                                   gather_kv_blocks)
 from repro_torch.kernels.act_quant import act_quant_cuda, act_quant_plain
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
                                              int4_matmul_fused_cuda,
                                              int4_matmul_fused_plain,
@@ -117,7 +122,8 @@ def test_ops_launch_kernels_and_count_them(dev):
     assert build.LAUNCHES == {"act_quant": 3, "int8_matmul": 1,
                               "int4_matmul": 1, "int4_matmul_fused": 1,
                               "decode_attention": 0,
-                              "decode_attention_paged": 0}
+                              "decode_attention_paged": 0,
+                              "flash_attention": 0}
     assert not any(build.PLAIN_ON_CUDA.values())
 
 
@@ -250,3 +256,50 @@ def test_decode_step_launches_through_ops(dev):
         assert build.LAUNCHES["int4_matmul"] == 2 * 7
         assert build.LAUNCHES["decode_attention"] == 4
         assert not any(build.PLAIN_ON_CUDA.values())
+
+
+# ------------------------------------------------------- flash attention
+def _flash_inputs(dev, B, S, H, Hkv, dh, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((B, S, H, dh), (B, S, Hkv, dh), (B, S, Hkv, dh))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,Hkv,dh", [(2, 256, 4, 2, 16), (1, 512, 8, 8, 64),
+                                         (1, 256, 8, 2, 80), (1, 256, 8, 2, 128)])
+def test_flash_attention_kernel_matches_plain(dev, B, S, H, Hkv, dh, causal, dtype):
+    """Within atol 1e-5 and rtol 1e-5 (f32), one bf16 ulp plus 1e-5 (bf16)
+    of the plain version at its (64, 64) and (128, 64) blocks; a causal
+    row 0 equals row 0 of v in its KV head exactly (it attends key 0
+    alone)."""
+    q, k, v = _flash_inputs(dev, B, S, H, Hkv, dh, dtype, seed=S + dh)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    for bq, bk in ((64, 64), (128, 64)):
+        want = flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            _assert_decode_close(got, want)
+    if causal:
+        heads = torch.arange(H, device=dev) // (H // Hkv)
+        assert torch.equal(got[:, 0], v[:, 0, heads])
+
+
+def test_flash_attention_ragged_length_and_ops_count(dev):
+    """A length no tile divides (S = 200) against the plain version in one
+    block, and ``ops.flash_attention`` launches the kernel once per call and
+    runs no plain version on the card."""
+    q, k, v = _flash_inputs(dev, 2, 200, 8, 2, 80, torch.float32, seed=3)
+    build.reset_counts()
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 1
+    assert not any(build.PLAIN_ON_CUDA.values())
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, causal=True,
+                                                          bq=200, bk=200),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="dh"):
+        flash_attention_cuda(*_flash_inputs(dev, 1, 64, 2, 2, 24, torch.float32))

@@ -15,10 +15,13 @@ import pytest
 import torch
 
 import repro.checkpoint.manager as jmanager
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
 from repro.core.policy import QuantPolicy as JQuantPolicy
 from repro.deploy import DeployedModel as JDeployedModel
 from repro.deploy import ExecutionPlan as JExecutionPlan
 from repro.deploy import deploy as jdeploy
+from repro.deploy.plan import plan_to_meta as jplan_to_meta
 from repro.models.bert import bert_classify_logits as jbert_classify_logits
 from repro.models.bert import tinybert_config as jtinybert_config
 from repro_torch.checkpoint import manager
@@ -151,12 +154,46 @@ def test_plan_meta_round_trip(backend, act_bits):
 ])
 def test_plan_rejects_what_this_slice_does_not_serve(kw, match):
     kw = {"mode": "encoder", **kw}
-    # decode plans serve the dense decoder family, encoder plans bert
+    # decode plans serve the dense decoder and vlm families, encoder plans bert
     cfg = (reduced(get_config("stablelm-3b")).replace(num_layers=2)
            if kw["mode"] == "decode" else tinybert_config(**SMALL))
     pol = QuantPolicy(num_layers=2, mode="int", last_k_int4=1)
     with pytest.raises(ValueError, match=match):
         ExecutionPlan.build(cfg, pol, **kw)
+
+
+def test_decode_plan_builds_for_the_vlm_as_in_jax():
+    """A decode plan for the reduced llava builds, as JAX's does, and its
+    meta rebuilds the same plan in both packages."""
+    cfg = reduced(get_config("llava-next-mistral-7b"))
+    plan = ExecutionPlan.build(cfg, QuantPolicy(num_layers=4, mode="int",
+                                                last_k_int4=2),
+                               backend="cuda", kv_bits=8, prefill_batch=2)
+    jplan = JExecutionPlan.build(jreduced(jget_config("llava-next-mistral-7b")),
+                                 JQuantPolicy(num_layers=4, mode="int",
+                                              last_k_int4=2),
+                                 backend="pallas", kv_bits=8, prefill_batch=2)
+    assert plan.mode == "decode" and plan.prefill_mode == jplan.prefill_mode
+    assert [(s, e, sp.w_bits, sp.a_bits) for s, e, sp in plan.segments] == \
+        [(s, e, sp.w_bits, sp.a_bits) for s, e, sp in jplan.segments]
+    assert plan_from_meta(plan_to_meta(plan)) == plan
+    assert plan_from_meta(jplan_to_meta(jplan)) == plan
+
+
+@pytest.mark.parametrize("family,extra", [
+    ("moe", dict(num_experts=4, top_k=2, expert_d_ff=32)),
+    ("xlstm", dict(slstm_every=2)),
+    ("hybrid", dict(attn_every=2, ssm_state=8)),
+    ("encdec", dict(enc_layers=1, dec_layers=1)),
+])
+def test_decode_plan_refuses_the_families_still_to_port(family, extra):
+    from repro_torch.configs.base import ModelConfig
+    cfg = ModelConfig(name=f"tiny-{family}", family=family, num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
+                      vocab_size=256, **extra)
+    pol = QuantPolicy(num_layers=2, mode="int", last_k_int4=1)
+    with pytest.raises(ValueError, match="later slice"):
+        ExecutionPlan.build(cfg, pol, backend="cuda", mode="decode")
 
 
 def test_params_from_numpy_keeps_dtypes():

@@ -38,6 +38,8 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/kernels/ops.py",
                  "src/repro_torch/kernels/decode_attention.py",
+                 "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro_torch/models/attention.py",
                  "src/repro_torch/models/api.py",
                  "src/repro_torch/serving/engine.py",
                  "src/repro_torch/serving/kv_cache.py",
