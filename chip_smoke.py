@@ -101,11 +101,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    its bound;
 12. ``flash_attention`` against its plain version on the card: (B, S, H,
    Hkv, dh) in {(2, 256, 4, 2, 16), (1, 512, 8, 8, 64), (1, 4096, 32, 32,
-   80) stablelm-3b, (1, 4096, 32, 8, 128) llava-next-mistral-7b}, causal
-   and not, f32 and bf16, the plain version at blocks (64, 64), (128, 64)
-   and (1024, 1024): f32 within |diff| <= 1e-5 + 1e-5 |plain|, bf16 within
-   one bf16 ulp plus 1e-5; a causal row 0 equals row 0 of v in its KV head
-   exactly;
+   80) stablelm-3b, (1, 4096, 32, 8, 128) llava-next-mistral-7b}, and for
+   the bf16 kernel's tiles S = 1, 200 and 4097 at dh 80 and 128 and GQA
+   groups 1, 2 and 4; causal and not, f32 (the SIMT kernel) and bf16 (the
+   tensor-core kernel), the plain version at blocks (64, 64), (128, 64)
+   and (1024, 1024) where they tile S, else at (S, S): f32 within |diff|
+   <= 1e-5 + 1e-5 |plain|, bf16 within one bf16 ulp plus 1e-5; a causal
+   row 0 equals row 0 of v in its KV head exactly;
 13. long-context prefill at full width and depth: phase 6's stablelm-3b
    artifact (not deployed or saved again) and llava-next-mistral-7b (32
    layers, d 4096, 32 query and 8 KV heads of 128, d_ff 14336 SwiGLU, vocab
@@ -1609,10 +1611,23 @@ def time_paged_kernel(dev) -> list[dict]:
 
 # ------------------------------------------------------------------ phase 12
 #: (B, S, H, Hkv, dh) of the flash-attention checks: small GQA and MHA
-#: shapes, then stablelm-3b's and llava-next-mistral-7b's heads at S = 4096
+#: shapes, stablelm-3b's and llava-next-mistral-7b's heads at S = 4096, then
+#: the bf16 kernel's tiles (128 query rows, 128 keys at dh <= 80 and 64 at
+#: dh = 128): S = 1, S = 200 and 4097 (ragged), dh 80 and 128 at GQA groups
+#: 1, 2 and 4
 FLASH_CASES = ((2, 256, 4, 2, 16), (1, 512, 8, 8, 64), (1, 4096, 32, 32, 80),
-               (1, 4096, 32, 8, 128))
+               (1, 4096, 32, 8, 128), (1, 1, 4, 2, 80), (1, 1, 4, 1, 128),
+               (1, 200, 8, 2, 80), (1, 200, 8, 4, 128), (1, 4097, 8, 4, 80),
+               (1, 4097, 8, 8, 128))
 FLASH_PLAIN_BLOCKS = ((64, 64), (128, 64), (1024, 1024))
+
+
+def flash_plain_blocks(S: int) -> list:
+    """The blocks of ``FLASH_PLAIN_BLOCKS`` that tile S (the plain version
+    cuts each to S), or the whole length as one block where none does."""
+    fits = [(bq, bk) for bq, bk in FLASH_PLAIN_BLOCKS
+            if S % min(bq, S) == 0 and S % min(bk, S) == 0]
+    return fits or [(S, S)]
 
 
 def flash_inputs(dev, g, B, S, H, Hkv, dh, dtype):
@@ -1623,7 +1638,7 @@ def flash_inputs(dev, g, B, S, H, Hkv, dh, dtype):
 def check_flash_attention(dev) -> tuple[float, int]:
     """``flash_attention`` against its plain version on the card at
     ``FLASH_CASES``, causal and not, f32 and bf16, the plain version at each
-    of ``FLASH_PLAIN_BLOCKS``, within ``decode_close`` with rtol 1e-5 (the
+    of ``flash_plain_blocks(S)``, within ``decode_close`` with rtol 1e-5 (the
     tiles sum in another order than the plain version's blocks); a causal
     row 0 must equal row 0 of v in its KV head exactly (it attends key 0
     alone)."""
@@ -1636,7 +1651,7 @@ def check_flash_attention(dev) -> tuple[float, int]:
             q, k, v = flash_inputs(dev, g, B, S, H, Hkv, dh, dtype)
             for causal in (True, False):
                 got = flash_attention_cuda(q, k, v, causal=causal)
-                for bq, bk in FLASH_PLAIN_BLOCKS:
+                for bq, bk in flash_plain_blocks(S):
                     want = flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
                     err = max(err, decode_close(
                         got, want, f"flash_attention {(B, S, H, Hkv, dh)} "
@@ -1903,7 +1918,8 @@ def time_flash_kernel(dev) -> list[dict]:
     bf16, S in ``FLASH_TIMED_LENGTHS``: held against the plain version at
     the chunk's blocks within phase 12's tolerances, then device ms (CUDA
     events, median after warm-up) beside the plain version's, SDPA on the
-    same bf16 tensors (timed only) and the bound."""
+    same bf16 tensors (timed only; ``vs_library`` is the kernel's time over
+    SDPA's) and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1942,6 +1958,7 @@ def time_flash_kernel(dev) -> list[dict]:
                                 "enable_gqa=True) on the same bf16 tensors",
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bound_ms_f32_rate": fa.bound_flops(1, S, H, dh, True) / FP32_OPS_PER_S * 1e3})
+            rows[-1]["vs_library"] = rows[-1]["ms"] / rows[-1]["library_ms"]
             del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rows
@@ -1990,7 +2007,7 @@ def main() -> int:
     build.library()
     seconds["build"] = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit({"phase": "build", "seconds": seconds["build"], "ptxas": ptxas})
 
     t0 = time.perf_counter()

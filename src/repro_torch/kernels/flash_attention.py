@@ -9,7 +9,10 @@ forward longer than ``cfg.attn_chunk_threshold`` takes. CUDA source:
 flops causal (``4·B·H·S²·dh`` not) against ``B·S·(2H + 2Hkv)·dh`` bytes. The
 kernel keeps each (64, 64) score tile and the online-softmax state on chip,
 so no (S, S) tensor exists in device memory, and maps query head ``h`` to KV
-head ``h // (H // Hkv)`` itself, so K and V are never repeated.
+head ``h // (H // Hkv)`` itself, so K and V are never repeated. bf16 inputs
+(every path) take the tensor-core kernel: wgmma on the bf16 operands with
+f32 sums, p split into two bf16 parts for P·V, K/V tiles loaded by TMA;
+f32 inputs take the f32 SIMT kernel. Both count as one launch.
 
 ``flash_attention_plain`` mirrors the Pallas body block by block (f32
 operands, the scale applied to q before the product, the finite ``-2e38``
@@ -24,7 +27,8 @@ import torch
 from . import build
 
 NEG_INF = -2.0e38
-#: the kernel's query and key tile
+#: the kernels' key tile (the f32 kernel's query tile too; the bf16 one
+#: takes 128 query rows)
 TILE = 64
 #: q / k / v / output dtypes, by the flag the C entry takes
 IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

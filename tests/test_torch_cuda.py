@@ -268,15 +268,22 @@ def _flash_inputs(dev, B, S, H, Hkv, dh, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,Hkv,dh", [(2, 256, 4, 2, 16), (1, 512, 8, 8, 64),
-                                         (1, 256, 8, 2, 80), (1, 256, 8, 2, 128)])
+                                         (1, 256, 8, 2, 80), (1, 256, 8, 2, 128),
+                                         # the bf16 kernel's tiles (128 query
+                                         # rows, 64 or 128 keys): S = 1, ragged
+                                         # S, dh 80 and 128 at GQA groups 1, 2, 4
+                                         (1, 1, 4, 2, 80), (1, 1, 4, 1, 128),
+                                         (1, 200, 8, 8, 80), (1, 200, 8, 2, 128),
+                                         (1, 384, 8, 4, 80), (1, 384, 8, 8, 128),
+                                         (1, 4097, 4, 1, 80), (1, 4097, 4, 2, 128)])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, Hkv, dh, causal, dtype):
     """Within atol 1e-5 and rtol 1e-5 (f32), one bf16 ulp plus 1e-5 (bf16)
-    of the plain version at its (64, 64) and (128, 64) blocks; a causal
-    row 0 equals row 0 of v in its KV head exactly (it attends key 0
-    alone)."""
+    of the plain version at its (64, 64) and (128, 64) blocks (at (S, S)
+    where they do not tile S); a causal row 0 equals row 0 of v in its KV
+    head exactly (it attends key 0 alone)."""
     q, k, v = _flash_inputs(dev, B, S, H, Hkv, dh, dtype, seed=S + dh)
     got = flash_attention_cuda(q, k, v, causal=causal)
-    for bq, bk in ((64, 64), (128, 64)):
+    for bq, bk in [b for b in ((64, 64), (128, 64)) if S % b[0] == 0] or [(S, S)]:
         want = flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
         assert got.dtype == want.dtype and got.shape == want.shape
         if dtype == torch.float32:

@@ -21,8 +21,16 @@ keep ``attn_chunk_threshold=64`` and ``attn_chunk=32``, so a forward of S =
   JAX package): logits within rtol = atol = 1e-4 with the same argmax at
   every position, the bar of ``tests/test_torch_model.py``;
 * the vlm patch splice (``_embed``): bit-equal;
-* greedy engine streams of the reduced vlm: equal token for token.
+* greedy engine streams of the reduced vlm: equal token for token;
+* the bf16 CUDA kernel's rounding, emulated in plain torch (bf16 products
+  with f32 sums, p split into two bf16 parts): within one bf16 ulp of the
+  output plus 1e-5 of ``flash_attention_plain`` (``chip_smoke.decode_close``,
+  the bound the kernel is held to on the card); with p rounded once to
+  bf16 about one element in ten falls outside it.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +57,7 @@ from repro_torch.models import api, attention, transformer
 from repro_torch.models.layers import QuantSpec
 from repro_torch.serving import GenerationRequest, ServingEngine
 
+ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("stablelm-3b", "llava-next-mistral-7b")
 S_LONG = 128                 # > attn_chunk_threshold (64), 4 chunks of 32
 NPATCH = 8                   # reduced vlm: num_patches
@@ -138,6 +147,84 @@ def test_ops_on_cpu_runs_the_plain_version_at_a_dividing_block():
     assert build.LAUNCHES["flash_attention"] == before
     with pytest.raises(ValueError, match="tile"):
         flash_attention_plain(q, k, v, causal=True, bq=64, bk=64)
+
+
+# --------------------------------------- the tensor-core kernel's rounding
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tc_emulation(q, k, v, *, causal: bool, split: bool):
+    """The bf16 kernel's arithmetic (``csrc/flash_attention.cu``, namespace
+    ``tc``) in plain torch: QK^T of the bf16 operands with f32 sums, the
+    scale applied to the f32 score after the product, an online softmax over
+    the kernel's key tiles (128 keys for dh <= 80, 64 for dh = 128) with the
+    finite -2e38 mask, ``l`` summed from the f32 p, and P.V with p split
+    into bf16(p) + bf16(p - bf16(p)) summed in f32 (``split=False``: p
+    rounded once to bf16)."""
+    B, S, H, dh = q.shape
+    bn = 128 if dh <= 80 else 64
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = torch.tensor(1.0 / float(dh) ** 0.5, dtype=torch.float32)
+    qf = q.float().reshape(B, S, Hkv, g, dh).permute(0, 2, 3, 1, 4)
+    kf, vf = (t.float().permute(0, 2, 1, 3)[:, :, None] for t in (k, v))
+    acc = torch.zeros((B, Hkv, g, S, dh))
+    m = torch.full((B, Hkv, g, S), -2.0e38)
+    l = torch.zeros((B, Hkv, g, S))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bn):
+        kb, vb = kf[..., k0:k0 + bn, :], vf[..., k0:k0 + bn, :]
+        s = (qf @ kb.transpose(-1, -2)) * scale
+        if causal:
+            s = torch.where(k0 + torch.arange(kb.shape[-2])[None, :] <= rows, s, -2.0e38)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = hi @ vb + (p - hi).bfloat16().float() @ vb if split else hi @ vb
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, dh).to(q.dtype)
+
+
+# (S, H, Hkv, dh): stablelm-3b's and llava's head widths at GQA groups 1 and
+# 4, and a ragged S that no 64- or 128-row tile divides
+TC_CASES = [(512, 2, 2, 80), (512, 4, 1, 80), (512, 2, 2, 128), (512, 4, 1, 128),
+            (333, 4, 1, 128), (333, 2, 2, 80)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_tensor_core_rounding_with_split_p_meets_the_plain_bound(case, causal):
+    """With p split into two bf16 parts, the kernel's arithmetic stays within
+    ``chip_smoke.decode_close``'s bf16 rule (one output ulp + 1e-5) of
+    ``flash_attention_plain``; its causal row 0 is row 0 of v exactly."""
+    S, H, Hkv, dh = case
+    (_, _, _), (q, k, v) = _qkv((1, S, H, Hkv, dh), "bfloat16", seed=S + dh + H)
+    got = _tc_emulation(q, k, v, causal=causal, split=True)
+    want = flash_attention_plain(q, k, v, causal=causal, bq=S, bk=S)
+    _chip_smoke().decode_close(got, want, f"emulation {case}", rtol=1e-5)
+    if causal:
+        assert torch.equal(got[:, 0], v[:, 0, torch.arange(H) // (H // Hkv)])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_tensor_core_rounding_with_one_bf16_p_leaves_the_plain_bound(case, causal):
+    """The same inputs with p rounded once to bf16 (no split) fall outside
+    that rule: this is why the kernel splits p."""
+    S, H, Hkv, dh = case
+    (_, _, _), (q, k, v) = _qkv((1, S, H, Hkv, dh), "bfloat16", seed=S + dh + H)
+    got = _tc_emulation(q, k, v, causal=causal, split=False)
+    want = flash_attention_plain(q, k, v, causal=causal, bq=S, bk=S)
+    with pytest.raises(AssertionError, match="kernel != plain"):
+        _chip_smoke().decode_close(got, want, f"emulation {case}", rtol=1e-5)
 
 
 # ------------------------------------------------------------------ models
