@@ -28,10 +28,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    library calls and the bounds, and a direct forward of 32 x 128 tokens;
 5. ``decode_attention`` against its plain version on the card: kv_bits 8
    and 4, q in f32 and bf16, (H, Hkv, dh) in {(32, 32, 80) stablelm-3b,
-   (48, 8, 128) internlm2-20b}, B = 8, S in {64, 512, 520}, lengths
-   including 0, 1, S and S + 37 (an idle slot). Within atol 1e-5 (rtol 0)
-   for f32 and one bf16 ulp plus 1e-5 for bf16; poisoning every row past
-   each slot's length must leave the kernel's output bit-unchanged;
+   (48, 8, 128) internlm2-20b}, S in {64, 512, 520} with one slot at each
+   of the lengths 0, 1, 7, 33, S/2, S - 1, S, S + 37 (an idle slot) and the
+   kernel's split edges C - 1, C, C + 1, 2C + 1 (C rows a split), then a
+   long cache: B = 2, S = 4096, lengths 4000 and 4096. Within atol 1e-5
+   (rtol 0) for f32 and one bf16 ulp plus 1e-5 for bf16; two calls must be
+   bit-equal, and poisoning every row past each slot's length must leave
+   the kernel's output bit-unchanged;
 6. the decoder path end to end at the full stablelm-3b width and depth (32
    layers, d 2560, 32 heads of 80, d_ff 6912 SwiGLU, vocab 50304 padded to
    50432, bf16 activations) under the JAX serve CLI's policy (W8A8 layers
@@ -63,18 +66,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    logits of the two backends must be bit-equal;
 7. decode times: one decode step with 8 active slots at cache length 448,
    eager and replayed from a CUDA graph (tokens/s, the device's idle
-   share), a prefill forward of 4 x 256 tokens, and each kernel at its
-   decode shapes beside its plain version, the library call
-   (``torch._int_mm`` where it accepts M = 8; SDPA over a cache already
-   dequantized to bf16, which excludes the dequantization) and its bound;
+   share), one eager kv8 step under ``torch.profiler`` (the top device
+   kernels by name and the device-busy share), a prefill forward of 4 x
+   256 tokens, and each kernel at its decode shapes beside its plain
+   version, the library call (``torch._int_mm`` where it accepts M = 8;
+   SDPA over a cache already dequantized to bf16, which excludes the
+   dequantization) and its bound. ``decode_attention`` and SDPA are timed
+   warm (the same cache every call) and cold (rotating over caches that
+   exceed the 50 MB L2, as a step finds each layer's cache), and once more,
+   timed only, at B = 1 and cache length 8192;
 8. ``decode_attention_paged`` against its plain version on the card, over
-   phase 5's grid (kv_bits 8 and 4, f32 and bf16, the two head shapes, B =
-   8, S in {64, 512, 520}, the same lengths) with tables that permute a
-   pool's blocks, share blocks between slots and carry the sentinel and
-   entries past it: within phase 5's tolerances of the plain version,
-   bit-equal to the dense kernel on the layout the tables describe, and
-   bit-unchanged when every pool row no table reaches below its slot's
-   length is poisoned (NaN scales, garbage codes);
+   phase 5's cases (kv_bits 8 and 4, f32 and bf16, the two head shapes,
+   the same extents and lengths, the long cache) and over tables of 512 +
+   128 rows against a dense extent of 512 (lengths up to 512), with tables
+   that permute a pool's blocks, share blocks between slots and carry the
+   sentinel and entries past it: within phase 5's tolerances of the plain
+   version, bit-equal over two calls, bit-equal to the dense kernel on the
+   layout the tables describe (cut to the dense extent), and bit-unchanged
+   when every pool row no table reaches below its slot's length is poisoned
+   (NaN scales, garbage codes);
 9. phase 6's traffic through a paged engine (``kv_paging="paged"``, the
    dense-equivalent budget, prefix off) over phase 6's artifact at
    kv_bits 8 and 4: every stream byte-identical to phase 6's dense run;
@@ -97,8 +107,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    pool) eager and replayed from a CUDA graph, and
    ``decode_attention_paged`` at that shape, each timed in turns with its
    dense counterpart (dense, paged, paged, dense), the kernel beside its
-   plain version, SDPA over the gathered and dequantized bf16 cache and
-   its bound;
+   plain version, SDPA over the gathered and dequantized bf16 cache (the
+   kernel and SDPA warm and cold, as in phase 7) and its bound;
 12. ``flash_attention`` against its plain version on the card: (B, S, H,
    Hkv, dh) in {(2, 256, 4, 2, 16), (1, 512, 8, 8, 64), (1, 4096, 32, 32,
    80) stablelm-3b, (1, 4096, 32, 8, 128) llava-next-mistral-7b}, and for
@@ -133,7 +143,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 14. flash_attention alone at (1, S, 32, 32, 80) and (1, S, 32, 8, 128),
    causal, bf16, S in {4096, 8192, 32768}, held against its plain version
    at phase 12's tolerances and timed beside it, SDPA on the same tensors
-   (timed only) and its bound; then one forward of each model at S = 32768
+   (timed only) and its bound; int8_matmul and int4_matmul (bf16 out) at M
+   = 8192 and 32768 for every (K, N) of the two long forwards, timed only,
+   beside ``torch._int_mm`` on the same int8 operands and the op bound at
+   1979 TOPS; then one forward of each model at S = 32768
    (the JAX system's prefill_32k length) with phase 13's launch checks:
    eager ms, the flash kernels' device ms, tokens/s, peak memory; and a
    second such forward that records the first layer's flash attention and
@@ -202,6 +215,7 @@ PER_DECODE_STEP = {"act_quant": 224, "int8_matmul": 112, "int4_matmul": 112,
 PAGED_DECODE_STEP = {**PER_DECODE_STEP, "decode_attention": 0,
                      "decode_attention_paged": 32}
 BLOCK = 8                      # rows per KV block (serving/prefix_cache.PREFIX_BLOCK)
+LONG_CACHE = 8192              # the timed-only decode-attention row: B = 1 at this length
 DECODE_SLOTS, DECODE_MAX_LEN, DECODE_LEN = 8, 512, 448
 
 
@@ -700,30 +714,60 @@ def decode_close(got, want, name: str = "decode_attention",
     return diff.max().item()
 
 
+#: head shapes of the decode-attention checks: stablelm-3b's and
+#: internlm2-20b's (GQA group 6, dh 128)
+DECODE_HEADS = ((32, 32, 80), (48, 8, 128))
+#: the long-cache case: (B, S, lengths)
+LONG_DECODE = (2, 4096, [4000, 4096])
+
+
+def decode_lengths(S: int) -> list[int]:
+    """Per-slot lengths of the decode-attention grid at extent ``S``: empty,
+    short, ragged, full and idle (past S) slots, and the edges of the
+    kernel's splits (C - 1, C, C + 1, 2C + 1 for C rows a split)."""
+    from repro_torch.kernels.decode_attention import SPLIT_ROWS as C
+    return [0, 1, 7, 33, S // 2, S - 1, S, S + 37, C - 1, C, C + 1, 2 * C + 1]
+
+
+def decode_cases():
+    """(H, Hkv, dh, B, S, lengths) of phases 5 and 8: the grid at S in {64,
+    512, 520} with :func:`decode_lengths`, then the long cache."""
+    for H, Hkv, dh in DECODE_HEADS:
+        for S in (64, 512, 520):
+            lengths = decode_lengths(S)
+            yield H, Hkv, dh, len(lengths), S, lengths
+    for H, Hkv, dh in DECODE_HEADS:
+        yield H, Hkv, dh, *LONG_DECODE
+
+
 def check_decode_attention(dev) -> float:
+    """Each case of :func:`decode_cases` at kv_bits 8 and 4, f32 and bf16:
+    within phase 5's tolerances of the plain version, bit-equal over two
+    calls, and bit-unchanged when every row past each slot's length is
+    poisoned (garbage codes, scales of 3e4)."""
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
     g = torch.Generator(device=dev).manual_seed(77)
     err, cases = 0.0, 0
-    for H, Hkv, dh in ((32, 32, 80), (48, 8, 128)):
-        for S in (64, 512, 520):
-            lengths = [0, 1, 7, 33, S // 2, S - 1, S, S + 37]
-            for bits in (8, 4):
-                for dtype in (torch.float32, torch.bfloat16):
-                    args = decode_inputs(dev, g, 8, S, H, Hkv, dh, bits, dtype, lengths)
-                    got = decode_attention_cuda(*args)
-                    err = max(err, decode_close(got, decode_attention_plain(*args)))
-                    for i, n in enumerate(lengths):        # poison past the length
-                        args[1][i, n:] = 0x5A if bits == 8 else 0xF3
-                        args[2][i, n:] = 0x5A if bits == 8 else 0xF3
-                        args[3][i, n:] = 3.0e4
-                        args[4][i, n:] = 3.0e4
-                    if not torch.equal(decode_attention_cuda(*args), got):
-                        raise AssertionError(
-                            f"decode_attention H={H} Hkv={Hkv} dh={dh} S={S} "
-                            f"bits={bits} {dtype}: rows past the length moved "
-                            "the output")
-                    cases += 1
+    for H, Hkv, dh, B, S, lengths in decode_cases():
+        for bits in (8, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                name = (f"decode_attention B={B} H={H} Hkv={Hkv} dh={dh} S={S} "
+                        f"bits={bits} {dtype}")
+                args = decode_inputs(dev, g, B, S, H, Hkv, dh, bits, dtype, lengths)
+                got = decode_attention_cuda(*args)
+                err = max(err, decode_close(got, decode_attention_plain(*args), name))
+                if not torch.equal(decode_attention_cuda(*args), got):
+                    raise AssertionError(f"{name}: two calls differ")
+                for i, n in enumerate(lengths):        # poison past the length
+                    args[1][i, n:] = 0x5A if bits == 8 else 0xF3
+                    args[2][i, n:] = 0x5A if bits == 8 else 0xF3
+                    args[3][i, n:] = 3.0e4
+                    args[4][i, n:] = 3.0e4
+                if not torch.equal(decode_attention_cuda(*args), got):
+                    raise AssertionError(f"{name}: rows past the length moved the "
+                                         "output")
+                cases += 1
     torch.cuda.synchronize()
     return err, cases
 
@@ -1030,6 +1074,54 @@ def decode_state_at(model, dev, length: int):
     return st
 
 
+def profile_step(step, top: int = 12) -> dict:
+    """One eager call of ``step`` under ``torch.profiler``: the device
+    kernels' summed time by name (``key_averages``), the top ``top`` of them,
+    and the device-busy share (summed kernel time over the step's host-clock
+    time to a synchronise; kernels that overlap count twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        kernels.append({"name": e.key[:160], "count": e.count, "device_us": us})
+    kernels.sort(key=lambda k: -k["device_us"])
+    busy = sum(k["device_us"] for k in kernels)
+    if not busy:
+        return {"note": "no device time in the trace", "wall_us": wall_us}
+    return {"wall_us": wall_us, "device_us": busy, "device_busy_share": busy / wall_us,
+            "kernels": len(kernels), "top": kernels[:top]}
+
+
+def rotating(sets: list):
+    """A call over ``sets`` in turn, one set a call: each set comes back only
+    after the others have passed through the 50 MB L2 (cold timing)."""
+    state = {"i": 0}
+
+    def next_set():
+        state["i"] = (state["i"] + 1) % len(sets)
+        return sets[state["i"]]
+    return next_set
+
+
+def cold_sets(nbytes: int) -> int:
+    """How many distinct input sets of ``nbytes`` a cold timing rotates over:
+    enough that the others exceed the L2 (50 MB) with room."""
+    return max(2, -(-60_000_000 // max(nbytes, 1)) + 1)
+
+
 def time_decode(models, dev) -> dict:
     """One decode step with 8 active slots at cache length 448 (eager and
     CUDA-graph replay) and a prefill forward of 4 x 256 tokens."""
@@ -1058,6 +1150,8 @@ def time_decode(models, dev) -> dict:
             "eager_tokens_per_s": DECODE_SLOTS / (eager / 1e3),
             "device_tokens_per_s": DECODE_SLOTS / (device / 1e3),
             "device_idle_share_eager": 1.0 - device / eager}
+        if kv == 8:
+            out["decode_step_profile_kv8"] = profile_step(step)
     model = models[8]
     eng = ServingEngine(model, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
     ptoks = torch.randint(1, model.plan.cfg.vocab_size, (4, 256), device=dev)
@@ -1125,33 +1219,61 @@ def time_decode_kernels(dev) -> list[dict]:
             lambda: i4.int4_matmul_plain(x8, wp, s_a, s_w, out_dtype=bf),
             M * K + K // 2 * N + out_b, 2 * M * K * N, INT8_OPS_PER_S,
             library_note="no int4 library call")
-    B, S, H, Hkv, dh = DECODE_SLOTS, DECODE_MAX_LEN, 32, 32, 80
+    def attention_rows(B, S, L, bits, calls, **extra):
+        """decode_attention at (B, S, len L), stablelm-3b heads, bf16: warm
+        (the same cache every call, as the earlier designs were timed) and
+        cold (rotating over caches that exceed the L2), beside its plain
+        version, SDPA on a cache already dequantized to bf16 (warm and
+        cold) and its bound."""
+        H, Hkv, dh = 32, 32, 80
+        nbytes = da.bound_bytes(B, S, Hkv, H, dh, bits, [L] * B, 2)
+        sets = [decode_inputs(dev, g, B, S, H, Hkv, dh, bits, bf, [L] * B)
+                for _ in range(cold_sets(2 * B * S * Hkv * ((dh if bits == 8 else dh // 2) + 4)))]
+        mask = (torch.arange(S, device=dev) < L)[None, None, None, :]
+
+        def sdpa_inputs(a):
+            return (a[0][:, :, None, :],
+                    kv_pack.dequantize_kv(a[1], a[3], bf).transpose(1, 2),   # (B,H,S,dh)
+                    kv_pack.dequantize_kv(a[2], a[4], bf).transpose(1, 2))
+        sd = [sdpa_inputs(a) for a in sets[:cold_sets(4 * B * S * H * dh)]]
+        kern, lib = rotating(sets), rotating(sd)
+        b_ms, b_by = bound(nbytes, 4 * B * H * (L + 1) * dh, FP32_OPS_PER_S)
+        rows.append({
+            "kernel": "decode_attention", "M": B, "shape": [B, S, L, H, Hkv, dh],
+            "calls": calls, "kv_bits": bits, **extra,
+            "ms": cuda_ms(lambda: da.decode_attention_cuda(*sets[0])),
+            "ms_cold": cuda_ms(lambda: da.decode_attention_cuda(*kern())),
+            "eager_ms": cuda_ms(lambda: da.decode_attention_cuda(*sets[0]), graph=False),
+            "plain_ms": cuda_ms(lambda: da.decode_attention_plain(*sets[0])),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                *sd[0], attn_mask=mask)),
+            "library_ms_cold": cuda_ms(lambda: F.scaled_dot_product_attention(
+                *lib(), attn_mask=mask)),
+            "library_note": "SDPA over a cache already dequantized to bf16 "
+                            "(excludes the dequantization)",
+            "cold_sets": [len(sets), len(sd)], "bound_ms": b_ms, "bound_by": b_by})
+        del sets, sd
+        torch.cuda.empty_cache()
+
     for bits in (8, 4):
-        args = decode_inputs(dev, g, B, S, H, Hkv, dh, bits, bf, [DECODE_LEN] * B)
-        kd = kv_pack.dequantize_kv(args[1], args[3], bf).transpose(1, 2)  # (B,H,S,dh)
-        vd = kv_pack.dequantize_kv(args[2], args[4], bf).transpose(1, 2)
-        qd = args[0][:, :, None, :]
-        mask = (torch.arange(S, device=dev) < DECODE_LEN)[None, None, None, :]
-        nbytes = da.bound_bytes(B, S, Hkv, H, dh, bits, [DECODE_LEN] * B, 2)
-        ops = 4 * B * H * (DECODE_LEN + 1) * dh
-        row("decode_attention", [B, S, DECODE_LEN, H, Hkv, dh],
-            PER_DECODE_STEP["decode_attention"], lambda: da.decode_attention_cuda(*args),
-            lambda: da.decode_attention_plain(*args), nbytes, ops, FP32_OPS_PER_S,
-            library_fn=lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-            library_note="SDPA over a cache already dequantized to bf16 "
-                         "(excludes the dequantization)", kv_bits=bits)
+        attention_rows(DECODE_SLOTS, DECODE_MAX_LEN, DECODE_LEN, bits,
+                       PER_DECODE_STEP["decode_attention"])
+    # timed only: one slot with a long cache, where a grid of (heads, slots)
+    # would fill a quarter of the SMs
+    attention_rows(1, LONG_CACHE, LONG_CACHE, 8, 0,
+                   per="one call, B = 1 at cache length 8192 (timed only)")
     return rows
 
 
 # ------------------------------------------------------------------ phase 8
-def paged_inputs(dev, g, B, S, H, Hkv, dh, bits, dtype, lengths):
-    """A pool of B * S / 8 + 8 blocks of random K/V (the port's quantize_kv)
-    and (B, S / 8) tables over it: a permutation of the pool's blocks, the
-    leading blocks of slot 4 shared with slot 3, and the sentinel (the pool
-    size) or an entry past it wherever a table runs past its slot's length.
-    Returns the paged kernel's arguments."""
+def paged_inputs(dev, g, B, S, H, Hkv, dh, bits, dtype, lengths, extra: int = 0):
+    """A pool of B * nb + 8 blocks of random K/V (the port's quantize_kv)
+    and (B, nb) tables over it, nb = S / 8 + ``extra``: a permutation of the
+    pool's blocks, the leading blocks of slot 4 shared with slot 3, and the
+    sentinel (the pool size) or an entry past it wherever a table runs past
+    its slot's length. Returns the paged kernel's arguments."""
     from repro_torch.kernels import kv_pack
-    nb = S // BLOCK
+    nb = S // BLOCK + extra
     NB = B * nb + 8
     k_q, k_s = kv_pack.quantize_kv(
         torch.randn((NB, BLOCK, Hkv, dh), generator=g, device=dev), bits)
@@ -1163,7 +1285,7 @@ def paged_inputs(dev, g, B, S, H, Hkv, dh, bits, dtype, lengths):
     perm = np.random.default_rng(S + bits).permutation(NB)[:B * nb]
     tables = perm.reshape(B, nb).astype(np.int32)
     for i, n in enumerate(lengths):
-        used = -(-min(max(n, 0), S) // BLOCK)
+        used = -(-min(max(n, 0), nb * BLOCK) // BLOCK)
         tables[i, used:] = NB if i % 2 else NB + 5
     if B > 4:
         tables[4, :2] = tables[3, :2]             # blocks shared between slots
@@ -1182,42 +1304,59 @@ def live_rows(tables: np.ndarray, lengths, NB: int) -> np.ndarray:
     return live
 
 
+#: the wider-table case: tables of S / 8 + WIDE_EXTRA entries against the
+#: dense kernel over extent S = WIDE_S (512 against 640 rows), lengths <= S
+WIDE_S, WIDE_EXTRA = 512, 16
+
+
 def check_decode_attention_paged(dev) -> tuple[float, int]:
-    """Phase 5's grid through the paged kernel: within phase 5's tolerances
-    of the plain version, bit-equal to the dense kernel on the layout the
-    tables describe, and bit-unchanged when every pool row no table reaches
-    below its slot's length is poisoned (NaN scales, garbage codes)."""
+    """Phase 5's cases through the paged kernel, then tables wider than the
+    dense extent they are compared with: within phase 5's tolerances of
+    the plain version, bit-equal over two calls, bit-equal to the dense
+    kernel on the layout the tables describe (cut to the dense extent), and
+    bit-unchanged when every pool row no table reaches below its slot's
+    length is poisoned (NaN scales, garbage codes)."""
     from repro_torch.kernels.decode_attention import (
-        decode_attention_cuda, decode_attention_paged_cuda,
+        SPLIT_ROWS, decode_attention_cuda, decode_attention_paged_cuda,
         decode_attention_paged_plain, gather_kv_blocks)
     g = torch.Generator(device=dev).manual_seed(78)
     err, cases = 0.0, 0
-    for H, Hkv, dh in ((32, 32, 80), (48, 8, 128)):
-        for S in (64, 512, 520):
-            lengths = [0, 1, 7, 33, S // 2, S - 1, S, S + 37]
-            for bits in (8, 4):
-                for dtype in (torch.float32, torch.bfloat16):
-                    args = paged_inputs(dev, g, 8, S, H, Hkv, dh, bits, dtype, lengths)
-                    q, pool, tables, (kn, vn, lens) = args[0], args[1:5], args[5], args[6:]
-                    name = (f"decode_attention_paged H={H} Hkv={Hkv} dh={dh} S={S} "
-                            f"bits={bits} {dtype}")
-                    got = decode_attention_paged_cuda(*args)
-                    err = max(err, decode_close(
-                        got, decode_attention_paged_plain(*args), name))
-                    dense = [gather_kv_blocks(b, tables).contiguous() for b in pool]
-                    if not torch.equal(got, decode_attention_cuda(q, *dense, kn, vn, lens)):
-                        raise AssertionError(f"{name}: != the dense kernel on the "
-                                             "gathered layout")
-                    dead = torch.as_tensor(~live_rows(tables.cpu().numpy(), lengths,
-                                                      pool[0].shape[0]), device=dev)
-                    for codes in pool[:2]:
-                        codes[dead] = 0x5A if bits == 8 else 0xF3
-                    for scales in pool[2:]:
-                        scales[dead] = float("nan")
-                    if not torch.equal(decode_attention_paged_cuda(*args), got):
-                        raise AssertionError(f"{name}: rows no table reaches moved "
-                                             "the output")
-                    cases += 1
+    C = SPLIT_ROWS
+    # lengths up to the dense extent: past it the dense call attends S rows
+    # and the wider tables more, by definition
+    wide = sorted({n for n in (0, 1, 7, C - 1, C, C + 1, 2 * C - 1, 2 * C + 1,
+                               WIDE_S // 2, WIDE_S - 1, WIDE_S) if n <= WIDE_S})
+    grid = [(*case, 0) for case in decode_cases()]
+    grid += [(H, Hkv, dh, len(wide), WIDE_S, wide, WIDE_EXTRA)
+             for H, Hkv, dh in DECODE_HEADS]
+    for H, Hkv, dh, B, S, lengths, extra in grid:
+        for bits in (8, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = paged_inputs(dev, g, B, S, H, Hkv, dh, bits, dtype, lengths,
+                                    extra)
+                q, pool, tables, (kn, vn, lens) = args[0], args[1:5], args[5], args[6:]
+                name = (f"decode_attention_paged B={B} H={H} Hkv={Hkv} dh={dh} "
+                        f"S={S} extent={tables.shape[1] * BLOCK} bits={bits} {dtype}")
+                got = decode_attention_paged_cuda(*args)
+                err = max(err, decode_close(
+                    got, decode_attention_paged_plain(*args), name))
+                if not torch.equal(decode_attention_paged_cuda(*args), got):
+                    raise AssertionError(f"{name}: two calls differ")
+                dense = [gather_kv_blocks(b, tables[:, :S // BLOCK]).contiguous()
+                         for b in pool]
+                if not torch.equal(got, decode_attention_cuda(q, *dense, kn, vn, lens)):
+                    raise AssertionError(f"{name}: != the dense kernel on the "
+                                         "gathered layout")
+                dead = torch.as_tensor(~live_rows(tables.cpu().numpy(), lengths,
+                                                  pool[0].shape[0]), device=dev)
+                for codes in pool[:2]:
+                    codes[dead] = 0x5A if bits == 8 else 0xF3
+                for scales in pool[2:]:
+                    scales[dead] = float("nan")
+                if not torch.equal(decode_attention_paged_cuda(*args), got):
+                    raise AssertionError(f"{name}: rows no table reaches moved "
+                                         "the output")
+                cases += 1
     torch.cuda.synchronize()
     return err, cases
 
@@ -1578,13 +1717,24 @@ def time_paged_kernel(dev) -> list[dict]:
     B, S, H, Hkv, dh = DECODE_SLOTS, DECODE_MAX_LEN, 32, 32, 80
     rows = []
     for bits in (8, 4):
-        args = paged_inputs(dev, g, B, S, H, Hkv, dh, bits, torch.bfloat16, [DECODE_LEN] * B)
+        dhp = dh if bits == 8 else dh // 2
+        sets = [paged_inputs(dev, g, B, S, H, Hkv, dh, bits, torch.bfloat16,
+                             [DECODE_LEN] * B)
+                for _ in range(cold_sets(2 * (B * S + 8 * BLOCK) * Hkv * (dhp + 4)))]
+        args = sets[0]
         q, tables, (kn, vn, lens) = args[0], args[5], args[6:]
         dense = [da.gather_kv_blocks(b, tables).contiguous() for b in args[1:5]]
-        kd = kv_pack.dequantize_kv(dense[0], dense[2], torch.bfloat16).transpose(1, 2)
-        vd = kv_pack.dequantize_kv(dense[1], dense[3], torch.bfloat16).transpose(1, 2)
-        qd = q[:, :, None, :]
         mask = (torch.arange(S, device=dev) < DECODE_LEN)[None, None, None, :]
+
+        def sdpa_inputs(a):
+            gathered = [da.gather_kv_blocks(b, a[5]) for b in a[1:5]]
+            return (a[0][:, :, None, :],
+                    kv_pack.dequantize_kv(gathered[0], gathered[2],
+                                          torch.bfloat16).transpose(1, 2),
+                    kv_pack.dequantize_kv(gathered[1], gathered[3],
+                                          torch.bfloat16).transpose(1, 2))
+        sd = [sdpa_inputs(a) for a in sets[:cold_sets(4 * B * S * H * dh)]]
+        kern, lib = rotating(sets), rotating(sd)
         nbytes = da.bound_bytes_paged(B, S // BLOCK, BLOCK, Hkv, H, dh, bits,
                                       [DECODE_LEN] * B, 2)
         b_ms, b_by = bound(nbytes, 4 * B * H * (DECODE_LEN + 1) * dh, FP32_OPS_PER_S)
@@ -1597,15 +1747,21 @@ def time_paged_kernel(dev) -> list[dict]:
                      "shape": [B, S, DECODE_LEN, H, Hkv, dh],
                      "calls": PAGED_DECODE_STEP["decode_attention_paged"],
                      "ms": statistics.mean(runs["paged"]), "ms_runs": runs["paged"],
+                     "ms_cold": cuda_ms(lambda: da.decode_attention_paged_cuda(*kern())),
                      "dense_kernel_ms": statistics.mean(runs["dense"]),
                      "dense_kernel_ms_runs": runs["dense"],
                      "eager_ms": cuda_ms(fns["paged"], graph=False),
                      "plain_ms": cuda_ms(lambda: da.decode_attention_paged_plain(*args)),
                      "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                         qd, kd, vd, attn_mask=mask)),
+                         *sd[0], attn_mask=mask)),
+                     "library_ms_cold": cuda_ms(lambda: F.scaled_dot_product_attention(
+                         *lib(), attn_mask=mask)),
                      "library_note": "SDPA over the cache already gathered and "
                                      "dequantized to bf16 (excludes both)",
+                     "cold_sets": [len(sets), len(sd)],
                      "bound_ms": b_ms, "bound_by": b_by, "kv_bits": bits})
+        del sets, sd, args, dense
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1964,6 +2120,62 @@ def time_flash_kernel(dev) -> list[dict]:
     return rows
 
 
+#: (K, N) of the integer GEMMs of the two long forwards: stablelm-3b's
+#: attention, up/gate and down projections, llava-next-mistral-7b's q/o,
+#: k/v, up/gate and down
+LONG_GEMMS = {"stablelm-3b": ((2560, 2560), (2560, 6912), (6912, 2560)),
+              "llava-next-mistral-7b": ((4096, 4096), (4096, 1024), (4096, 14336),
+                                        (14336, 4096))}
+LONG_GEMM_M = (8192, 32768)
+
+
+def time_long_gemms(dev) -> list[dict]:
+    """int8_matmul and int4_matmul (bf16 out, as the long forwards call them)
+    at M in ``LONG_GEMM_M`` for each (K, N) of ``LONG_GEMMS``, timed only,
+    beside torch._int_mm on the same int8 operands (the int8 yardstick for
+    both: there is no int4 library call) and the op bound at 1979 TOPS. A
+    call takes up to tens of ms: timed as issued, median of 3 after one."""
+    from repro_torch.core.packing import pack_int4
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import int8_matmul as i8
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    bf = torch.bfloat16
+    timer = lambda fn: cuda_ms(fn, samples=3, reps=1, warmup=1, graph=False)
+    rows = []
+    for arch, shapes in LONG_GEMMS.items():
+        for K, N in shapes:
+            w8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+            wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
+                                         dtype=torch.int8))
+            s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
+            s_a = torch.tensor(0.02, device=dev)
+            for M in LONG_GEMM_M:
+                x8 = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                                   dtype=torch.int8)
+                ops = 2 * M * K * N
+                lib = timer(lambda: torch._int_mm(x8, w8))
+                for kernel, fn, wbytes in (
+                        ("int8_matmul", lambda: i8.int8_matmul_cuda(
+                            x8, w8, s_a, s_w, out_dtype=bf), K * N),
+                        ("int4_matmul", lambda: i4.int4_matmul_cuda(
+                            x8, wp, s_a, s_w, out_dtype=bf), K // 2 * N)):
+                    b_ms, b_by = bound(M * K + wbytes + 4 + 4 * N + 2 * M * N, ops,
+                                       INT8_OPS_PER_S)
+                    ms = timer(fn)
+                    rows.append({"kernel": kernel, "model": arch, "M": M, "shape": [K, N],
+                                 "ms": ms, "library_ms": lib,
+                                 "library_note": "torch._int_mm on the same int8 operands "
+                                                 "(int32 out, no epilogue); the int8 "
+                                                 "yardstick for both kernels",
+                                 "vs_library": ms / lib, "tops": ops / ms / 1e9,
+                                 "bound_ms": b_ms, "bound_by": b_by})
+                del x8
+            del w8, wp
+            torch.cuda.empty_cache()
+    return rows
+
+
 def time_long_forwards(models: dict, dev) -> dict:
     """One forward of each model at S = 32768, B = 1 (the JAX system's
     prefill_32k length), with phase 13's launch checks: eager ms, the flash
@@ -2121,6 +2333,9 @@ def main() -> int:
     for r in flash_rows:
         emit({"phase": "flash_kernel_time", **r})
     dec_rows += flash_rows
+    gemm_rows = time_long_gemms(dev)
+    for r in gemm_rows:
+        emit({"phase": "long_gemm_time", **r})
     long_times = time_long_forwards(prefill_models, dev)
     seconds["long_times"] = time.perf_counter() - t0
     emit({"phase": "long_forward_times", "S": PREFILL_LENGTHS[-1],
@@ -2155,6 +2370,10 @@ def main() -> int:
             raise AssertionError(f"{path}: kernels never launched on the main "
                                  f"path: {idle}")
     entries = kernel_entries(rows, dec_rows, launches_by_path, errors)
+    for entry in entries:
+        long_rows = [r for r in gemm_rows if r["kernel"] == entry["name"]]
+        if long_rows:
+            entry["long_forward_gemms"] = long_rows
     emit({"phase": "seconds", **seconds})
     report = ROOT / "chiprun_out" / "chip_smoke_report.json"
     report.parent.mkdir(exist_ok=True)
@@ -2168,6 +2387,7 @@ def main() -> int:
                                   "llava_deploy": llava_info,
                                   "long_prefill": prefill,
                                   "long_forward_times": long_times,
+                                  "long_gemm_times": gemm_rows,
                                   "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})

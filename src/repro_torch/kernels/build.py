@@ -42,10 +42,10 @@ SIGNATURES = {
     "int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "int4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "int4_matmul_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    "decode_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "decode_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 

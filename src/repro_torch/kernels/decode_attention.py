@@ -8,12 +8,16 @@ replaces ``decode_attention_paged`` (decode_attention.py:143, which reaches
 that ``pallas_call`` through a gather of the pool's blocks). CUDA source:
 ``csrc/decode_attention.cu``. Bound on H100 by bytes: a decode step reads
 each slot's codes and scales once, a quarter (int8) or an eighth (int4) of
-an f32 cache. The kernel dequantizes blocks of 32 rows in shared memory
-inside an online softmax, so neither the dequantized cache nor the (B, S)
-score matrix exists in device memory; the current token's fp K/V are folded
-in after the loop (it attends itself at full precision). The paged kernel
-looks each row up through the slot's block table inside the kernel, so no
-dense copy of the pool is gathered.
+an f32 cache. The kernel splits each slot's cache into chunks of
+:data:`SPLIT_ROWS` rows counted from position 0 (flash-decoding): one block
+per (chunk, KV head, slot) copies the chunk's raw codes into shared memory
+and dequantizes them at use, so neither the dequantized cache nor the
+(B, S) score matrix exists in device memory; each block leaves its
+unnormalised (acc, m, l) in a workspace, and a second kernel of the same
+launch merges the chunks in order with the current token's fp K/V last (it
+attends itself at full precision). The paged kernel looks each row up
+through the slot's block table inside the kernel, so no dense copy of the
+pool is gathered.
 """
 from __future__ import annotations
 
@@ -26,9 +30,24 @@ NEG_INF = -2.0e38
 
 #: q / k_new / v_new / output dtypes, by the flag the C entry takes
 IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's limits (one block per (KV head, slot) holds G x dh floats)
+#: the kernel's limits (one block holds a chunk's scores for G query heads)
 MAX_HEAD_DIM = 128
 MAX_GROUP = 8
+#: cache rows per split (``kSplit`` in ``csrc/decode_attention.cu``; the C
+#: entries refuse a workspace sized for another value)
+SPLIT_ROWS = 256
+
+
+def split_plan(B: int, H: int, dh: int, S: int) -> tuple[int, tuple]:
+    """The split kernels' sizing from shapes alone: ``(n_split, workspace
+    shape)`` for ``B`` slots, ``H`` query heads of ``dh`` over a cache of
+    extent ``S`` (paged: ``nb * block``). Split ``i`` covers rows
+    ``[i * SPLIT_ROWS, (i + 1) * SPLIT_ROWS)`` whatever ``S`` is, so two
+    extents share their common splits; the workspace holds per (slot, head,
+    split) the unnormalised sum of ``dh`` and its ``m`` and ``l``. Never
+    reads the lengths: a call stays free of host syncs and capturable."""
+    n_split = -(-S // SPLIT_ROWS)
+    return n_split, (B, H, n_split, dh + 2)
 
 
 def _scale(dh: int) -> float:
@@ -96,11 +115,13 @@ def decode_attention_cuda(q: torch.Tensor, k_q: torch.Tensor,
     build.check(lengths, "lengths", torch.int32, (B,), dev)
     out = torch.empty((B, H, dh), dtype=q.dtype, device=dev)
     if out.numel():
+        n_split, ws_shape = split_plan(B, H, dh, S)
+        ws = torch.empty(ws_shape, dtype=torch.float32, device=dev)
         build.launch("decode_attention", dev, q.data_ptr(), k_q.data_ptr(),
                      v_q.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                      k_new.data_ptr(), v_new.data_ptr(), lengths.data_ptr(),
-                     out.data_ptr(), B, S, H, Hkv, dh, bits,
-                     IN_DTYPES[q.dtype], _scale(dh))
+                     out.data_ptr(), ws.data_ptr(), B, S, H, Hkv, dh,
+                     n_split, bits, IN_DTYPES[q.dtype], _scale(dh))
     return out
 
 
@@ -188,12 +209,14 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_q: torch.Tensor,
                          f"NB={NB}, nb={nb}")
     out = torch.empty((B, H, dh), dtype=q.dtype, device=dev)
     if out.numel():
+        n_split, ws_shape = split_plan(B, H, dh, nb * blk)
+        ws = torch.empty(ws_shape, dtype=torch.float32, device=dev)
         build.launch("decode_attention_paged", dev, q.data_ptr(),
                      k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
                      v_scale.data_ptr(), tables.data_ptr(), k_new.data_ptr(),
-                     v_new.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
-                     nb, blk, NB, H, Hkv, dh, bits, IN_DTYPES[q.dtype],
-                     _scale(dh))
+                     v_new.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                     ws.data_ptr(), B, nb, blk, NB, H, Hkv, dh, n_split, bits,
+                     IN_DTYPES[q.dtype], _scale(dh))
     return out
 
 
@@ -216,7 +239,8 @@ def bound_bytes_paged(B: int, nb: int, block: int, Hkv: int, H: int, dh: int,
             + 4 * B * nb)
 
 
-__all__ = ["NEG_INF", "decode_attention_plain", "decode_attention_cuda",
+__all__ = ["NEG_INF", "SPLIT_ROWS", "split_plan", "decode_attention_plain",
+           "decode_attention_cuda",
            "gather_kv_blocks", "decode_attention_paged_plain",
            "decode_attention_paged_cuda", "bound_bytes", "bound_bytes_paged",
            "MAX_HEAD_DIM", "MAX_GROUP"]

@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.packing import pack_int4
 from repro_torch.kernels import build, kv_pack, ops
-from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+from repro_torch.kernels.decode_attention import (SPLIT_ROWS,
+                                                  decode_attention_cuda,
                                                   decode_attention_paged_cuda,
                                                   decode_attention_paged_plain,
                                                   decode_attention_plain,
@@ -173,25 +174,47 @@ def _assert_decode_close(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 80), (48, 8, 128), (4, 2, 16)])
+@pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 80), (48, 8, 128), (4, 2, 16),
+                                      # the kernel's narrower copies: 4-byte
+                                      # units and byte loads (dh 20, 6), 8- and
+                                      # 4-byte units at G = 1 (dh 24)
+                                      (4, 2, 20), (2, 2, 6), (6, 6, 24)])
 def test_decode_attention_kernel_matches_plain(dev, H, Hkv, dh, bits, dtype):
-    S = 72
-    lengths = [0, 1, 5, 31, 32, 33, S, S + 37]
-    args = _decode_inputs(dev, len(lengths), S, H, Hkv, dh, bits, dtype, lengths)
-    got = decode_attention_cuda(*args)
+    """Lengths across the kernel's tiles (32 rows) and splits (C rows): the
+    plain version's bound, two calls bit-equal, rows past the length inert."""
+    C = SPLIT_ROWS
+    S = 2 * C + 8
+    lengths = [0, 1, 5, 31, 32, 33, C - 1, C, C + 1, 2 * C + 1, S, S + 37]
+    _check_decode(decode_attention_cuda, _decode_inputs(
+        dev, len(lengths), S, H, Hkv, dh, bits, dtype, lengths), lengths, bits)
+
+
+def _check_decode(kernel, args, lengths, bits):
+    got = kernel(*args)
     _assert_decode_close(got, decode_attention_plain(*args))
+    assert torch.equal(kernel(*args), got)      # deterministic: no atomics
     # poison every row past each slot's length: the output must not move
     for i, n in enumerate(lengths):
         for t in (1, 2):            # codes
             args[t][i, n:] = 0x5A if bits == 8 else 0xF3
         for t in (3, 4):            # scales, finite garbage
             args[t][i, n:] = 3.0e4
-    assert torch.equal(decode_attention_cuda(*args), got)
+    assert torch.equal(kernel(*args), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 80), (48, 8, 128), (4, 2, 16)])
+@pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 80), (48, 8, 128)])
+def test_decode_attention_long_cache_matches_plain(dev, H, Hkv, dh, bits, dtype):
+    lengths = [4000, 4096]
+    _check_decode(decode_attention_cuda, _decode_inputs(
+        dev, 2, 4096, H, Hkv, dh, bits, dtype, lengths, seed=2), lengths, bits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 80), (48, 8, 128), (4, 2, 16),
+                                      (4, 2, 20), (2, 2, 6), (6, 6, 24)])
 def test_decode_attention_paged_kernel_matches_plain_and_dense(dev, H, Hkv, dh,
                                                                bits, dtype):
     """A pool of 40 blocks; tables (8 slots x 9 entries, S = 72) that
@@ -211,6 +234,7 @@ def test_decode_attention_paged_kernel_matches_plain_and_dense(dev, H, Hkv, dh,
     pool = args[1:5]                          # (NB, blk, Hkv, dhp) codes, scales
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     got = decode_attention_paged_cuda(q, *pool, tables, kn, vn, lens)
+    assert torch.equal(decode_attention_paged_cuda(q, *pool, tables, kn, vn, lens), got)
     _assert_decode_close(got, decode_attention_paged_plain(q, *pool, tables, kn, vn, lens))
     dense = [gather_kv_blocks(b, tables).contiguous() for b in pool]
     assert torch.equal(got, decode_attention_cuda(q, *dense, kn, vn, lens))
@@ -224,6 +248,31 @@ def test_decode_attention_paged_kernel_matches_plain_and_dense(dev, H, Hkv, dh,
     for t in (pool[2], pool[3]):
         t[~live] = 3.0e4
     assert torch.equal(decode_attention_paged_cuda(q, *pool, tables, kn, vn, lens), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 80), (48, 8, 128)])
+def test_decode_attention_paged_wider_tables_equal_dense(dev, H, Hkv, dh, bits, dtype):
+    """Tables reaching 2C + 64 rows against the dense kernel over the first
+    2C of them (lengths up to 2C): bit-equal, since the splits are counted
+    from row 0 whatever the extent; and two calls bit-equal."""
+    blk, C = 8, SPLIT_ROWS
+    nb_dense, nb = 2 * C // blk, 2 * C // blk + 8
+    lengths = [0, 1, 31, C - 1, C, C + 1, 2 * C - 1, 2 * C]
+    NB = len(lengths) * nb + 3
+    g = torch.Generator().manual_seed(bits + dh)
+    tables = torch.randperm(NB, generator=g)[:len(lengths) * nb].reshape(len(lengths), nb)
+    tables = tables.to(torch.int32).to(dev)
+    args = _decode_inputs(dev, NB, blk, H, Hkv, dh, bits, dtype, [0] * NB, seed=3)
+    q, kn, vn = (t[:len(lengths)] for t in (args[0], args[5], args[6]))
+    pool = args[1:5]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = decode_attention_paged_cuda(q, *pool, tables, kn, vn, lens)
+    assert torch.equal(decode_attention_paged_cuda(q, *pool, tables, kn, vn, lens), got)
+    _assert_decode_close(got, decode_attention_paged_plain(q, *pool, tables, kn, vn, lens))
+    dense = [gather_kv_blocks(b, tables[:, :nb_dense]).contiguous() for b in pool]
+    assert torch.equal(got, decode_attention_cuda(q, *dense, kn, vn, lens))
 
 
 def test_decode_step_launches_through_ops(dev):
