@@ -14,7 +14,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    at the decode shapes with bf16 activations (M = 8, (K, N) in {(2560,
    2560), (2560, 6912), (6912, 2560)}). Codes and unfused outputs must be
    bit-equal, f32 and bf16 alike; the fused GELU epilogue within rtol = atol
-   = 1e-6;
+   = 1e-6. Then int8_matmul and int4_matmul on the paths the shape plan
+   (``kernels/gemm_plan.py``) names: split-K at M in {1, 8, 9, 64} for the
+   decode (K, N) and at M = 8, N = 2560 with K at and one word around the
+   64-row stage edges (188, 192, 196, 380, 384, 388); wgmma at M in {128,
+   1000, 8192} for every (K, N) of stablelm-3b and llava-next-mistral-7b;
+   f32 and bf16 out, each bit-equal to the plain version and to a second
+   call; and one split-K and one wgmma call of each replayed twice from a
+   CUDA graph, bit-equal to the eager calls;
 3. the encoder path end to end at the full tinybert4 width (vocab 30522, d
    312, 12 heads, d_ff 1200, 4 layers; W8A8 layers 0-1, W4A4 layers 2-3):
    fp params from a seeded generator on the card -> ``deploy`` with 4
@@ -25,7 +32,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    launches per forward and no plain version on a CUDA tensor;
 4. encoder times with CUDA events (median of 20 samples after warm-up) at M
    = 4096 (32 requests x 128 tokens), beside the plain versions, the
-   library calls and the bounds, and a direct forward of 32 x 128 tokens;
+   library calls and the bounds (the GEMM rows with their path), and a
+   direct forward of 32 x 128 tokens;
 5. ``decode_attention`` against its plain version on the card: kv_bits 8
    and 4, q in f32 and bf16, (H, Hkv, dh) in {(32, 32, 80) stablelm-3b,
    (48, 8, 128) internlm2-20b}, S in {64, 512, 520} with one slot at each
@@ -69,12 +77,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    share), one eager kv8 step under ``torch.profiler`` (the top device
    kernels by name and the device-busy share), a prefill forward of 4 x
    256 tokens, and each kernel at its decode shapes beside its plain
-   version, the library call (``torch._int_mm`` where it accepts M = 8;
-   SDPA over a cache already dequantized to bf16, which excludes the
-   dequantization) and its bound. ``decode_attention`` and SDPA are timed
-   warm (the same cache every call) and cold (rotating over caches that
-   exceed the 50 MB L2, as a step finds each layer's cache), and once more,
-   timed only, at B = 1 and cache length 8192;
+   version, the library call (``torch._int_mm`` on the codes zero-padded
+   to M = 32, as it refuses M = 8, with the weight row-major and
+   column-major, the faster as ``library_ms``; SDPA over a cache already
+   dequantized to bf16, which excludes the dequantization) and its bound;
+   the integer GEMMs also cold (rotating over weight sets past the L2, as
+   a step finds each layer's weights), with the path each shape takes.
+   ``decode_attention`` and SDPA are timed warm (the same cache every
+   call) and cold (rotating over caches that exceed the 50 MB L2, as a step
+   finds each layer's cache), and once more, timed only, at B = 1 and cache
+   length 8192;
 8. ``decode_attention_paged`` against its plain version on the card, over
    phase 5's cases (kv_bits 8 and 4, f32 and bf16, the two head shapes,
    the same extents and lengths, the long cache) and over tables of 512 +
@@ -144,9 +156,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    causal, bf16, S in {4096, 8192, 32768}, held against its plain version
    at phase 12's tolerances and timed beside it, SDPA on the same tensors
    (timed only) and its bound; int8_matmul and int4_matmul (bf16 out) at M
-   = 8192 and 32768 for every (K, N) of the two long forwards, timed only,
-   beside ``torch._int_mm`` on the same int8 operands and the op bound at
-   1979 TOPS; then one forward of each model at S = 32768
+   = 8192 and 32768 for every (K, N) of the two long forwards, timed only
+   (phase 2 holds them bit-equal at M = 8192), with the path each takes,
+   beside ``torch._int_mm`` on the same int8 operands with the weight
+   row-major and column-major (the faster as ``library_ms``) and the op
+   bound at 1979 TOPS; then one forward of each model at S = 32768
    (the JAX system's prefill_32k length) with phase 13's launch checks:
    eager ms, the flash kernels' device ms, tokens/s, peak memory; and a
    second such forward that records the first layer's flash attention and
@@ -330,8 +344,82 @@ def check_kernels(dev) -> dict:
             want = i4.int4_matmul_fused_plain(x4, wp, s_a4, s_w, bias, act, **bf)
             same(f"int4_matmul_fused[{act}] bf16 M=8 K={K} N={N}", got, want)
             note("int4_matmul_fused", got, want)
+    err["gemm_path_calls_bit_equal"] = check_gemm_paths(dev, g, same)
     torch.cuda.synchronize()
     return err
+
+
+#: phase 2's cases of the integer GEMMs' split-K and wgmma paths: (M, K, N)
+SPLITK_CASES = ([(M, K, N) for M in (1, 8, 9, 64) for K, N in DECODE_MATMULS]
+                # K at and one word around the 64-row stage edges
+                + [(8, K, 2560) for K in (188, 192, 196, 380, 384, 388)])
+WGMMA_MS = (128, 1000, 8192)
+
+
+def check_gemm_paths(dev, g, same) -> dict:
+    """int8_matmul and int4_matmul on their split-K and wgmma paths, f32 and
+    bf16 out: each call bit-equal to the plain version and to a second
+    call, on the path the plan names; then split-K and wgmma calls replayed
+    from a CUDA graph, bit-equal to the eager calls. Returns the calls
+    checked per path."""
+    from repro_torch.core.packing import pack_int4
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.gemm_plan import gemm_plan
+
+    def operands(M, K, N):
+        x8 = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+        w8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
+                                     dtype=torch.int8))
+        s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
+        return x8, w8, wp, torch.tensor(0.02, device=dev), s_w
+
+    wgmma_cases = [(M, K, N) for M in WGMMA_MS
+                   for shapes in LONG_GEMMS.values() for K, N in shapes]
+    checked = {"splitk": 0, "wgmma": 0, "graph_replays": 0}
+    for path, cases in (("splitk", SPLITK_CASES), ("wgmma", wgmma_cases)):
+        for M, K, N in cases:
+            x8, w8, wp, s_a, s_w = operands(M, K, N)
+            for bits, fn, plain, w in ((8, i8.int8_matmul_cuda, i8.int8_matmul_plain, w8),
+                                       (4, i4.int4_matmul_cuda, i4.int4_matmul_plain, wp)):
+                name = f"int{bits}_matmul"
+                if gemm_plan(M, N, K, bits).name != path:
+                    raise AssertionError(f"{name} M={M} K={K} N={N}: plan "
+                                         f"{gemm_plan(M, N, K, bits)}, not {path}")
+                for dt in (torch.float32, torch.bfloat16):
+                    tag = f"{name} {path} M={M} K={K} N={N} {dt}"
+                    got = fn(x8, w, s_a, s_w, out_dtype=dt)
+                    same(tag, got, plain(x8, w, s_a, s_w, out_dtype=dt))
+                    same(f"{tag} (second call)", fn(x8, w, s_a, s_w, out_dtype=dt), got)
+                    checked[path] += 1
+            del x8, w8, wp
+    torch.cuda.empty_cache()
+    # a CUDA-graph replay (split-K's workspace from the graph's pool)
+    for M, K, N in ((8, 2560, 2560), (1000, 2560, 2560)):
+        x8, w8, wp, s_a, s_w = operands(M, K, N)
+        calls = (lambda: i8.int8_matmul_cuda(x8, w8, s_a, s_w, out_dtype=torch.bfloat16),
+                 lambda: i4.int4_matmul_cuda(x8, wp, s_a, s_w, out_dtype=torch.bfloat16))
+        eager = [fn() for fn in calls]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for fn in calls:
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            outs = [fn() for fn in calls]
+        for rep in range(2):
+            for o in outs:
+                o.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            for bits, o, e in zip((8, 4), outs, eager):
+                same(f"int{bits}_matmul M={M} K={K} N={N} graph replay {rep}", o, e)
+                checked["graph_replays"] += 1
+        del graph, outs, eager
+    return checked
 
 
 # ------------------------------------------------------------------ phase 3
@@ -577,6 +665,7 @@ def time_kernels(dev) -> list[dict]:
     from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.gemm_plan import gemm_plan
 
     g = torch.Generator(device=dev).manual_seed(7)
     M = M_TIMED
@@ -623,6 +712,7 @@ def time_kernels(dev) -> list[dict]:
             M * K + K * N + 4 + 4 * N + 4 * M * N, 2 * M * K * N, INT8_OPS_PER_S,
             library_fn=lambda: torch._int_mm(x8, w8),
             fp32_fn=lambda: torch.matmul(xf, wf))
+        rows[-1]["path"] = gemm_plan(M, N, K, 8).name
     for (K, N), calls in PER_FORWARD["int4_matmul"].items():
         _, x4, _, wp, s_a, s_w, _, xf, wf = operands(K, N)
         row("int4_matmul", [K, N], calls,
@@ -630,6 +720,7 @@ def time_kernels(dev) -> list[dict]:
             lambda: i4.int4_matmul_plain(x4, wp, s_a, s_w),
             M * K + K // 2 * N + 4 + 4 * N + 4 * M * N, 2 * M * K * N,
             INT8_OPS_PER_S, fp32_fn=lambda: torch.matmul(xf, wf))
+        rows[-1]["path"] = gemm_plan(M, N, K, 4).name
     for (K, N), calls in PER_FORWARD["int4_matmul_fused"].items():
         _, x4, _, wp, s_a, s_w, bias, xf, wf = operands(K, N)
         row("int4_matmul_fused", [K, N], calls,
@@ -1122,6 +1213,25 @@ def cold_sets(nbytes: int) -> int:
     return max(2, -(-60_000_000 // max(nbytes, 1)) + 1)
 
 
+def int_mm_yardsticks(x8: torch.Tensor, w8: torch.Tensor, timer=None) -> dict:
+    """``torch._int_mm`` on the same int8 codes, timed with the weight
+    row-major as the port keeps it and column-major (a (N, K) contiguous
+    copy passed as ``.t()``, the layout cuBLASLt's int8 kernels take);
+    ``library_ms`` is the faster. Timed only: the port never calls it."""
+    timer = timer or cuda_ms
+    w8c = w8.t().contiguous().t()
+    out = {}
+    for key, w in (("library_ms_row_major", w8), ("library_ms_col_major", w8c)):
+        try:
+            out[key] = timer(lambda: torch._int_mm(x8, w))
+        except RuntimeError as e:      # the library refuses the layout
+            out[key] = None
+            out[key.replace("_ms_", "_note_")] = f"refused: {str(e).splitlines()[0][:120]}"
+    times = [v for k, v in out.items() if k.startswith("library_ms_") and v is not None]
+    out["library_ms"] = min(times) if times else None
+    return out
+
+
 def time_decode(models, dev) -> dict:
     """One decode step with 8 active slots at cache length 448 (eager and
     CUDA-graph replay) and a prefill forward of 4 x 256 tokens."""
@@ -1175,6 +1285,7 @@ def time_decode_kernels(dev) -> list[dict]:
     from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import kv_pack
+    from repro_torch.kernels.gemm_plan import gemm_plan
 
     g = torch.Generator(device=dev).manual_seed(9)
     M, bf = DECODE_SLOTS, torch.bfloat16
@@ -1203,22 +1314,35 @@ def time_decode_kernels(dev) -> list[dict]:
             FP32_OPS_PER_S)
     for (K, N), calls in DECODE_MATMULS.items():
         x8 = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
-        w8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
-        wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
-                                     dtype=torch.int8))
+        w8s = [torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+               for _ in range(cold_sets(K * N))]
+        wps = [pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
+                                       dtype=torch.int8))
+               for _ in range(cold_sets(K * N // 2))]
+        w8, wp = w8s[0], wps[0]
         s_a = torch.tensor(0.02, device=dev)
         s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
         out_b = M * N * 2 + 4 + 4 * N
-        row("int8_matmul", [K, N], calls,
-            lambda: i8.int8_matmul_cuda(x8, w8, s_a, s_w, out_dtype=bf),
-            lambda: i8.int8_matmul_plain(x8, w8, s_a, s_w, out_dtype=bf),
-            M * K + K * N + out_b, 2 * M * K * N, INT8_OPS_PER_S,
-            library_fn=lambda: torch._int_mm(x8, w8))
-        row("int4_matmul", [K, N], calls,
-            lambda: i4.int4_matmul_cuda(x8, wp, s_a, s_w, out_dtype=bf),
-            lambda: i4.int4_matmul_plain(x8, wp, s_a, s_w, out_dtype=bf),
-            M * K + K // 2 * N + out_b, 2 * M * K * N, INT8_OPS_PER_S,
-            library_note="no int4 library call")
+        lib = int_mm_yardsticks(F.pad(x8, (0, 0, 0, 32 - M)), w8)
+        lib_note = ("torch._int_mm on the codes zero-padded to M = 32 (it refuses M "
+                    "= 8), int32 out, no epilogue: the faster of the weight row-major "
+                    "and column-major")
+        for kernel, fn, plain, ws, wbytes, bits in (
+                ("int8_matmul", i8.int8_matmul_cuda, i8.int8_matmul_plain, w8s, K * N, 8),
+                ("int4_matmul", i4.int4_matmul_cuda, i4.int4_matmul_plain, wps,
+                 K // 2 * N, 4)):
+            nxt = rotating(ws)
+            row(kernel, [K, N], calls,
+                lambda: fn(x8, ws[0], s_a, s_w, out_dtype=bf),
+                lambda: plain(x8, ws[0], s_a, s_w, out_dtype=bf),
+                M * K + wbytes + out_b, 2 * M * K * N, INT8_OPS_PER_S,
+                library_note=lib_note if bits == 8 else "no int4 library call")
+            rows[-1].update(
+                ms_cold=cuda_ms(lambda: fn(x8, nxt(), s_a, s_w, out_dtype=bf)),
+                cold_sets=len(ws), path=gemm_plan(M, N, K, bits).name,
+                **(lib if bits == 8 else {}))
+        del w8s, wps, w8, wp
+        torch.cuda.empty_cache()
     def attention_rows(B, S, L, bits, calls, **extra):
         """decode_attention at (B, S, len L), stablelm-3b heads, bf16: warm
         (the same cache every call, as the earlier designs were timed) and
@@ -2002,6 +2126,7 @@ def check_gemms(kept, tag: str) -> dict:
     from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.gemm_plan import gemm_plan
     plain = {"act_quant": aq.act_quant_plain, "int8_matmul": i8.int8_matmul_plain,
              "int4_matmul": i4.int4_matmul_plain}
     shapes = {name: [] for name in GEMM_KERNELS}
@@ -2009,6 +2134,9 @@ def check_gemms(kept, tag: str) -> dict:
         want = plain[name](*args, **kw)
         shape = [list(args[0].shape),                 # x and bits, or x8 and w
                  args[2] if name == "act_quant" else list(args[1].shape)]
+        if name != "act_quant":                       # the GEMM path that served it
+            (M, K), N = args[0].shape, args[1].shape[1]
+            shape.append(gemm_plan(M, N, K, 8 if name == "int8_matmul" else 4).name)
         if not torch.equal(out, want):
             diff = (out.double() - want.double()).abs().max().item()
             raise AssertionError(f"{tag}: {name} {shape} {kw}: kernel != plain "
@@ -2132,16 +2260,21 @@ LONG_GEMM_M = (8192, 32768)
 def time_long_gemms(dev) -> list[dict]:
     """int8_matmul and int4_matmul (bf16 out, as the long forwards call them)
     at M in ``LONG_GEMM_M`` for each (K, N) of ``LONG_GEMMS``, timed only,
-    beside torch._int_mm on the same int8 operands (the int8 yardstick for
-    both: there is no int4 library call) and the op bound at 1979 TOPS. A
-    call takes up to tens of ms: timed as issued, median of 3 after one."""
+    beside torch._int_mm on the same int8 operands, weight row-major and
+    column-major (the int8 yardstick for both: there is no int4 library
+    call) and the op bound at 1979 TOPS. Device time: one call captured in
+    a CUDA graph, median of 3 replays after one; the kernels also as
+    issued (``eager_ms``, with the host's launch work)."""
     from repro_torch.core.packing import pack_int4
     from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.gemm_plan import gemm_plan
 
     g = torch.Generator(device=dev).manual_seed(16)
     bf = torch.bfloat16
-    timer = lambda fn: cuda_ms(fn, samples=3, reps=1, warmup=1, graph=False)
+    # device time (one call a CUDA graph, replayed), and the time as issued
+    timer = lambda fn: cuda_ms(fn, samples=3, reps=1, warmup=1)
+    eager = lambda fn: cuda_ms(fn, samples=3, reps=1, warmup=1, graph=False)
     rows = []
     for arch, shapes in LONG_GEMMS.items():
         for K, N in shapes:
@@ -2154,7 +2287,8 @@ def time_long_gemms(dev) -> list[dict]:
                 x8 = torch.randint(-127, 128, (M, K), generator=g, device=dev,
                                    dtype=torch.int8)
                 ops = 2 * M * K * N
-                lib = timer(lambda: torch._int_mm(x8, w8))
+                libs = int_mm_yardsticks(x8, w8, timer)
+                lib = libs["library_ms"]
                 for kernel, fn, wbytes in (
                         ("int8_matmul", lambda: i8.int8_matmul_cuda(
                             x8, w8, s_a, s_w, out_dtype=bf), K * N),
@@ -2164,10 +2298,14 @@ def time_long_gemms(dev) -> list[dict]:
                                        INT8_OPS_PER_S)
                     ms = timer(fn)
                     rows.append({"kernel": kernel, "model": arch, "M": M, "shape": [K, N],
-                                 "ms": ms, "library_ms": lib,
+                                 "eager_ms": eager(fn),
+                                 "path": gemm_plan(M, N, K, 8 if kernel == "int8_matmul"
+                                                   else 4).name,
+                                 "ms": ms, **libs,
                                  "library_note": "torch._int_mm on the same int8 operands "
-                                                 "(int32 out, no epilogue); the int8 "
-                                                 "yardstick for both kernels",
+                                                 "(int32 out, no epilogue), the faster of "
+                                                 "the weight row-major and column-major; "
+                                                 "the int8 yardstick for both kernels",
                                  "vs_library": ms / lib, "tops": ops / ms / 1e9,
                                  "bound_ms": b_ms, "bound_by": b_by})
                 del x8
@@ -2224,8 +2362,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errors = check_kernels(dev)
+    gemm_paths = errors.pop("gemm_path_calls_bit_equal")
     seconds["kernels_vs_plain"] = time.perf_counter() - t0
     emit({"phase": "kernels_vs_plain", "max_abs_err": errors,
+          "gemm_path_calls_bit_equal": gemm_paths,
           "seconds": seconds["kernels_vs_plain"]})
 
     t0 = time.perf_counter()

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("act_quant.cu", "int8_matmul.cu", "int4_matmul.cu",
            "decode_attention.cu", "flash_attention.cu")
-HEADERS = ("int_gemm.cuh",)
+HEADERS = ("int_gemm.cuh", "int_gemm_splitk.cuh", "int_gemm_wgmma.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # no --use_fast_math: it makes '/' and tanhf approximate and breaks parity
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,8 +39,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: as c_int, the softmax scale as c_float)
 SIGNATURES = {
     "act_quant": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "int8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "int4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x8, w, s_a, s_w, out, workspace, M, N, K, out_bf16, path, splits, kc
+    "int8_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "int4_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "int4_matmul_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),

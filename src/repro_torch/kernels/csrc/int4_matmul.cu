@@ -13,27 +13,50 @@
 //
 // Weights arrive as (K/2, N) bytes, two codes per byte along K (row 2k in
 // the low nibble, bias +7). Hopper's tensor cores have no int4 rate, so the
-// nibbles are unpacked to int8 while the slab is staged in shared memory
-// and the product runs on the int8 path, the same adaptation the TPU
-// kernels made for the MXU.
+// nibbles are unpacked to int8 on the way to the tensor cores and the
+// product runs on the int8 path, the same adaptation the TPU kernels made
+// for the MXU.
 //
-// Bound on H100: bytes. The FFN-up layer at M = 4096 (32 requests x 128
-// tokens), K = 312, N = 1200 writes 19.7 MB of f32 output against 3.07 G
-// int8 ops: 5.9 us of memory time against 1.6 us of tensor-core time. The
-// fused kernel applies bias and GELU in registers, so that output is
-// written once instead of three times (matmul, +bias, GELU) as the unfused
-// composition does; the packed weights halve the weight bytes against int8.
+// int4_matmul takes one of three paths, which kernels/gemm_plan.py chooses
+// from the shapes and the wrapper hands over as `path` (with `splits` and
+// `kc` for split-K):
+//   1 split-K (int_gemm_splitk.cuh), M <= 64: bound by bytes. The decode
+//     step streams 3.3-8.8 MB of packed weights a call (1.0-2.6 us at 3.35
+//     TB/s); the nibbles are unpacked in registers after the shared load.
+//   2 wgmma (int_gemm_wgmma.cuh), M >= 128 with K % 64 == 0 and N % 16 ==
+//     0: bound by operations, as int8_matmul; the packed tile is unpacked
+//     while it is re-laid K-major in shared memory.
+//   0 tiled (int_gemm.cuh): the rest (the encoder's K = 312, N = 312).
+// int4_matmul_fused (the encoder's FFN-up layer, bias + activation in the
+// epilogue) always takes the tiled kernel. Bound on H100: bytes. At M =
+// 4096 (32 requests x 128 tokens), K = 312, N = 1200 it writes 19.7 MB of
+// f32 output against 3.07 G int8 ops: 5.9 us of memory time against 1.6 us
+// of tensor-core time. It applies bias and GELU in registers, so that
+// output is written once instead of three times (matmul, +bias, GELU).
 #include "int_gemm.cuh"
+#include "int_gemm_splitk.cuh"
+#include "int_gemm_wgmma.cuh"
 
+// path: 0 tiled, 1 split-K, 2 wgmma; ws: int32 (splits, M, N) for split-K
 extern "C" int int4_matmul_launch(const void* x8, const void* wp,
                                   const void* s_a, const void* s_w, void* out,
-                                  int M, int N, int K, int out_bf16,
-                                  void* stream) {
-  return repro_kernels::launch_int_gemm<true, repro_kernels::kScaleOnly>(
-      x8, wp, s_a, s_w, nullptr, out, M, N, K, out_bf16, stream);
+                                  void* ws, int M, int N, int K, int out_bf16,
+                                  int path, int splits, int kc, void* stream) {
+  using namespace repro_kernels;
+  switch (path) {
+    case 0:
+      return launch_int_gemm<true, kScaleOnly>(x8, wp, s_a, s_w, nullptr, out, M, N, K,
+                                               out_bf16, stream);
+    case 1:
+      return splitk::launch<true>(x8, wp, s_a, s_w, out, ws, M, N, K, out_bf16, splits,
+                                  kc, stream);
+    case 2:
+      return wg::launch<true>(x8, wp, s_a, s_w, out, M, N, K, out_bf16, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// act: 0 = none, 1 = tanh-GELU, 2 = ReLU
 extern "C" int int4_matmul_fused_launch(const void* x8, const void* wp,
                                         const void* s_a, const void* s_w,
                                         const void* bias, void* out, int M,

@@ -5,22 +5,39 @@
 // Replaces: src/repro/kernels/int8_matmul.py::int8_matmul_pallas
 //           (pl.pallas_call at int8_matmul.py:59).
 //
-// Bound on H100: at the serving shapes (M = rows x bucket, K and N in
-// {312, 1200}) the work is 2*M*K*N int8 operations against M*K + K*N bytes
-// in and 4*M*N bytes out; at M = 4096, K = 312, N = 1200 that is 3.07 G ops
-// (1.6 us at 1979 TOPS) against 20.9 MB (6.2 us at 3.35 TB/s), so the kernel
-// is bound by memory, and mostly by its f32 output.
-//
-// Design: int_gemm.cuh. The product uses the int8 tensor cores through
-// mma.sync.m16n8k32; the int32 accumulator never leaves registers, and each
-// output element is written once, already dequantized, which is the one
-// pass over the output that the bound counts.
+// Three paths, which kernels/gemm_plan.py chooses from the shapes and the
+// wrapper hands over as `path` (with `splits` and `kc` for split-K):
+//   1 split-K (int_gemm_splitk.cuh), M <= 64: bound by bytes. The decode
+//     step's (K, N) in {(2560, 2560), (2560, 6912), (6912, 2560)} at M = 8
+//     stream 6.6-17.7 MB of weights (2.0-5.3 us at 3.35 TB/s) for 0.1-0.3 G
+//     operations; the weight is split over K across 264+ blocks.
+//   2 wgmma (int_gemm_wgmma.cuh), M >= 128 with K % 64 == 0 and N % 16 ==
+//     0: bound by operations. At M = 32768, (K, N) = (4096, 14336): 3.85 T
+//     int8 operations (1.95 ms at 1,979 TOPS) against 1.13 GB (0.34 ms).
+//   0 tiled (int_gemm.cuh): the rest, e.g. the encoder's K = 312 and N =
+//     312 (64x64 mma.sync tiles, no pipelining).
+// Every path keeps the int32 accumulator exact and runs the same f32
+// epilogue, so each is bit-identical to the plain version.
 #include "int_gemm.cuh"
+#include "int_gemm_splitk.cuh"
+#include "int_gemm_wgmma.cuh"
 
+// path: 0 tiled, 1 split-K, 2 wgmma; ws: int32 (splits, M, N) for split-K
 extern "C" int int8_matmul_launch(const void* x8, const void* w8,
                                   const void* s_a, const void* s_w, void* out,
-                                  int M, int N, int K, int out_bf16,
-                                  void* stream) {
-  return repro_kernels::launch_int_gemm<false, repro_kernels::kScaleOnly>(
-      x8, w8, s_a, s_w, nullptr, out, M, N, K, out_bf16, stream);
+                                  void* ws, int M, int N, int K, int out_bf16,
+                                  int path, int splits, int kc, void* stream) {
+  using namespace repro_kernels;
+  switch (path) {
+    case 0:
+      return launch_int_gemm<false, kScaleOnly>(x8, w8, s_a, s_w, nullptr, out, M, N,
+                                                K, out_bf16, stream);
+    case 1:
+      return splitk::launch<false>(x8, w8, s_a, s_w, out, ws, M, N, K, out_bf16, splits,
+                                   kc, stream);
+    case 2:
+      return wg::launch<false>(x8, w8, s_a, s_w, out, M, N, K, out_bf16, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

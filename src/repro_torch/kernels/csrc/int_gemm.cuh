@@ -11,19 +11,28 @@
 //       once, at the store (__float2bfloat16_rn), as the reference's
 //       .astype(out_dtype) does
 //
-// Design: one 64x64 output tile per block of 4 warps (2x2, 32x32 each).
-// K advances in 64-deep slabs staged in shared memory: A as [m][k], B
-// transposed to [n][k] (int4 nibbles unpacked to int8 on the way in), so
+// Three paths, chosen from shapes alone by kernels/gemm_plan.py:
+//   * split-K (int_gemm_splitk.cuh): M <= 64, the decode step's M = 8;
+//   * wgmma (int_gemm_wgmma.cuh): M >= 128 with K % 64 == 0 and N % 16 ==
+//     0, the long forwards and the prefill;
+//   * tiled (this file): everything else, and the fused int4 epilogue
+//     (int4_matmul_fused) at every shape.
+// Every path keeps the int32 sums exact and runs the same epilogue, each
+// f32 operation rounded on its own (__fmul_rn / __fadd_rn, no FMA
+// contraction) in the reference's order, so all three are bit-identical to
+// the plain PyTorch version.
+//
+// The tiled path: one 64x64 output tile per block of 4 warps (2x2, 32x32
+// each). K advances in 64-deep slabs staged in shared memory: A as [m][k],
+// B transposed to [n][k] (int4 nibbles unpacked to int8 on the way in), so
 // both mma.sync.m16n8k32 s8 fragments are 4-byte shared loads. Ragged M, N
 // and K edges are masked inside the kernel: out-of-range codes load as 0
-// and out-of-range outputs are not written. The int32 accumulators stay in
-// registers until the epilogue, which rounds every f32 operation on its
-// own (__fmul_rn / __fadd_rn, no FMA contraction) in the reference's
-// order, so the result is bit-identical to the plain PyTorch version.
-//
-// Not yet: wgmma, TMA, multi-stage pipelining, split-K.
+// and out-of-range outputs are not written. No second stage: a slab's loads
+// do not overlap the previous slab's products, which is why the shapes of
+// the main paths go to the other two.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -218,6 +227,139 @@ int launch_int_gemm(const void* x8, const void* w, const void* sa,
                                                          out, M, N, K, stream);
   return launch_int_gemm_t<kInt4, kEpi, float>(x8, w, sa, sw, bias, out, M, N,
                                                K, stream);
+}
+
+
+// ------------------------------------------ TMA and mbarriers (split-K, wgmma)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the producer's arrival, announcing the bytes the stage's copies bring
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// wait for phase `parity` of the barrier; a wait past 4 s traps (an error
+// the launch reports) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  uint64_t t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > 4000000000ull) __trap();
+  }
+}
+// one box of a 2-d tensor map at (c0 inner, c1 outer) into shared memory,
+// completing on bar; elements past the tensor's edges arrive as zeros
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// byte transposition of a 4 x 4 block: v[i] holds bytes (c0..c3) of row i;
+// o[j] gets bytes (row 0..3) of column j
+__device__ __forceinline__ void transpose4(const uint32_t (&v)[4], uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(v[0], v[1], 0x5140);  // v0.b0 v1.b0 v0.b1 v1.b1
+  const uint32_t t1 = __byte_perm(v[0], v[1], 0x7362);  // v0.b2 v1.b2 v0.b3 v1.b3
+  const uint32_t t2 = __byte_perm(v[2], v[3], 0x5140);
+  const uint32_t t3 = __byte_perm(v[2], v[3], 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
+}
+// four nibbles (0..15, one a byte) to their int8 codes nibble - 7: bit 7
+// set, 7 subtracted without a borrow between bytes, bit 7 flipped back
+__device__ __forceinline__ uint32_t nibble_codes(uint32_t nib) {
+  return ((nib | 0x80808080u) - 0x07070707u) ^ 0x80808080u;
+}
+__device__ __forceinline__ uint32_t low_codes(uint32_t packed) {
+  return nibble_codes(packed & 0x0F0F0F0Fu);
+}
+__device__ __forceinline__ uint32_t high_codes(uint32_t packed) {
+  return nibble_codes((packed >> 4) & 0x0F0F0F0Fu);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime (the
+// library does not link libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found) != cudaSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess)
+#endif
+      return EncodeTiled(nullptr);
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                : EncodeTiled(nullptr);
+  }();
+  return fn;
+}
+
+// a row-major (rows, cols) byte matrix as a 2-d tensor map with boxes of
+// box_cols x box_rows; zeros past its edges
+inline bool byte_map(CUtensorMap* map, const void* base, int rows, int cols,
+                     int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols)};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace repro_kernels

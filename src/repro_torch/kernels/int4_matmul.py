@@ -5,16 +5,22 @@ Replaces ``src/repro/kernels/int4_matmul.py::int4_matmul_pallas`` (its
 ``pl.pallas_call`` at int4_matmul.py:105) and ``int4_matmul_fused_pallas``
 (at int4_matmul.py:143). CUDA source: ``csrc/int4_matmul.cu`` on the shared
 ``csrc/int_gemm.cuh``. Weights are (K/2, N) bytes holding two codes along
-K; the kernel unpacks them to int8 in shared memory (Hopper's tensor cores
-have no int4 rate). Bound on H100 by bytes at the serving shapes; the fused
-kernel writes its (M, N) output once instead of three times.
+K; the kernels unpack them to int8 on the way to the tensor cores
+(Hopper's have no int4 rate). ``int4_matmul`` takes the path
+:func:`.gemm_plan.gemm_plan` picks, as ``int8_matmul`` does: split-K for M
+<= 64 (the decode step, bound by the packed weight's bytes), wgmma with a
+TMA ring for M >= 128 (the long forwards and the prefill, bound by
+operations), the 64 x 64 ``mma.sync`` tiles for the rest. The fused kernel
+(the encoder's FFN-up layer) always takes the tiles, and writes its (M, N)
+output once instead of three times.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .int8_matmul import check_out_dtype, int_matmul_exact
+from .gemm_plan import gemm_plan
+from .int8_matmul import check_out_dtype, int_matmul_exact, workspace
 from .kv_pack import INT4_BIAS, unpack_nibbles_rows
 
 __all__ = ["INT4_BIAS", "EPILOGUE_ACTS", "gelu_tanh", "apply_epilogue",
@@ -88,9 +94,12 @@ def int4_matmul_cuda(x8: torch.Tensor, wp: torch.Tensor, s_a: torch.Tensor,
     dev, M, N, K = _check_operands(x8, wp, s_a, s_w)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if out.numel():
+        plan = gemm_plan(M, N, K, 4)
+        ws = workspace(plan, dev)
         build.launch("int4_matmul", dev, x8.data_ptr(), wp.data_ptr(),
-                     s_a.data_ptr(), s_w.data_ptr(), out.data_ptr(), M, N, K,
-                     flag)
+                     s_a.data_ptr(), s_w.data_ptr(), out.data_ptr(),
+                     ws.data_ptr(), M, N, K, flag, plan.path, plan.splits,
+                     plan.kc)
     return out
 
 

@@ -2,18 +2,23 @@
 
 Replaces ``src/repro/kernels/int8_matmul.py::int8_matmul_pallas`` (its
 ``pl.pallas_call`` at int8_matmul.py:59). CUDA source:
-``csrc/int8_matmul.cu`` on the shared ``csrc/int_gemm.cuh``. Bound on H100
-by bytes at the serving shapes (the f32 output dominates at large M, the
-weights at decode's small M); the kernel keeps the int32 accumulator in
-registers and writes each output once, dequantized, in the activations'
-dtype (f32, or bf16 rounded to nearest even). Ragged M, N and K are masked in the kernel, so there are no
-divisor tiles.
+``csrc/int8_matmul.cu``, whose C entry runs one of three paths that
+:func:`.gemm_plan.gemm_plan` picks from the shapes: split-K for M <= 64
+(``csrc/int_gemm_splitk.cuh``; the decode step, bound by the weight's
+bytes), wgmma with a TMA ring for M >= 128 (``csrc/int_gemm_wgmma.cuh``;
+the long forwards and the prefill, bound by operations), and the first
+design's 64 x 64 ``mma.sync`` tiles for the rest (``csrc/int_gemm.cuh``;
+the encoder's K = 312 and N = 312). Each keeps the int32 accumulator exact
+and writes each output once, dequantized, in the activations' dtype (f32,
+or bf16 rounded to nearest even), bit-equal to the plain version. Ragged
+M, N and K are masked in the kernels, so there are no divisor tiles.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
+from .gemm_plan import gemm_plan
 
 #: output dtypes of the integer GEMMs, by the flag their C entries take
 OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +47,13 @@ def int8_matmul_plain(x8: torch.Tensor, w8: torch.Tensor, s_a: torch.Tensor,
             * (s_a * s_w)).to(out_dtype)
 
 
+def workspace(plan, device: torch.device) -> torch.Tensor:
+    """The split-K partials' int32 workspace of ``plan`` (written whole by
+    the kernel before it is read; a placeholder for the other paths)."""
+    return torch.empty((max(plan.ws_bytes // 4, 4),), dtype=torch.int32,
+                       device=device)
+
+
 def int8_matmul_cuda(x8: torch.Tensor, w8: torch.Tensor, s_a: torch.Tensor,
                      s_w: torch.Tensor,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -57,7 +69,10 @@ def int8_matmul_cuda(x8: torch.Tensor, w8: torch.Tensor, s_a: torch.Tensor,
     build.check(s_w, "s_w", torch.float32, (1, N), dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if out.numel():
+        plan = gemm_plan(M, N, K, 8)
+        ws = workspace(plan, dev)
         build.launch("int8_matmul", dev, x8.data_ptr(), w8.data_ptr(),
-                     s_a.data_ptr(), s_w.data_ptr(), out.data_ptr(), M, N, K,
-                     flag)
+                     s_a.data_ptr(), s_w.data_ptr(), out.data_ptr(),
+                     ws.data_ptr(), M, N, K, flag, plan.path, plan.splits,
+                     plan.kc)
     return out

@@ -8,7 +8,8 @@ with PyTorch alone:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Codes and unfused outputs must be bit-equal to the plain versions (f32
-and bf16 activations); the fused tanh-GELU epilogue within rtol = atol =
+and bf16 activations), on each of the integer GEMMs' paths (split-K,
+wgmma, tiles) and over two calls and a CUDA-graph replay; the fused tanh-GELU epilogue within rtol = atol =
 1e-6. Decode attention within atol 1e-5 (rtol 0) for f32 and one bf16 ulp
 plus 1e-5 for bf16 (the online and the one-pass softmax sum in different
 orders, and that f32 difference survives the rounding of outputs near
@@ -33,6 +34,7 @@ from repro_torch.kernels.decode_attention import (SPLIT_ROWS,
                                                   decode_attention_plain,
                                                   gather_kv_blocks)
 from repro_torch.kernels.act_quant import act_quant_cuda, act_quant_plain
+from repro_torch.kernels.gemm_plan import PATH_SPLITK, PATH_WGMMA, gemm_plan
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
@@ -144,6 +146,66 @@ def test_kernels_take_bf16_activations(dev, M, K, N):
     for act in ("none", "relu"):
         assert torch.equal(int4_matmul_fused_cuda(x4, wp, s, s_w, bias, act, **bf),
                            int4_matmul_fused_plain(x4, wp, s, s_w, bias, act, **bf))
+
+
+# ------------------------------------------------- integer GEMM paths
+def _gemm_operands(dev, M, K, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x8 = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
+                                 dtype=torch.int8))
+    s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
+    return x8, w8, wp, torch.tensor(0.02, device=dev), s_w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,path", [
+    # split-K: M of 1, a decode step, one past it and the last; K at and
+    # one word around the 64-row stage edges, ragged N
+    (1, 256, 128, PATH_SPLITK), (8, 2560, 2560, PATH_SPLITK),
+    (9, 316, 144, PATH_SPLITK), (64, 188, 272, PATH_SPLITK),
+    (8, 6912, 2560, PATH_SPLITK), (33, 132, 48, PATH_SPLITK),
+    # wgmma: a single tile, ragged M, N and a K that ends half a stage in
+    (128, 256, 256, PATH_WGMMA), (1000, 2560, 2560, PATH_WGMMA),
+    (300, 192, 400, PATH_WGMMA), (257, 4096, 1040, PATH_WGMMA)])
+def test_gemm_paths_match_plain(dev, M, K, N, path, dtype):
+    """Each path bit-equal to the plain version, two calls bit-equal."""
+    x8, w8, wp, s_a, s_w = _gemm_operands(dev, M, K, N, seed=M + K + N)
+    bf = dict(out_dtype=dtype)
+    for bits, kernel, plain, w in ((8, int8_matmul_cuda, int8_matmul_plain, w8),
+                                   (4, int4_matmul_cuda, int4_matmul_plain, wp)):
+        assert gemm_plan(M, N, K, bits).path == path
+        got = kernel(x8, w, s_a, s_w, **bf)
+        assert torch.equal(got, plain(x8, w, s_a, s_w, **bf)), (bits, M, K, N)
+        assert torch.equal(kernel(x8, w, s_a, s_w, **bf), got)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2560, 2560), (256, 512, 512)])
+def test_gemm_replays_from_a_graph(dev, M, K, N):
+    """A captured call (split-K: its workspace from the graph's pool) gives
+    the eager call's bits on every replay."""
+    x8, w8, wp, s_a, s_w = _gemm_operands(dev, M, K, N, seed=5)
+    bf = dict(out_dtype=torch.bfloat16)
+    calls = (lambda: int8_matmul_cuda(x8, w8, s_a, s_w, **bf),
+             lambda: int4_matmul_cuda(x8, wp, s_a, s_w, **bf))
+    eager = [fn() for fn in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn() for fn in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
 
 
 # ------------------------------------------------------ decode attention
