@@ -12,28 +12,46 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    card, at the encoder shapes (M in {37, 512, 4096}, (K, N) in {(312, 312),
    (312, 1200), (1200, 312)}, both activation grids, an odd-K int4 case) and
    at the decode shapes with bf16 activations (M = 8, (K, N) in {(2560,
-   2560), (2560, 6912), (6912, 2560)}). Codes and unfused outputs must be
-   bit-equal, f32 and bf16 alike; the fused GELU epilogue within rtol = atol
-   = 1e-6. Then int8_matmul and int4_matmul on the paths the shape plan
+   2560), (2560, 6912), (6912, 2560)}). Codes and outputs must be
+   bit-equal, f32 and bf16 alike, the fused GELU epilogue too (the kernel's
+   tanhf and PyTorch's tanh on the card agree to the bit). Then int8_matmul and int4_matmul on the paths the shape plan
    (``kernels/gemm_plan.py``) names: split-K at M in {1, 8, 9, 64} for the
    decode (K, N) and at M = 8, N = 2560 with K at and one word around the
    64-row stage edges (188, 192, 196, 380, 384, 388); wgmma at M in {128,
    1000, 8192} for every (K, N) of stablelm-3b and llava-next-mistral-7b;
    f32 and bf16 out, each bit-equal to the plain version and to a second
    call; and one split-K and one wgmma call of each replayed twice from a
-   CUDA graph, bit-equal to the eager calls;
+   CUDA graph, bit-equal to the eager calls. The split-K cases again with
+   f32 and bf16 activations, which the GEMM quantizes as it loads them
+   (a_bits 8 and 4, values exactly half-way between two codes and past
+   +-qmax): each call bit-equal to act_quant's plain version followed by the
+   plain GEMM, to a second call and to two CUDA-graph replays, launching the
+   GEMM once and act_quant never. int4_matmul_fused (none, GELU, ReLU; f32
+   and bf16 out) on each path: tiled, split-K (on codes and on f32 / bf16
+   activations) and wgmma at tinybert4's ragged K = 312 and bert-base's
+   (768, 3072), each bit-equal to the plain version. act_quant at a padded
+   row pitch (K = 312 at 320): the real columns bit-equal, the wgmma GEMMs
+   on that buffer bit-equal, and bit-unchanged after its pad bytes are
+   poisoned;
 3. the encoder path end to end at the full tinybert4 width (vocab 30522, d
    312, 12 heads, d_ff 1200, 4 layers; W8A8 layers 0-1, W4A4 layers 2-3):
    fp params from a seeded generator on the card -> ``deploy`` with 4
    calibration batches -> ``save`` -> ``load`` -> an encoder
    ``ServingEngine`` answering 16 classify/embed/score requests of 4-128
    tokens, held against the direct forward, the plain reference backend on
-   the card and the CPU (codes and tolerances as documented there); 24/12/10/2
-   launches per forward and no plain version on a CUDA tensor;
+   the card and the CPU (codes and tolerances as documented there); 12 / 10
+   / 2 int8 / int4 / fused GEMM launches per forward, and act_quant 24 but
+   for the linears whose plan at the forward's rows quantizes inside the
+   GEMM (split-K: a batch of at most 64 rows, N = 1200), as
+   ``gemm_launches`` derives from ``kernels/gemm_plan.py``; no plain version
+   on a CUDA tensor;
 4. encoder times with CUDA events (median of 20 samples after warm-up) at M
    = 4096 (32 requests x 128 tokens), beside the plain versions, the
-   library calls and the bounds (the GEMM rows with their path), and a
-   direct forward of 32 x 128 tokens;
+   library calls and the bounds (the GEMM rows with their path;
+   int4_matmul_fused beside ``torch._int_mm`` on the same int8 codes, the
+   weight row-major and column-major), int4_matmul_fused also at M = 8 and
+   64 (split-K) and at bert-base's (768, 3072), and a direct forward of 32
+   x 128 tokens;
 5. ``decode_attention`` against its plain version on the card: kv_bits 8
    and 4, q in f32 and bf16, (H, Hkv, dh) in {(32, 32, 80) stablelm-3b,
    (48, 8, 128) internlm2-20b}, S in {64, 512, 520} with one slot at each
@@ -53,9 +71,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    serving 16 greedy requests (prompts of 5-384 tokens, 16-64 new tokens)
    and one sampled request (temperature 0.8, top_k 50, top_p 0.9, n = 2).
    Every request must finish and a repeated run must give the same tokens;
-   every decode step must launch act_quant 224, int8_matmul 112,
-   int4_matmul 112 and decode_attention 32 times, prefill no
-   decode_attention, and no plain version may run on a CUDA tensor. The
+   every decode step must launch int8_matmul 112, int4_matmul 112 and
+   decode_attention 32 times and act_quant never (every GEMM of 8 rows is
+   split-K and quantizes its activations), each prefill forward the
+   GEMMs and the act_quant launches ``gemm_launches`` derives for its rows
+   and no decode_attention, and no plain version may run on a CUDA tensor. The
    same artifact under the plain reference backend on the card must give
    the same first tokens (prefill runs no decode kernel and the integer
    GEMMs are exact), and each greedy stream must equal it or first differ
@@ -81,8 +101,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    to M = 32, as it refuses M = 8, with the weight row-major and
    column-major, the faster as ``library_ms``; SDPA over a cache already
    dequantized to bf16, which excludes the dequantization) and its bound;
-   the integer GEMMs also cold (rotating over weight sets past the L2, as
-   a step finds each layer's weights), with the path each shape takes.
+   the integer GEMMs on bf16 activations, which they quantize, as the step
+   calls them, and on codes (``ms_codes``), also cold (rotating over weight
+   sets past the L2, as a step finds each layer's weights), with the path
+   each shape takes; act_quant at the decode shapes, timed only.
    ``decode_attention`` and SDPA are timed warm (the same cache every
    call) and cold (rotating over caches that exceed the 50 MB L2, as a step
    finds each layer's cache), and once more, timed only, at B = 1 and cache
@@ -100,7 +122,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 9. phase 6's traffic through a paged engine (``kv_paging="paged"``, the
    dense-equivalent budget, prefix off) over phase 6's artifact at
    kv_bits 8 and 4: every stream byte-identical to phase 6's dense run;
-   every decode step launches act_quant 224, int8_matmul 112, int4_matmul
+   every decode step launches act_quant 0, int8_matmul 112, int4_matmul
    112, decode_attention_paged 32 and decode_attention 0 times, prefill no
    decode attention, no plain version on a CUDA tensor; every block
    released after draining;
@@ -138,7 +160,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    bf16 activations; the fp params freed, nothing saved). One cacheless
    forward of B = 1, S = 8192 tokens each, the vlm with (1, 1152, 4096)
    bf16 patch embeddings at positions 32-1183: each launches flash_attention
-   32 times, act_quant 224, int8_matmul 112, int4_matmul 112 and no decode
+   32 times, act_quant 224, int8_matmul 112, int4_matmul 112 (every GEMM on
+   wgmma behind its act_quant, as ``gemm_launches`` derives) and no decode
    attention, runs no plain version on a CUDA tensor and never calls
    ``full_attention`` (no (S, S) score tensor). Gates: every layer's
    kernel output within phase 12's tolerances of the plain version on that
@@ -160,7 +183,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (phase 2 holds them bit-equal at M = 8192), with the path each takes,
    beside ``torch._int_mm`` on the same int8 operands with the weight
    row-major and column-major (the faster as ``library_ms``) and the op
-   bound at 1979 TOPS; then one forward of each model at S = 32768
+   bound at 1979 TOPS; act_quant alone on bf16 at the same M for K in
+   {2560, 6912, 4096, 14336} beside its byte bound; then one forward of each
+   model at S = 32768
    (the JAX system's prefill_32k length) with phase 13's launch checks:
    eager ms, the flash kernels' device ms, tokens/s, peak memory; and a
    second such forward that records the first layer's flash attention and
@@ -193,13 +218,12 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 MATMUL_SHAPES = ((312, 312), (312, 1200), (1200, 312))
 M_TIMED = 4096                 # 32 requests x 128 tokens
-#: per forward of the mixed tinybert4 plan: (K, N) -> calls, per kernel
-PER_FORWARD = {
-    "act_quant": {(312, 8): 10, (1200, 8): 2, (312, 4): 10, (1200, 4): 2},
-    "int8_matmul": {(312, 312): 8, (312, 1200): 2, (1200, 312): 2},
-    "int4_matmul": {(312, 312): 8, (1200, 312): 2},
-    "int4_matmul_fused": {(312, 1200): 2},
-}
+#: the quantized linears of one forward of the mixed tinybert4 plan (W8A8
+#: layers 0-1, W4A4 layers 2-3): (K, N, weight bits, fused) -> calls
+ENCODER_LINEARS = {(312, 312, 8, False): 8, (312, 1200, 8, False): 2,
+                   (1200, 312, 8, False): 2, (312, 312, 4, False): 8,
+                   (312, 1200, 4, True): 2, (1200, 312, 4, False): 2}
+GEMM_NAMES = ("act_quant", "int8_matmul", "int4_matmul", "int4_matmul_fused")
 SOURCES = {
     "act_quant": ("src/repro_torch/kernels/csrc/act_quant.cu",
                   "src/repro/kernels/act_quant.py:42"),
@@ -222,8 +246,12 @@ DECODER_KERNELS = ("act_quant", "int8_matmul", "int4_matmul", "decode_attention"
 PAGED_KERNELS = ("act_quant", "int8_matmul", "int4_matmul", "decode_attention_paged")
 #: stablelm-3b decode shapes: (K, N) -> calls per decode step, per kernel
 DECODE_MATMULS = {(2560, 2560): 4 * 16, (2560, 6912): 2 * 16, (6912, 2560): 1 * 16}
+#: act_quant at the decode shapes, K -> calls a step had before the split-K
+#: GEMMs took the quantization over (timed only now: a step launches none)
 DECODE_ACT_QUANT = {2560: 6 * 32, 6912: 1 * 32}
-PER_DECODE_STEP = {"act_quant": 224, "int8_matmul": 112, "int4_matmul": 112,
+#: a decode step (8 rows): every GEMM on split-K, which quantizes its own
+#: activations; ``decode_end_to_end`` checks this against ``gemm_launches``
+PER_DECODE_STEP = {"act_quant": 0, "int8_matmul": 112, "int4_matmul": 112,
                    "decode_attention": 32}
 #: a paged decode step: the same linears, attention straight from the pool
 PAGED_DECODE_STEP = {**PER_DECODE_STEP, "decode_attention": 0,
@@ -236,6 +264,35 @@ DECODE_SLOTS, DECODE_MAX_LEN, DECODE_LEN = 8, 512, 448
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def decoder_linears(cfg) -> dict:
+    """The quantized linears of one forward of a decoder under the serve
+    CLI's policy (W8A8 in the first half of the layers, W4A4 in the rest):
+    (K, N, weight bits, fused) -> calls. q, k, v, o and the SwiGLU's gate,
+    up and down projections, one GEMM each."""
+    d, q, kv = cfg.d_model, cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    out: dict = {}
+    for bits in (8, 4):
+        for K, N in ((d, q), (d, kv), (d, kv), (q, d), (d, cfg.d_ff), (d, cfg.d_ff),
+                     (cfg.d_ff, d)):
+            key = (K, N, bits, False)
+            out[key] = out.get(key, 0) + cfg.num_layers // 2
+    return out
+
+
+def gemm_launches(linears: dict, M: int) -> dict:
+    """The integer kernels' launches of one forward of ``M`` rows through
+    ``linears``: one GEMM launch per linear, and one act_quant launch per
+    linear whose plan does not quantize inside the GEMM (every path but
+    split-K), from the shapes alone."""
+    from repro_torch.kernels.gemm_plan import quantizes_in_gemm
+    out = dict.fromkeys(GEMM_NAMES, 0)
+    for (K, N, bits, fused), calls in linears.items():
+        out["int4_matmul_fused" if fused else f"int{bits}_matmul"] += calls
+        if not quantizes_in_gemm(M, N, K, bits):
+            out["act_quant"] += calls
+    return out
 
 
 def card_line() -> str:
@@ -296,10 +353,7 @@ def check_kernels(dev) -> dict:
         for act in ("none", "gelu", "relu"):
             got = i4.int4_matmul_fused_cuda(x4, wp, s_a4, s_w, bias, act)
             want = i4.int4_matmul_fused_plain(x4, wp, s_a4, s_w, bias, act)
-            if act == "gelu":
-                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-            else:
-                same(f"int4_matmul_fused[{act}] M={M} K={K} N={N}", got, want)
+            same(f"int4_matmul_fused[{act}] M={M} K={K} N={N}", got, want)
             note("int4_matmul_fused", got, want)
     # odd K: packing pads K to even and the activation codes get a zero column
     M, K, N = 37, 313, 200
@@ -345,6 +399,9 @@ def check_kernels(dev) -> dict:
             same(f"int4_matmul_fused[{act}] bf16 M=8 K={K} N={N}", got, want)
             note("int4_matmul_fused", got, want)
     err["gemm_path_calls_bit_equal"] = check_gemm_paths(dev, g, same)
+    err["gemm_path_calls_bit_equal"]["splitk_quantizing"] = check_folded_gemms(dev, g, same)
+    err["gemm_path_calls_bit_equal"]["fused"] = check_fused_paths(dev, g, same)
+    err["gemm_path_calls_bit_equal"]["padded_pitch"] = check_padded_pitch(dev, g, same)
     torch.cuda.synchronize()
     return err
 
@@ -422,6 +479,204 @@ def check_gemm_paths(dev, g, same) -> dict:
     return checked
 
 
+def replay_twice(calls, wants, same, tag: str) -> int:
+    """``calls`` captured in one CUDA graph (outputs and split-K workspaces
+    from the graph's pool), replayed twice: each output bit-equal to
+    ``wants``. Returns the outputs checked."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn() for fn in calls]
+    for rep in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (o, w) in enumerate(zip(outs, wants)):
+            same(f"{tag} call {i} graph replay {rep}", o, w)
+    return 2 * len(outs)
+
+
+def grid_inputs(g, M: int, K: int, a_bits: int, dtype, dev):
+    """(M, K) activations on the grid of s = 1/16, so that x / s is exact:
+    random values, a quarter exactly half-way between two codes (x / s = k
+    + 0.5, which rint takes to the even k), and one in twenty past +-qmax
+    (clamped); then cast to ``dtype`` (the half-way points stay exact in
+    bf16 up to |x / s| = 127.5)."""
+    from repro_torch.core.quantizer import qrange
+    qmin, qmax = qrange(a_bits)
+    s = 0.0625
+    x = torch.randn((M, K), generator=g, device=dev) * (0.6 * qmax * s)
+    k = torch.randint(qmin - 4, qmax + 4, (M, K), generator=g, device=dev)
+    pick = torch.rand((M, K), generator=g, device=dev)
+    x = torch.where(pick < 0.25, (k.float() + 0.5) * s, x)
+    x = torch.where(pick > 0.95, torch.sign(x) * (qmax + 30) * s, x)
+    return x.to(dtype), torch.tensor(s, device=dev)
+
+
+def check_folded_gemms(dev, g, same) -> int:
+    """int8_matmul and int4_matmul on the split-K path handed f32 or bf16
+    activations, which the GEMM quantizes as it loads them: at phase 2's
+    split-K shapes (M in {1, 8, 9, 64} at the decode (K, N), and K = 188..388
+    around the stage edges), a_bits 8 and 4, on ``grid_inputs`` (ties and
+    clamps); each call bit-equal to act_quant's plain version followed by
+    the plain GEMM and to a second call, launching the GEMM once and
+    act_quant never; then each dtype's calls replayed twice from a CUDA
+    graph. Returns the calls checked."""
+    from repro_torch.core.packing import pack_int4
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import build
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.gemm_plan import quantizes_in_gemm
+
+    checked = 0
+    for M, K, N in SPLITK_CASES:
+        w8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
+                                     dtype=torch.int8))
+        s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
+        for dt in (torch.float32, torch.bfloat16):
+            calls, wants = [], []
+            for a_bits in (8, 4):
+                x, s_a = grid_inputs(g, M, K, a_bits, dt, dev)
+                x8 = aq.act_quant_plain(x, s_a, a_bits)
+                for bits, fn, plain, w in ((8, i8.int8_matmul_cuda, i8.int8_matmul_plain, w8),
+                                           (4, i4.int4_matmul_cuda, i4.int4_matmul_plain, wp)):
+                    name = f"int{bits}_matmul"
+                    tag = f"{name} quantizing M={M} K={K} N={N} {dt} a_bits={a_bits}"
+                    if not quantizes_in_gemm(M, N, K, bits):
+                        raise AssertionError(f"{tag}: the plan does not quantize")
+                    call = (lambda fn=fn, w=w, x=x, s_a=s_a, a_bits=a_bits:
+                            fn(x, w, s_a, s_w, out_dtype=dt, a_bits=a_bits))
+                    want = plain(x8, w, s_a, s_w, out_dtype=dt)
+                    before = dict(build.LAUNCHES)
+                    got = call()
+                    delta = {k: build.LAUNCHES[k] - before[k] for k in before}
+                    if delta[name] != 1 or delta["act_quant"]:
+                        raise AssertionError(f"{tag}: launched {delta}")
+                    same(tag, got, want)
+                    same(f"{tag} (second call)", call(), got)
+                    calls.append(call)
+                    wants.append(want)
+                    checked += 1
+            replay_twice(calls, wants, same, f"quantizing M={M} K={K} N={N} {dt}")
+    return checked
+
+
+#: int4_matmul_fused's phase 2 cases on each path, (M, K, N): tinybert4's
+#: FFN-up (K = 312, N = 1200: the wgmma rows at a padded pitch) and
+#: bert-base's (768, 3072); tiled for N = 312 and 64 < M < 128
+FUSED_CASES = {"tiled": ((37, 312, 312), (100, 312, 1200)),
+               "splitk": ((8, 312, 1200), (64, 312, 1200), (8, 768, 3072)),
+               "wgmma": ((128, 312, 1200), (300, 312, 1200), (M_TIMED, 312, 1200),
+                         (M_TIMED, 768, 3072))}
+
+
+def check_fused_paths(dev, g, same) -> dict:
+    """int4_matmul_fused on each path of ``FUSED_CASES``, on the path the
+    plan names: act none, GELU and ReLU, f32 and bf16 out, on int8 codes
+    (contiguous; the wrapper lays ragged-K codes at wgmma's pitch) and, on
+    split-K, on f32 and bf16 activations the GEMM quantizes; each bit-equal
+    to the plain version and to a second call. Returns the calls checked
+    per path."""
+    from repro_torch.core.packing import pack_int4
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels.gemm_plan import gemm_plan
+
+    checked = dict.fromkeys(FUSED_CASES, 0)
+    for path, cases in FUSED_CASES.items():
+        for M, K, N in cases:
+            if gemm_plan(M, N, K, 4).name != path:
+                raise AssertionError(f"int4_matmul_fused M={M} K={K} N={N}: plan "
+                                     f"{gemm_plan(M, N, K, 4)}, not {path}")
+            wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
+                                         dtype=torch.int8))
+            s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
+            bias = torch.randn((1, N), generator=g, device=dev)
+            x, s_a = grid_inputs(g, M, K, 4, torch.float32, dev)
+            x4 = aq.act_quant_plain(x, s_a, 4)
+            inputs = [("codes", x4)]
+            if path == "splitk":
+                inputs += [("f32", x), ("bf16", x.to(torch.bfloat16))]
+            for kind, xin in inputs:
+                codes = x4 if kind != "bf16" else aq.act_quant_plain(xin, s_a, 4)
+                for act in ("none", "gelu", "relu"):
+                    for dt in (torch.float32, torch.bfloat16):
+                        tag = (f"int4_matmul_fused[{act}] {path} M={M} K={K} N={N} "
+                               f"{kind} -> {dt}")
+                        got = i4.int4_matmul_fused_cuda(xin, wp, s_a, s_w, bias, act,
+                                                        out_dtype=dt, a_bits=4)
+                        same(tag, got, i4.int4_matmul_fused_plain(codes, wp, s_a, s_w,
+                                                                  bias, act, out_dtype=dt))
+                        same(f"{tag} (second call)", i4.int4_matmul_fused_cuda(
+                            xin, wp, s_a, s_w, bias, act, out_dtype=dt, a_bits=4), got)
+                        checked[path] += 1
+            del wp, x, x4
+    return checked
+
+
+def check_padded_pitch(dev, g, same) -> int:
+    """act_quant writing its codes at a row pitch of 320 for K = 312 (as
+    ``ops`` asks for a wgmma GEMM), f32 and bf16, a_bits 8 and 4: the real
+    columns bit-equal to the plain version; the wgmma GEMMs (int8_matmul,
+    int4_matmul, int4_matmul_fused GELU) read that buffer as it is and are
+    bit-equal to the plain versions; and poisoning the pad bytes leaves
+    their outputs bit-unchanged (TMA reads only the K real columns).
+    Returns the outputs checked."""
+    from repro_torch.core.packing import pack_int4
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.gemm_plan import code_pitch, gemm_plan
+
+    M, K, N = 1000, 312, 1200
+    pitch = code_pitch(gemm_plan(M, N, K, 8), K)
+    if pitch != 320:
+        raise AssertionError(f"K = {K}: pitch {pitch}, expected 320")
+    w8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev, dtype=torch.int8))
+    s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
+    bias = torch.randn((1, N), generator=g, device=dev)
+    checked = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for a_bits in (8, 4):
+            x, s_a = grid_inputs(g, M, K, a_bits, dt, dev)
+            codes = aq.act_quant_cuda(x, s_a, a_bits, pitch=pitch)
+            tag = f"act_quant pitch {pitch} K={K} {dt} a_bits={a_bits}"
+            if codes.shape != (M, K) or codes.stride() != (pitch, 1):
+                raise AssertionError(f"{tag}: shape {codes.shape} strides {codes.stride()}")
+            plain_codes = aq.act_quant_plain(x, s_a, a_bits)
+            same(tag, codes, plain_codes)
+            if i8.gemm_input(codes, gemm_plan(M, N, K, 8), K)[0].data_ptr() \
+                    != codes.data_ptr():
+                raise AssertionError(f"{tag}: the wrapper re-laid codes at its own pitch")
+            calls = (("int8_matmul", lambda: i8.int8_matmul_cuda(codes, w8, s_a, s_w),
+                      i8.int8_matmul_plain(plain_codes, w8, s_a, s_w)),
+                     ("int4_matmul", lambda: i4.int4_matmul_cuda(codes, wp, s_a, s_w),
+                      i4.int4_matmul_plain(plain_codes, wp, s_a, s_w)),
+                     ("int4_matmul_fused[gelu]",
+                      lambda: i4.int4_matmul_fused_cuda(codes, wp, s_a, s_w, bias, "gelu"),
+                      i4.int4_matmul_fused_plain(plain_codes, wp, s_a, s_w, bias, "gelu")))
+            outs = []
+            for name, fn, want in calls:
+                outs.append(fn())
+                same(f"{name} on {tag}", outs[-1], want)
+            rows = codes.as_strided((M, pitch), (pitch, 1))
+            rows[:, K:] = torch.randint(-128, 128, (M, pitch - K), generator=g,
+                                        device=dev, dtype=torch.int8)
+            for (name, fn, _), before in zip(calls, outs):
+                same(f"{name} on {tag}, pad bytes poisoned", fn(), before)
+                checked += 1
+    return checked
+
+
 # ------------------------------------------------------------------ phase 3
 def end_to_end(dev) -> dict:
     from repro_torch.configs import get_config
@@ -470,19 +725,26 @@ def end_to_end(dev) -> dict:
 
     serve(loaded)                                   # warm-up
     torch.cuda.synchronize()
+    counted = []                                    # the counted run's batches
     build.reset_counts()
     t0 = time.perf_counter()
-    eng, results = serve(loaded)
+    eng, results = serve(loaded, on_batch=counted.append)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
+    del eng.encode_batch          # the recorder; main times this engine's forward
     launches = dict(build.LAUNCHES)
     plain_on_cuda = dict(build.PLAIN_ON_CUDA)
     forwards = eng.metrics.summary()["encode_steps"]
-    per_fwd = {name: sum(calls.values()) for name, calls in PER_FORWARD.items()}
-    for name, n in per_fwd.items():
-        if launches[name] != n * forwards:
-            raise AssertionError(f"{name}: {launches[name]} launches over "
-                                 f"{forwards} forwards, expected {n} each")
+    # each forward's launches from the plan of each linear at its rows
+    # (batch x bucket): act_quant only where the GEMM does not quantize
+    rows = [int(toks.size) for toks, _ in counted]
+    expected = dict.fromkeys(GEMM_NAMES, 0)
+    for M in rows:
+        for name, n in gemm_launches(ENCODER_LINEARS, M).items():
+            expected[name] += n
+    if len(rows) != forwards or {k: launches[k] for k in expected} != expected:
+        raise AssertionError(f"{ {k: launches[k] for k in GEMM_NAMES} } launches over "
+                             f"{forwards} forwards of rows {rows}, expected {expected}")
     if any(plain_on_cuda.values()):
         raise AssertionError(f"plain versions ran on CUDA tensors: {plain_on_cuda}")
 
@@ -546,8 +808,8 @@ def end_to_end(dev) -> dict:
             raise AssertionError(f"request {r.rid}: argmax differs from the CPU")
     return {"model": cfg.name, "policy": policy.describe(),
             "plan": plan.describe(), "requests": len(results),
-            "forwards": forwards, "launches": launches,
-            "per_forward": per_fwd, "plain_on_cuda": plain_on_cuda,
+            "forwards": forwards, "forward_rows": rows, "launches": launches,
+            "expected_launches": expected, "plain_on_cuda": plain_on_cuda,
             "deploy_s": deploy_s, "serve_s": serve_s,
             "max_abs_err_vs_direct": err_direct,
             "max_abs_err_vs_reference_backend": err_ref,
@@ -561,23 +823,40 @@ def end_to_end(dev) -> dict:
 def served_codes(serve, model):
     """Serve once more, recording every activation-code tensor the forwards
     quantize (kernel or reference backend) and every padded batch they run,
-    in order."""
+    in order. A split-K GEMM quantizes inside its kernel, which keeps no
+    codes: for such a call the spy records act_quant's kernel on the same
+    activations (the same arithmetic, held bit-equal to the GEMM's in
+    phase 2)."""
+    from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import ops
     from repro_torch.models import layers
 
     codes, batches = [], []
+    # ops.act_quant on the CPU, act_quant_cuda on the card (ops calls it
+    # directly for every GEMM that does not quantize)
     originals = {(ops, "act_quant"): ops.act_quant,
-                 (layers, "quantize_to_int"): layers.quantize_to_int}
+                 (ops, "act_quant_cuda"): ops.act_quant_cuda,
+                 (layers, "quantize_to_int"): layers.quantize_to_int,
+                 **{(ops, name): getattr(ops, name) for name in (
+                     "int8_matmul_cuda", "int4_matmul_cuda", "int4_matmul_fused_cuda")}}
 
     def spy(fn):
-        def recorded(x, s, bits=8):
-            out = fn(x, s, bits)
+        def recorded(x, s, bits=8, **kw):
+            out = fn(x, s, bits, **kw)
             codes.append(out.reshape(-1, out.shape[-1]).cpu().numpy())
             return out
         return recorded
 
+    def gemm_spy(fn):
+        def recorded(x, w, s_a, *a, a_bits=8, **kw):
+            if x.dtype != torch.int8:
+                codes.append(aq.act_quant_cuda(x, s_a, a_bits).cpu().numpy())
+            return fn(x, w, s_a, *a, a_bits=a_bits, **kw)
+        return recorded
+
     for (mod, name), fn in originals.items():
-        setattr(mod, name, spy(fn))
+        setattr(mod, name, gemm_spy(fn) if name.endswith("matmul_cuda")
+                or name.endswith("fused_cuda") else spy(fn))
     try:
         _, results = serve(model, on_batch=batches.append)
     finally:
@@ -660,19 +939,22 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 def time_kernels(dev) -> list[dict]:
+    """The encoder's kernels at M = 4096 (32 requests x 128 tokens), each
+    (K, N) with its calls per forward from ``gemm_launches``, on the path
+    the plan names; GEMM codes laid at that path's row pitch outside the
+    timing, as ``ops`` has act_quant write them."""
     from repro_torch.core.packing import pack_int4
     from repro_torch.core.quantizer import qrange
     from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import int4_matmul as i4
     from repro_torch.kernels import int8_matmul as i8
-    from repro_torch.kernels.gemm_plan import gemm_plan
+    from repro_torch.kernels.gemm_plan import gemm_plan, quantizes_in_gemm
 
     g = torch.Generator(device=dev).manual_seed(7)
-    M = M_TIMED
     rows = []
 
     def row(kernel, shape, calls, fn, plain_fn, nbytes, ops, peak,
-            library_fn=None, fp32_fn=None):
+            library_fn=None, fp32_fn=None, M=M_TIMED):
         """Device times (CUDA-graph replay) of the kernel, its plain version
         and the library calls, plus the kernel's eager per-call time."""
         b_ms, b_by = bound(nbytes, ops, peak)
@@ -683,7 +965,12 @@ def time_kernels(dev) -> list[dict]:
                      "fp32_matmul_ms": None if fp32_fn is None else cuda_ms(fp32_fn),
                      "bound_ms": b_ms, "bound_by": b_by})
 
-    for (K, bits), calls in PER_FORWARD["act_quant"].items():
+    M = M_TIMED
+    quant_calls: dict = {}
+    for (K, N, bits, _), calls in ENCODER_LINEARS.items():
+        if not quantizes_in_gemm(M, N, K, bits):
+            quant_calls[(K, bits)] = quant_calls.get((K, bits), 0) + calls
+    for (K, bits), calls in quant_calls.items():
         x = torch.randn((M, K), generator=g, device=dev)
         s = (x.abs().amax() / qrange(bits)[1]).reshape(())
         row("act_quant", [K, bits], calls,
@@ -691,9 +978,13 @@ def time_kernels(dev) -> list[dict]:
             lambda: aq.act_quant_plain(x, s, bits),
             M * K * 4 + 4 + M * K, 4 * M * K, FP32_OPS_PER_S)
 
-    def operands(K, N):
-        x8 = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
-        x4 = torch.randint(-7, 9, (M, K), generator=g, device=dev, dtype=torch.int8)
+    def operands(K, N, bits, M=M):
+        """Codes at the path's pitch (and contiguous), weights, scales, bias
+        and f32 operands of the same shapes for torch.matmul."""
+        plan = gemm_plan(M, N, K, bits)
+        lo, hi = qrange(bits)
+        x8 = torch.randint(lo, hi + 1, (M, K), generator=g, device=dev, dtype=torch.int8)
+        xp = i8.gemm_input(x8, plan, K)[0]
         w8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
         wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
                                      dtype=torch.int8))
@@ -702,32 +993,89 @@ def time_kernels(dev) -> list[dict]:
         bias = torch.randn((1, N), generator=g, device=dev)
         xf = torch.randn((M, K), generator=g, device=dev)
         wf = torch.randn((K, N), generator=g, device=dev)
-        return x8, x4, w8, wp, s_a, s_w, bias, xf, wf
+        return plan, x8, xp, w8, wp, s_a, s_w, bias, xf, wf
 
-    for (K, N), calls in PER_FORWARD["int8_matmul"].items():
-        x8, _, w8, _, s_a, s_w, _, xf, wf = operands(K, N)
-        row("int8_matmul", [K, N], calls,
-            lambda: i8.int8_matmul_cuda(x8, w8, s_a, s_w),
-            lambda: i8.int8_matmul_plain(x8, w8, s_a, s_w),
-            M * K + K * N + 4 + 4 * N + 4 * M * N, 2 * M * K * N, INT8_OPS_PER_S,
-            library_fn=lambda: torch._int_mm(x8, w8),
-            fp32_fn=lambda: torch.matmul(xf, wf))
-        rows[-1]["path"] = gemm_plan(M, N, K, 8).name
-    for (K, N), calls in PER_FORWARD["int4_matmul"].items():
-        _, x4, _, wp, s_a, s_w, _, xf, wf = operands(K, N)
-        row("int4_matmul", [K, N], calls,
-            lambda: i4.int4_matmul_cuda(x4, wp, s_a, s_w),
-            lambda: i4.int4_matmul_plain(x4, wp, s_a, s_w),
-            M * K + K // 2 * N + 4 + 4 * N + 4 * M * N, 2 * M * K * N,
-            INT8_OPS_PER_S, fp32_fn=lambda: torch.matmul(xf, wf))
-        rows[-1]["path"] = gemm_plan(M, N, K, 4).name
-    for (K, N), calls in PER_FORWARD["int4_matmul_fused"].items():
-        _, x4, _, wp, s_a, s_w, bias, xf, wf = operands(K, N)
-        row("int4_matmul_fused", [K, N], calls,
-            lambda: i4.int4_matmul_fused_cuda(x4, wp, s_a, s_w, bias, "gelu"),
-            lambda: i4.int4_matmul_fused_plain(x4, wp, s_a, s_w, bias, "gelu"),
-            M * K + K // 2 * N + 4 + 8 * N + 4 * M * N, 2 * M * K * N,
-            INT8_OPS_PER_S, fp32_fn=lambda: torch.matmul(xf, wf))
+    for (K, N, bits, fused), calls in ENCODER_LINEARS.items():
+        plan, x8, xp, w8, wp, s_a, s_w, bias, xf, wf = operands(K, N, bits)
+        common = dict(fp32_fn=lambda: torch.matmul(xf, wf))
+        if bits == 8:
+            row("int8_matmul", [K, N], calls,
+                lambda: i8.int8_matmul_cuda(xp, w8, s_a, s_w),
+                lambda: i8.int8_matmul_plain(x8, w8, s_a, s_w),
+                M * K + K * N + 4 + 4 * N + 4 * M * N, 2 * M * K * N, INT8_OPS_PER_S,
+                library_fn=lambda: torch._int_mm(x8, w8), **common)
+        elif not fused:
+            row("int4_matmul", [K, N], calls,
+                lambda: i4.int4_matmul_cuda(xp, wp, s_a, s_w),
+                lambda: i4.int4_matmul_plain(x8, wp, s_a, s_w),
+                M * K + K // 2 * N + 4 + 4 * N + 4 * M * N, 2 * M * K * N,
+                INT8_OPS_PER_S, **common)
+        else:
+            row("int4_matmul_fused", [K, N], calls,
+                lambda: i4.int4_matmul_fused_cuda(xp, wp, s_a, s_w, bias, "gelu"),
+                lambda: i4.int4_matmul_fused_plain(x8, wp, s_a, s_w, bias, "gelu"),
+                M * K + K // 2 * N + 4 + 8 * N + 4 * M * N, 2 * M * K * N,
+                INT8_OPS_PER_S, **common)
+            rows[-1].update(int_mm_yardsticks(x8, w8))
+            rows[-1]["library_note"] = (
+                "torch._int_mm on the same int8 codes (int32 out, no epilogue), the "
+                "faster of the weight row-major and column-major: the int8 yardstick")
+            # the floor of its output bytes: PyTorch filling an (M, N) f32
+            # tensor, a write of the same 19.7 MB and nothing else
+            out = torch.empty((M, N), device=dev)
+            rows[-1]["store_only_ms"] = cuda_ms(lambda: out.fill_(1.0))
+        rows[-1]["path"] = plan.name
+        del x8, xp, w8, wp, xf, wf
+    return rows
+
+
+#: int4_matmul_fused timed (only) off the encoder's M = 4096: a short batch
+#: (split-K, f32 activations quantized in the GEMM) and bert-base's FFN-up
+FUSED_TIMED = ((8, 312, 1200), (64, 312, 1200), (M_TIMED, 768, 3072))
+
+
+def time_fused_paths(dev) -> list[dict]:
+    """int4_matmul_fused (GELU, f32 out) at ``FUSED_TIMED`` as ``ops`` calls
+    it (split-K on the f32 activations, which it quantizes; wgmma on
+    codes), beside its plain version, ``torch._int_mm`` on the int8 codes
+    (padded to 32 rows where it refuses fewer) and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.packing import pack_int4
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels.gemm_plan import quantizes_in_gemm
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    for M, K, N in FUSED_TIMED:
+        x = torch.randn((M, K), generator=g, device=dev)
+        s_a = (x.abs().amax() / 8).reshape(())
+        x4 = aq.act_quant_plain(x, s_a, 4)
+        wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
+                                     dtype=torch.int8))
+        w8 = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
+        bias = torch.randn((1, N), generator=g, device=dev)
+        folded = quantizes_in_gemm(M, N, K, 4)
+        xin = x if folded else x4
+        fn = lambda: i4.int4_matmul_fused_cuda(xin, wp, s_a, s_w, bias, "gelu", a_bits=4)
+        in_bytes = M * K * (4 if folded else 1)
+        b_ms, b_by = bound(in_bytes + K // 2 * N + 4 + 8 * N + 4 * M * N, 2 * M * K * N,
+                           INT8_OPS_PER_S)
+        rows.append({"kernel": "int4_matmul_fused", "M": M, "shape": [K, N], "calls": 0,
+                     "per": "one call (timed only)",
+                     "input": "f32, quantized in the GEMM" if folded else "int8 codes",
+                     "path": "splitk" if folded else "wgmma",
+                     "ms": cuda_ms(fn), "eager_ms": cuda_ms(fn, graph=False),
+                     "plain_ms": cuda_ms(lambda: i4.int4_matmul_fused_plain(
+                         x4, wp, s_a, s_w, bias, "gelu")),
+                     **int_mm_yardsticks(F.pad(x4, (0, 0, 0, max(0, 32 - M))), w8),
+                     "library_note": "torch._int_mm on the int8 codes (zero-padded to "
+                                     "32 rows where fewer), no epilogue: the faster layout",
+                     "bound_ms": b_ms, "bound_by": b_by})
+        del x, x4, wp, w8
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -749,8 +1097,9 @@ def kernel_entries(enc_rows, dec_rows, launches_by_path, errors) -> list[dict]:
     per decode step (8 slots, cache length 448, stablelm-3b) and carry the
     encoder forward's numbers under 'encoder_forward'; int4_matmul_fused,
     on the encoder path only, reports per forward of 32 x 128 tokens;
-    flash_attention per cacheless forward of stablelm-3b at S = 32768 (its
-    rows name their unit under 'per').
+    flash_attention and act_quant (which a decode step no longer launches)
+    per cacheless forward of stablelm-3b at S = 32768 (their rows name
+    their unit under 'per'; rows of no calls are timed only).
     ``launches`` sums the main-path runs (``launches_by_path``)."""
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -760,8 +1109,8 @@ def kernel_entries(enc_rows, dec_rows, launches_by_path, errors) -> list[dict]:
         by_path = {path: counts[name] for path, counts in launches_by_path.items()
                    if counts[name]}
         main = _sums(dec) if dec else _sums(enc)
-        per = (dec[0].get("per", "decode step at kv_bits 8, 8 slots at cache "
-                                 "length 448")
+        per = (([r for r in dec if r["calls"]] or dec)[0].get(
+                   "per", "decode step at kv_bits 8, 8 slots at cache length 448")
                if dec else "encoder forward of 32 x 128 tokens")
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -883,7 +1232,7 @@ def serve_decode(model, *, launches=None, tops=None, other=None):
     """Serve the decode traffic on a fresh engine; returns the results in
     submission order (the sampled request's two samples last).
     ``launches`` (a dict) collects the kernel launches of every prefill and
-    decode forward. ``tops`` (a dict) collects, per request, one record per
+    decode forward, with its token rows under "rows". ``tops`` (a dict) collects, per request, one record per
     decode-sampled position: the top-eight logits and token ids and, unless
     ``other`` is given, the logits row itself (kept on the card). ``other``
     = (results, tops) of an earlier run: each record then also holds the
@@ -900,10 +1249,11 @@ def serve_decode(model, *, launches=None, tops=None, other=None):
         launches.update(prefill=[], decode=[])
 
         def delta(fn, kind):
-            def wrapped(*a, **k):
+            def wrapped(tokens, *a, **k):
                 before = dict(build.LAUNCHES)
-                out = fn(*a, **k)
-                launches[kind].append({n: build.LAUNCHES[n] - before[n] for n in before})
+                out = fn(tokens, *a, **k)
+                launches[kind].append({**{n: build.LAUNCHES[n] - before[n] for n in before},
+                                       "rows": int(tokens.numel())})
                 return out
             return wrapped
         eng.prefill_forward = delta(eng.prefill_forward, "prefill")
@@ -1058,6 +1408,10 @@ def decode_end_to_end(dev) -> dict:
     cfg = get_config("stablelm-3b")
     n = cfg.num_layers
     policy = QuantPolicy(num_layers=n, mode="int", last_k_int4=n // 2)
+    linears = decoder_linears(cfg)
+    step_table = {**gemm_launches(linears, DECODE_SLOTS), "decode_attention": n}
+    if {k: step_table[k] for k in PER_DECODE_STEP} != PER_DECODE_STEP:
+        raise AssertionError(f"PER_DECODE_STEP {PER_DECODE_STEP} != the plan's {step_table}")
     plans = {kv: ExecutionPlan.build(cfg, policy, backend="cuda", mode="decode",
                                      kv_bits=kv, prefill_batch=4) for kv in (8, 4)}
     t0 = time.perf_counter()
@@ -1097,15 +1451,9 @@ def decode_end_to_end(dev) -> dict:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
-        if any(plain.values()):
-            raise AssertionError(f"plain versions ran on CUDA tensors: {plain}")
-        for step in record["decode"]:
-            if {k: step[k] for k in PER_DECODE_STEP} != PER_DECODE_STEP:
-                raise AssertionError(f"kv{kv}: decode step launched {step}, "
-                                     f"expected {PER_DECODE_STEP}")
-        for step in record["prefill"]:
-            if step["decode_attention"] or step["act_quant"] != PER_DECODE_STEP["act_quant"]:
-                raise AssertionError(f"kv{kv}: prefill launched {step}")
+        # every decode step as PER_DECODE_STEP; each prefill's act_quant
+        # wherever a linear's plan at its rows does not quantize in the GEMM
+        planned = check_launches(f"kv{kv}", record, PER_DECODE_STEP, linears)
         tops, ref_tops = {}, {}
         _, again = serve_decode(model, tops=tops)
         for r, a in zip(results, again):
@@ -1128,7 +1476,8 @@ def decode_end_to_end(dev) -> dict:
             "plan": plan.describe(), "requests": len(results),
             "tokens": int(sum(len(r.tokens) for r in results)),
             "decode_steps": len(record["decode"]), "prefill_forwards": len(record["prefill"]),
-            "launches": launches, "plain_on_cuda": plain, "serve_s": serve_s,
+            "launches": launches, "act_quant_planned": planned,
+            "plain_on_cuda": plain, "serve_s": serve_s,
             **cmp,
             "decode_p50_ms": summary.get("decode_p50_ms"),
             "prefill_p50_ms": summary.get("prefill_p50_ms"),
@@ -1306,14 +1655,21 @@ def time_decode_kernels(dev) -> list[dict]:
                      "library_note": library_note, "bound_ms": b_ms, "bound_by": b_by,
                      "kv_bits": kv_bits})
 
+    # timed only: the split-K GEMMs quantize a step's activations themselves
     for K, calls in DECODE_ACT_QUANT.items():
         x = torch.randn((M, K), generator=g, device=dev).to(bf)
         s = (x.float().abs().amax() / 127).reshape(())
-        row("act_quant", [K, 8], calls, lambda: aq.act_quant_cuda(x, s, 8),
+        row("act_quant", [K, 8], 0, lambda: aq.act_quant_cuda(x, s, 8),
             lambda: aq.act_quant_plain(x, s, 8), M * K * 2 + 4 + M * K, 4 * M * K,
             FP32_OPS_PER_S)
+        rows[-1].update(per=f"one call (timed only): the {calls} calls a step had before "
+                            "split-K quantized its own activations")
     for (K, N), calls in DECODE_MATMULS.items():
-        x8 = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+        # the step's bf16 activations, which split-K quantizes as it loads
+        # them, and their codes (the GEMM alone, as timed before)
+        x = torch.randn((M, K), generator=g, device=dev).to(bf)
+        s_x = (x.float().abs().amax() / 127).reshape(())
+        x8 = aq.act_quant_plain(x, s_x, 8)
         w8s = [torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
                for _ in range(cold_sets(K * N))]
         wps = [pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev,
@@ -1333,12 +1689,15 @@ def time_decode_kernels(dev) -> list[dict]:
                  K // 2 * N, 4)):
             nxt = rotating(ws)
             row(kernel, [K, N], calls,
-                lambda: fn(x8, ws[0], s_a, s_w, out_dtype=bf),
-                lambda: plain(x8, ws[0], s_a, s_w, out_dtype=bf),
-                M * K + wbytes + out_b, 2 * M * K * N, INT8_OPS_PER_S,
+                lambda: fn(x, ws[0], s_x, s_w, out_dtype=bf),
+                lambda: plain(aq.act_quant_plain(x, s_x, 8), ws[0], s_x, s_w, out_dtype=bf),
+                M * K * 2 + wbytes + out_b, 2 * M * K * N, INT8_OPS_PER_S,
                 library_note=lib_note if bits == 8 else "no int4 library call")
             rows[-1].update(
-                ms_cold=cuda_ms(lambda: fn(x8, nxt(), s_a, s_w, out_dtype=bf)),
+                input="bf16, quantized in the GEMM",
+                ms_cold=cuda_ms(lambda: fn(x, nxt(), s_x, s_w, out_dtype=bf)),
+                ms_codes=cuda_ms(lambda: fn(x8, ws[0], s_a, s_w, out_dtype=bf)),
+                ms_codes_cold=cuda_ms(lambda: fn(x8, nxt(), s_a, s_w, out_dtype=bf)),
                 cold_sets=len(ws), path=gemm_plan(M, N, K, bits).name,
                 **(lib if bits == 8 else {}))
         del w8s, wps, w8, wp
@@ -1496,21 +1855,29 @@ def paged_model(model, kv_paging: str = "paged", prefix_cache: int = 0):
     return DeployedModel(plan=plan, params=model.params)
 
 
-def check_launches(tag: str, record: dict, per_step: dict) -> None:
-    """Every decode step launched ``per_step``; no prefill forward (or
-    prefix chunk forward) launched a decode attention of either kind; no
-    plain version ran on a CUDA tensor."""
+def check_launches(tag: str, record: dict, per_step: dict, linears: dict) -> int:
+    """Every decode step launched ``per_step``; every prefill forward (and
+    prefix chunk forward) the GEMMs and act_quant launches
+    ``gemm_launches(linears, rows)`` names for its rows and no decode
+    attention of either kind; no plain version ran on a CUDA tensor.
+    Returns the act_quant launches the plan called for."""
     from repro_torch.kernels import build
     for step in record["decode"]:
         if {k: step[k] for k in per_step} != per_step:
             raise AssertionError(f"{tag}: decode step launched {step}, "
                                  f"expected {per_step}")
+    planned = 0
     for step in record["prefill"] + record.get("chunk", []):
-        if step["decode_attention"] or step["decode_attention_paged"]:
-            raise AssertionError(f"{tag}: a prefill forward launched {step}")
+        want = gemm_launches(linears, step["rows"])
+        planned += want["act_quant"]
+        if (step["decode_attention"] or step["decode_attention_paged"]
+                or any(step[k] != want[k] for k in GEMM_NAMES)):
+            raise AssertionError(f"{tag}: a forward of {step['rows']} rows launched "
+                                 f"{step}, expected {want}")
     if any(build.PLAIN_ON_CUDA.values()):
         raise AssertionError(f"{tag}: plain versions ran on CUDA tensors: "
                              f"{build.PLAIN_ON_CUDA}")
+    return planned
 
 
 def paged_end_to_end(models: dict, dense_streams: dict) -> dict:
@@ -1528,7 +1895,8 @@ def paged_end_to_end(models: dict, dense_streams: dict) -> dict:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
-        check_launches(f"paged kv{kv}", record, PAGED_DECODE_STEP)
+        planned = check_launches(f"paged kv{kv}", record, PAGED_DECODE_STEP,
+                                 decoder_linears(model.plan.cfg))
         got = [list(map(int, r.tokens)) for r in results]
         equal = sum(a == b for a, b in zip(got, dense_streams[kv]))
         if equal != len(got):
@@ -1542,7 +1910,8 @@ def paged_end_to_end(models: dict, dense_streams: dict) -> dict:
                    "streams_equal_to_dense": equal,
                    "decode_steps": len(record["decode"]),
                    "prefill_forwards": len(record["prefill"]),
-                   "launches": launches, "plain_on_cuda": dict(build.PLAIN_ON_CUDA),
+                   "launches": launches, "act_quant_planned": planned,
+                   "plain_on_cuda": dict(build.PLAIN_ON_CUDA),
                    "pool": st, "serve_s": serve_s,
                    "decode_p50_ms": summary.get("decode_p50_ms"),
                    "prefill_p50_ms": summary.get("prefill_p50_ms")}
@@ -1589,10 +1958,11 @@ def serve_prefix(model, *, rounds: int = 1, kv_budget_bytes=None, ref_rows=None)
     record = {"prefill": [], "decode": [], "chunk": []}
 
     def delta(fn, kind):
-        def wrapped(*a, **k):
+        def wrapped(*a):           # (tokens) or, for a chunk, (state, tokens)
             before = dict(build.LAUNCHES)
-            out = fn(*a, **k)
-            record[kind].append({n: build.LAUNCHES[n] - before[n] for n in before})
+            out = fn(*a)
+            record[kind].append({**{n: build.LAUNCHES[n] - before[n] for n in before},
+                                 "rows": int(a[-1].numel())})
             return out
         return wrapped
     for kind in ("prefill", "decode", "chunk"):
@@ -1704,6 +2074,7 @@ def prefix_end_to_end(models: dict) -> dict:
     at 60 % of that budget, served twice in a row."""
     from repro_torch.kernels import build
     model = models[8]
+    linears = decoder_linears(model.plan.cfg)
     dense = paged_model(model, "dense", 256 << 20)
     paged = paged_model(model, "paged", 256 << 20)
     out = {}
@@ -1712,13 +2083,15 @@ def prefix_end_to_end(models: dict) -> dict:
     (ref,) = serve_prefix(dense)
     out["dense_prefix"] = {"seconds": time.perf_counter() - t0,
                            "launches": dict(build.LAUNCHES)}
-    check_launches("prefix dense", ref["record"], PER_DECODE_STEP)
+    out["dense_prefix"]["act_quant_planned"] = check_launches(
+        "prefix dense", ref["record"], PER_DECODE_STEP, linears)
     build.reset_counts()
     t0 = time.perf_counter()
     (full,) = serve_prefix(paged, ref_rows=ref["rows"])
     out["paged_prefix"] = {"seconds": time.perf_counter() - t0,
                            "launches": dict(build.LAUNCHES)}
-    check_launches("prefix paged", full["record"], PAGED_DECODE_STEP)
+    out["paged_prefix"]["act_quant_planned"] = check_launches(
+        "prefix paged", full["record"], PAGED_DECODE_STEP, linears)
     if full["tokens"] != ref["tokens"]:
         bad = [i for i, (a, b) in enumerate(zip(full["tokens"], ref["tokens"])) if a != b]
         raise AssertionError(f"paged prefix streams differ from the dense prefix "
@@ -1735,11 +2108,13 @@ def prefix_end_to_end(models: dict) -> dict:
     out["paged_prefix_60pct"] = {"seconds": time.perf_counter() - t0,
                                  "launches": dict(build.LAUNCHES),
                                  "budget_bytes": budget}
-    hits_before = 0
+    hits_before, planned = 0, 0
     for r, rnd in enumerate(tight):
-        check_launches(f"prefix paged 60% round {r + 1}", rnd["record"], PAGED_DECODE_STEP)
+        planned += check_launches(f"prefix paged 60% round {r + 1}", rnd["record"],
+                                  PAGED_DECODE_STEP, linears)
         rnd["hits_this_round"] = rnd["stats"]["hits"] - hits_before
         hits_before = rnd["stats"]["hits"]
+    out["paged_prefix_60pct"]["act_quant_planned"] = planned
     if tight[1]["hits_this_round"] < 8:
         raise AssertionError(f"60% budget, round 2: {tight[1]['hits_this_round']} hits, "
                              "expected at least 8")
@@ -1948,8 +2323,9 @@ def check_flash_attention(dev) -> tuple[float, int]:
 
 # ------------------------------------------------------------------ phase 13
 #: launches of one long (S > 2048) forward of a 32-layer W8A8/W4A4 model:
-#: 7 quantized linears a layer, half the layers int8 and half int4, and one
-#: flash attention a layer
+#: 7 quantized linears a layer, half the layers int8 and half int4, each on
+#: wgmma behind an act_quant launch, and one flash attention a layer
+#: (``long_forward`` checks it against ``gemm_launches``)
 PER_LONG_FORWARD = {"act_quant": 224, "int8_matmul": 112, "int4_matmul": 112,
                     "int4_matmul_fused": 0, "decode_attention": 0,
                     "decode_attention_paged": 0, "flash_attention": 32}
@@ -2072,6 +2448,10 @@ def long_forward(model, inputs: dict, *, flash_layers: int = 0,
             setattr(ops, f"{name}_cuda", fn)
     S = int(inputs["tokens"].shape[1])
     tag = f"{model.plan.cfg.name} S={S}"
+    planned = gemm_launches(decoder_linears(model.plan.cfg), S)
+    if {k: PER_LONG_FORWARD[k] for k in planned} != planned:
+        raise AssertionError(f"{tag}: PER_LONG_FORWARD {PER_LONG_FORWARD} != the "
+                             f"plan's {planned}")
     if launches != PER_LONG_FORWARD:
         raise AssertionError(f"{tag}: launched {launches}, expected {PER_LONG_FORWARD}")
     if any(plain.values()):
@@ -2131,6 +2511,10 @@ def check_gemms(kept, tag: str) -> dict:
              "int4_matmul": i4.int4_matmul_plain}
     shapes = {name: [] for name in GEMM_KERNELS}
     for name, args, kw, out in kept:
+        kw = {k: v for k, v in kw.items() if k not in ("pitch", "a_bits")}
+        if name != "act_quant" and args[0].dtype != torch.int8:
+            raise AssertionError(f"{tag}: {name} quantized inside the GEMM at "
+                                 f"{tuple(args[0].shape)}")
         want = plain[name](*args, **kw)
         shape = [list(args[0].shape),                 # x and bits, or x8 and w
                  args[2] if name == "act_quant" else list(args[1].shape)]
@@ -2314,6 +2698,48 @@ def time_long_gemms(dev) -> list[dict]:
     return rows
 
 
+def time_long_act_quant(dev) -> list[dict]:
+    """act_quant alone on bf16 activations at the long forwards' rows (M in
+    ``LONG_GEMM_M``) and K of their GEMMs (stablelm-3b's 2560 and 6912,
+    llava's 4096 and 14336), where it stays a kernel of its own in front of
+    the wgmma GEMMs: device time (one call a CUDA graph, median of 3
+    replays), as issued, the plain version's, and the byte bound (2 bytes
+    read and 1 written an element). ``calls`` counts the calls of one
+    stablelm-3b forward at S = 32768 (from ``gemm_launches``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import act_quant as aq
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    timer = lambda fn: cuda_ms(fn, samples=3, reps=1, warmup=1)
+    calls = {}
+    for (K, N, bits, _), n in decoder_linears(get_config("stablelm-3b")).items():
+        calls[K] = calls.get(K, 0) + n
+    rows = []
+    for arch, ks in (("stablelm-3b", (2560, 6912)), ("llava-next-mistral-7b", (4096, 14336))):
+        for K in ks:
+            for M in LONG_GEMM_M:
+                x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+                s = (x.float().abs().amax() / 127).reshape(())
+                fn = lambda: aq.act_quant_cuda(x, s, 8)
+                b_ms, b_by = bound(3 * M * K + 4, 4 * M * K, FP32_OPS_PER_S)
+                ms = timer(fn)
+                rows.append({"kernel": "act_quant", "model": arch, "M": M, "shape": [K, 8],
+                             "calls": calls[K] if (arch == "stablelm-3b"
+                                                   and M == PREFILL_LENGTHS[-1]) else 0,
+                             "per": "cacheless forward of stablelm-3b at S = 32768, B = 1",
+                             "kv_bits": None, "ms": ms, "eager_ms": cuda_ms(
+                                 fn, samples=3, reps=1, warmup=1, graph=False),
+                             "plain_ms": timer(lambda: aq.act_quant_plain(x, s, 8)),
+                             "library_ms": None,
+                             "library_note": "no single PyTorch call quantizes",
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "share_of_bound": b_ms / ms,
+                             "bytes_per_s": 3 * M * K / (ms / 1e3)})
+                del x
+            torch.cuda.empty_cache()
+    return rows
+
+
 def time_long_forwards(models: dict, dev) -> dict:
     """One forward of each model at S = 32768, B = 1 (the JAX system's
     prefill_32k length), with phase 13's launch checks: eager ms, the flash
@@ -2377,6 +2803,9 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = time_kernels(dev)
     for r in rows:
+        emit({"phase": "kernel_time", **r})
+    fused_rows = time_fused_paths(dev)
+    for r in fused_rows:
         emit({"phase": "kernel_time", **r})
     # a direct forward of 32 x 128 tokens: as the eager path runs it, and
     # replayed from a CUDA graph (device time, no host launch overhead)
@@ -2476,6 +2905,10 @@ def main() -> int:
     gemm_rows = time_long_gemms(dev)
     for r in gemm_rows:
         emit({"phase": "long_gemm_time", **r})
+    quant_rows = time_long_act_quant(dev)
+    for r in quant_rows:
+        emit({"phase": "long_act_quant_time", **r})
+    dec_rows += quant_rows
     long_times = time_long_forwards(prefill_models, dev)
     seconds["long_times"] = time.perf_counter() - t0
     emit({"phase": "long_forward_times", "S": PREFILL_LENGTHS[-1],
@@ -2498,6 +2931,14 @@ def main() -> int:
                            for name, run in prefill.items()},
                         **{f"prefill_{name}_{PREFILL_LENGTHS[-1]}": run["launches"]
                            for name, run in long_times.items()}}
+    # act_quant is a kernel of a path where its plan calls for it: a split-K
+    # GEMM (at most 64 rows) quantizes its own activations
+    planned = {"encoder": e2e["expected_launches"]["act_quant"],
+               **{f"decode_kv{kv}": v["act_quant_planned"] for kv, v in dec["per_kv"].items()},
+               **{f"paged_kv{kv}": v["act_quant_planned"] for kv, v in paged.items()},
+               "prefix_dense_kv8": prefix["dense_prefix"]["act_quant_planned"],
+               "prefix_paged_kv8": prefix["paged_prefix"]["act_quant_planned"],
+               "prefix_paged_60pct_kv8": prefix["paged_prefix_60pct"]["act_quant_planned"]}
     for path, need in (("encoder", ENCODER_KERNELS), ("decode_kv8", DECODER_KERNELS),
                        ("decode_kv4", DECODER_KERNELS), ("paged_kv8", PAGED_KERNELS),
                        ("paged_kv4", PAGED_KERNELS), ("prefix_dense_kv8", DECODER_KERNELS),
@@ -2505,7 +2946,8 @@ def main() -> int:
                        ("prefix_paged_60pct_kv8", PAGED_KERNELS),
                        *((path, PREFILL_KERNELS) for path in launches_by_path
                          if path.startswith("prefill_"))):
-        idle = [k for k in need if not launches_by_path[path][k]]
+        idle = [k for k in need if not launches_by_path[path][k]
+                and (k != "act_quant" or planned.get(path, 1))]
         if idle:
             raise AssertionError(f"{path}: kernels never launched on the main "
                                  f"path: {idle}")
@@ -2514,6 +2956,8 @@ def main() -> int:
         long_rows = [r for r in gemm_rows if r["kernel"] == entry["name"]]
         if long_rows:
             entry["long_forward_gemms"] = long_rows
+        if entry["name"] == "int4_matmul_fused":
+            entry["other_shapes"] = fused_rows
     emit({"phase": "seconds", **seconds})
     report = ROOT / "chiprun_out" / "chip_smoke_report.json"
     report.parent.mkdir(exist_ok=True)
@@ -2528,6 +2972,8 @@ def main() -> int:
                                   "long_prefill": prefill,
                                   "long_forward_times": long_times,
                                   "long_gemm_times": gemm_rows,
+                                  "long_act_quant_times": quant_rows,
+                                  "fused_times": fused_rows,
                                   "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("act_quant.cu", "int8_matmul.cu", "int4_matmul.cu",
            "decode_attention.cu", "flash_attention.cu")
-HEADERS = ("int_gemm.cuh", "int_gemm_splitk.cuh", "int_gemm_wgmma.cuh")
+HEADERS = ("quant.cuh", "int_gemm.cuh", "int_gemm_splitk.cuh", "int_gemm_wgmma.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # no --use_fast_math: it makes '/' and tanhf approximate and breaks parity
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,11 +38,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry -> argtypes (pointers and the stream as c_void_p, sizes and flags
 #: as c_int, the softmax scale as c_float)
 SIGNATURES = {
-    "act_quant": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x8, w, s_a, s_w, out, workspace, M, N, K, out_bf16, path, splits, kc
-    "int8_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "int4_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "int4_matmul_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, s, out, M, K, the codes' row pitch, qmin, qmax, in_bf16
+    "act_quant": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, s_a, s_w, out, workspace, M, N, K, out_bf16, path, splits, kc,
+    # then the activations' row pitch, their kind (int8 codes, f32, bf16)
+    # and, for f32 / bf16 on split-K, the grid qmin, qmax they quantize to
+    "int8_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _P),
+    "int4_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _P),
+    # x, wp, s_a, s_w, bias, out, workspace, M, N, K, act, out_bf16, path,
+    # splits, kc, row pitch, kind, qmin, qmax
+    "int4_matmul_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _P),
     "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "decode_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -170,8 +178,9 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-          device: torch.device) -> None:
-    """Validate what a kernel takes: device, dtype, shape, contiguity."""
+          device: torch.device, contiguous: bool = True) -> None:
+    """Validate what a kernel takes: device, dtype, shape, contiguity (or,
+    with ``contiguous=False``, rows of unit stride at any pitch)."""
     if device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernels take CUDA tensors, got "
                          f"{device}; CPU tensors go to the plain versions")
@@ -181,5 +190,7 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if not contiguous and t.numel() and t.stride(-1) != 1:
+        raise ValueError(f"{name}: expected rows of unit stride")

@@ -2,7 +2,9 @@
 //
 // C[m, n] = epilogue(float(sum_k A[m, k] * B[k, n]) * (s_a * s_w[n]))
 //
-//   A   (M, K) int8 activation codes, row-major
+//   A   (M, K) int8 activation codes, row-major (split-K also takes the
+//       f32 or bf16 activations and quantizes them as it loads them;
+//       wgmma reads the codes at a row pitch of lda, a multiple of 16)
 //   B   int8:  (K, N) int8 weight codes, row-major
 //       int4:  (K/2, N) uint8, two codes per byte along K (row 2k = low
 //              nibble, row 2k+1 = high nibble, both biased by +7)
@@ -13,10 +15,11 @@
 //
 // Three paths, chosen from shapes alone by kernels/gemm_plan.py:
 //   * split-K (int_gemm_splitk.cuh): M <= 64, the decode step's M = 8;
-//   * wgmma (int_gemm_wgmma.cuh): M >= 128 with K % 64 == 0 and N % 16 ==
-//     0, the long forwards and the prefill;
-//   * tiled (this file): everything else, and the fused int4 epilogue
-//     (int4_matmul_fused) at every shape.
+//   * wgmma (int_gemm_wgmma.cuh): M >= 128 with N % 16 == 0, the long
+//     forwards, the prefill and the encoder's (312, 1200);
+//   * tiled (this file): everything else (N = 312, 64 < M < 128).
+// Each path takes the four epilogues (scale only for int8_matmul and
+// int4_matmul; + bias, then none, tanh-GELU or ReLU for int4_matmul_fused).
 // Every path keeps the int32 sums exact and runs the same epilogue, each
 // f32 operation rounded on its own (__fmul_rn / __fadd_rn, no FMA
 // contraction) in the reference's order, so all three are bit-identical to
@@ -77,6 +80,18 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* row, int col,
   for (int j = 0; j < 4; ++j)
     if (col + j < limit) v |= uint32_t(row[col + j]) << (8 * j);
   return v;
+}
+
+// the epilogue of one int32 sum, in the reference's order:
+// r = acc * scale (scale = s_a * s_w[n], formed first), r = r + bias[n],
+// then the activation; each f32 operation rounded on its own
+template <int kEpi>
+__device__ __forceinline__ float epilogue(int acc, float scale, float bias) {
+  float r = __fmul_rn(__int2float_rn(acc), scale);
+  if (kEpi != kScaleOnly) r = __fadd_rn(r, bias);
+  if (kEpi == kBiasGelu) r = gelu_tanh(r);
+  if (kEpi == kBiasRelu) r = fmaxf(r, 0.0f);
+  return r;
 }
 
 __device__ __forceinline__ void store_out(float* p, float r) { *p = r; }
@@ -197,11 +212,9 @@ int_gemm_kernel(const int8_t* __restrict__ A, const uint8_t* __restrict__ B,
         const int row = m0 + warp_m * 32 + mi * 16 + group + (e >> 1) * 8;
         const int col = n0 + warp_n * 32 + ni * 8 + tig * 2 + (e & 1);
         if (row >= M || col >= N) continue;
-        float r = __fmul_rn(__int2float_rn(acc[mi][ni][e]), __fmul_rn(s_a, sw[col]));
-        if (kEpi != kScaleOnly) r = __fadd_rn(r, bias[col]);
-        if (kEpi == kBiasGelu) r = gelu_tanh(r);
-        if (kEpi == kBiasRelu) r = fmaxf(r, 0.0f);
-        store_out(C + size_t(row) * N + col, r);
+        store_out(C + size_t(row) * N + col,
+                  epilogue<kEpi>(acc[mi][ni][e], __fmul_rn(s_a, sw[col]),
+                                 kEpi == kScaleOnly ? 0.0f : bias[col]));
       }
 }
 
@@ -342,14 +355,16 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major (rows, cols) byte matrix as a 2-d tensor map with boxes of
-// box_cols x box_rows; zeros past its edges
+// a row-major (rows, cols) byte matrix, rows `pitch` bytes apart (a
+// multiple of 16), as a 2-d tensor map with boxes of box_cols x box_rows;
+// zeros past its edges (past `cols`, whatever the pitch)
 inline bool byte_map(CUtensorMap* map, const void* base, int rows, int cols,
-                     int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+                     int box_cols, int box_rows, CUtensorMapSwizzle swizzle,
+                     int pitch) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols)};
+  const cuuint64_t strides[1] = {cuuint64_t(pitch)};
   const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,

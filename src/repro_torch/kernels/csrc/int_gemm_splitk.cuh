@@ -11,7 +11,13 @@
 //     the 132 SMs). Thread 0 issues every TMA copy of the split's weight
 //     rows at once, one 64-row stage (8 KB int8, 4 KB int4) on each
 //     mbarrier, with the 128-byte swizzle; the split's activations (M x kc)
-//     go to shared memory by word loads meanwhile, zeros past M and K.
+//     go to shared memory meanwhile, zeros past M and K: int8 codes by word
+//     loads, or f32 / bf16 activations by 16- / 8-byte loads of 4 elements,
+//     each quantized by act_quant's own quant1 (quant.cuh) and the 4 codes
+//     stored as one word; a thread has 16 (codes) or 8 (f32, bf16) loads
+//     in flight at once, all of a split's at M = 8. So the decode step runs no act_quant kernel: its
+//     quantization hides behind the weight's TMA stages, and the codes are
+//     act_quant's bit for bit.
 //     Each warp owns 32 columns: a thread reads one 4-byte word of 4
 //     columns from 4 k rows (int8) or 2 packed rows (int4, unpacked by
 //     nibble_codes), transposes the 4 x 4 bytes with __byte_perm
@@ -22,17 +28,18 @@
 //   * Kernel 2, launched from the same C entry as a programmatic dependent
 //     of kernel 1 (one counted launch): each thread loads 4 columns of up
 //     to 16 splits at once, sums them in split order in int32 (exact in
-//     any order), and applies the
-//     epilogue once to the full sum, in the tiled path's order:
-//     __fmul_rn(__int2float_rn(acc), __fmul_rn(s_a, s_w[n])), then one
-//     rounding to bf16. So the output is bit-identical to the plain version;
-//     no split is dequantized on its own.
+//     any order), and applies the epilogue once to the full sum, in the
+//     tiled path's order: __fmul_rn(__int2float_rn(acc), __fmul_rn(s_a,
+//     s_w[n])), then (int4_matmul_fused) __fadd_rn(r, bias[n]) and GELU or
+//     ReLU, then one rounding to bf16. So the output is bit-identical to the
+//     plain version; no split is dequantized on its own.
 // The workspace comes from torch.empty in the wrapper and is written whole
 // before it is read; there are no counters, so a CUDA-graph replay runs the
 // same two kernels on the same buffers.
 #pragma once
 
 #include "int_gemm.cuh"
+#include "quant.cuh"
 
 namespace repro_kernels {
 namespace splitk {
@@ -46,6 +53,9 @@ constexpr int kMaxStages = kMaxKc / kStageK;
 constexpr int kAPad = 16;      // activations' shared rows: kc + 16 bytes
 constexpr int kReduceThreads = 128;
 constexpr int kReduceBatch = 16;  // splits a reduce thread loads at once
+
+// what the activations are: int8 codes, or f32 / bf16 values to quantize
+enum ActIn { kCodes = 0, kF32 = 1, kBf16 = 2 };
 
 template <bool kInt4>
 __host__ __device__ constexpr int stage_rows() { return kInt4 ? kStageK / 2 : kStageK; }
@@ -65,11 +75,74 @@ __device__ __forceinline__ uint32_t swz_word(const unsigned char* stage, int row
   return *reinterpret_cast<const uint32_t*>(stage + off);
 }
 
-template <bool kInt4, int MT>
+// four activations of kind kIn as loaded (V) and as their four codes
+template <int kIn> struct ActIn4;
+template <> struct ActIn4<kCodes> {
+  using T = int8_t;
+  using V = uint32_t;
+  static constexpr int kBatch = 16;  // loads a thread has in flight at once
+  __device__ static uint32_t codes(V v, float, float, float) { return v; }
+};
+template <> struct ActIn4<kF32> {
+  using T = float;
+  using V = float4;
+  static constexpr int kBatch = 8;
+  __device__ static uint32_t codes(const V& v, float s, float qmin, float qmax) {
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    return quant4(f, s, qmin, qmax);
+  }
+};
+template <> struct ActIn4<kBf16> {
+  using T = __nv_bfloat16;
+  using V = uint2;
+  static constexpr int kBatch = 8;
+  __device__ static uint32_t codes(const V& v, float s, float qmin, float qmax) {
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+    const float f[4] = {__low2float(a), __high2float(a), __low2float(b), __high2float(b)};
+    return quant4(f, s, qmin, qmax);
+  }
+};
+
+// rows [0, rows) x columns [k0, k0 + kc) of the activations (row pitch K)
+// into sA (row pitch lda) as int8 codes, zeros past `rows` up to 16 MT and
+// past K (K % 4 == 0, so a group of 4 columns is all in or all out). A
+// thread issues kBatch group loads at once, then turns them into code
+// words: int8 codes as they are, f32 / bf16 through quant1 (quant.cuh).
+template <int kIn, int MT>
+__device__ __forceinline__ void stage_activations(const void* __restrict__ A,
+                                                  unsigned char* sA, int lda, int rows,
+                                                  int K, int k0, int kc, float s,
+                                                  float qmin, float qmax) {
+  using In = ActIn4<kIn>;
+  const typename In::T* a = static_cast<const typename In::T*>(A);
+  const int words = kc / 4, real = rows * words;
+  for (int i = real + threadIdx.x; i < 16 * MT * words; i += kThreads)
+    *reinterpret_cast<uint32_t*>(sA + (i / words) * lda + 4 * (i % words)) = 0u;
+  for (int i0 = threadIdx.x; i0 < real; i0 += In::kBatch * kThreads) {
+    typename In::V v[In::kBatch];
+#pragma unroll
+    for (int u = 0; u < In::kBatch; ++u) {
+      const int i = i0 + u * kThreads, r = i / words, c = 4 * (i % words);
+      if (i < real && k0 + c < K)
+        v[u] = __ldg(reinterpret_cast<const typename In::V*>(a + size_t(r) * K + k0 + c));
+    }
+#pragma unroll
+    for (int u = 0; u < In::kBatch; ++u) {
+      const int i = i0 + u * kThreads, r = i / words, c = 4 * (i % words);
+      if (i >= real) break;
+      *reinterpret_cast<uint32_t*>(sA + r * lda + c) =
+          k0 + c < K ? In::codes(v[u], s, qmin, qmax) : 0u;
+    }
+  }
+}
+
+template <bool kInt4, int MT, int kIn>
 __global__ void __launch_bounds__(kThreads)
 splitk_partial_kernel(const __grid_constant__ CUtensorMap map_b,
-                      const int8_t* __restrict__ A, int* __restrict__ ws, int M,
-                      int N, int K, int kc) {
+                      const void* __restrict__ A, const float* __restrict__ sa,
+                      int* __restrict__ ws, int M, int N, int K, int kc, float qmin,
+                      float qmax) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* const smem = align1024(smem_raw);
   constexpr int kBytes = stage_bytes<kInt4>();
@@ -98,15 +171,9 @@ splitk_partial_kernel(const __grid_constant__ CUtensorMap map_b,
   // let the reduce kernel launch once every block has started
   pdl_launch_dependents();
 
-  // the split's activations: (16 MT) x kc, zeros past M and past K
-  const int words = kc / 4;
-  for (int i = tid; i < 16 * MT * words; i += kThreads) {
-    const int r = i / words, c = 4 * (i % words);
-    uint32_t v = 0u;
-    if (r < M && k0 + c < K)
-      v = __ldg(reinterpret_cast<const uint32_t*>(A + size_t(r) * K + k0 + c));
-    *reinterpret_cast<uint32_t*>(sA + r * lda + c) = v;
-  }
+  // the split's activations (as codes) while the weight's stages arrive
+  stage_activations<kIn, MT>(A, sA, lda, M, K, k0, kc, kIn == kCodes ? 1.0f : *sa, qmin,
+                             qmax);
   __syncthreads();
 
   const int lane = tid & 31, warp = tid >> 5;
@@ -178,11 +245,11 @@ splitk_partial_kernel(const __grid_constant__ CUtensorMap map_b,
     }
 }
 
-template <typename OutT>
+template <typename OutT, int kEpi>
 __global__ void __launch_bounds__(kReduceThreads)
 splitk_reduce_kernel(const int* __restrict__ ws, const float* __restrict__ sa,
-                     const float* __restrict__ sw, OutT* __restrict__ C, int M,
-                     int N, int splits) {
+                     const float* __restrict__ sw, const float* __restrict__ bias,
+                     OutT* __restrict__ C, int M, int N, int splits) {
   pdl_wait();  // every split's partials are written
   const long long quads = static_cast<long long>(M) * N / 4;
   const long long i = static_cast<long long>(blockIdx.x) * kReduceThreads + threadIdx.x;
@@ -209,43 +276,67 @@ splitk_reduce_kernel(const int* __restrict__ ws, const float* __restrict__ sa,
   const int a[4] = {acc.x, acc.y, acc.z, acc.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    store_out(C + 4 * i + j, __fmul_rn(__int2float_rn(a[j]), __fmul_rn(s_a, sw[n + j])));
+    store_out(C + 4 * i + j, epilogue<kEpi>(a[j], __fmul_rn(s_a, sw[n + j]),
+                                            kEpi == kScaleOnly ? 0.0f : bias[n + j]));
 }
 
-template <bool kInt4, int MT>
-cudaError_t launch_partials(const CUtensorMap& map, const void* x8, void* ws, int M,
-                            int N, int K, int splits, int kc, cudaStream_t st) {
-  auto kernel = splitk_partial_kernel<kInt4, MT>;
+template <bool kInt4, int MT, int kIn>
+cudaError_t launch_partials(const CUtensorMap& map, const void* x, const void* sa,
+                            void* ws, int M, int N, int K, int splits, int kc,
+                            float qmin, float qmax, cudaStream_t st) {
+  auto kernel = splitk_partial_kernel<kInt4, MT, kIn>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem<kInt4, MT>());
   if (attr != cudaSuccess) return attr;
   const int smem = (kc / kStageK) * stage_bytes<kInt4>() + 16 * MT * (kc + kAPad) +
                    8 * kMaxStages + 1024;
   const dim3 grid((N + kBN - 1) / kBN, splits);
-  kernel<<<grid, kThreads, smem, st>>>(map, static_cast<const int8_t*>(x8),
-                                       static_cast<int*>(ws), M, N, K, kc);
+  kernel<<<grid, kThreads, smem, st>>>(map, x, static_cast<const float*>(sa),
+                                       static_cast<int*>(ws), M, N, K, kc, qmin, qmax);
   return cudaGetLastError();
 }
 
-// plan: splits ranges of kc rows (kernels/gemm_plan.py); ws: int32 (splits, M, N)
-template <bool kInt4>
-int launch(const void* x8, const void* w, const void* sa, const void* sw, void* out,
-           void* ws, int M, int N, int K, int out_bf16, int splits, int kc,
-           void* stream) {
+template <bool kInt4, int kIn>
+cudaError_t launch_partials_m(const CUtensorMap& map, const void* x, const void* sa,
+                              void* ws, int M, int N, int K, int splits, int kc,
+                              float qmin, float qmax, cudaStream_t st) {
+  return M <= 16 ? launch_partials<kInt4, 1, kIn>(map, x, sa, ws, M, N, K, splits, kc,
+                                                  qmin, qmax, st)
+         : M <= 32 ? launch_partials<kInt4, 2, kIn>(map, x, sa, ws, M, N, K, splits,
+                                                    kc, qmin, qmax, st)
+                   : launch_partials<kInt4, 4, kIn>(map, x, sa, ws, M, N, K, splits,
+                                                    kc, qmin, qmax, st);
+}
+
+// plan: splits ranges of kc rows (kernels/gemm_plan.py); ws: int32 (splits,
+// M, N); x: int8 codes, or (in_kind kF32 / kBf16) the activations, which
+// are quantized with s_a onto [qmin, qmax] as they are staged
+template <bool kInt4, int kEpi>
+int launch(const void* x, const void* w, const void* sa, const void* sw,
+           const void* bias, void* out, void* ws, int M, int N, int K, int out_bf16,
+           int splits, int kc, int in_kind, int qmin, int qmax, void* stream) {
+  // a group of 4 activations is one 4-byte (codes), 16-byte (f32) or
+  // 8-byte (bf16) load
+  const int x_align = in_kind == kCodes ? 4 : in_kind == kF32 ? 16 : 8;
   if (M < 1 || M > kMaxM || N < 16 || N % 16 != 0 || K < 4 || K % 4 != 0 ||
       kc < kStageK || kc > kMaxKc || kc % kStageK != 0 ||
-      splits != (K + kc - 1) / kc || splits > 65535 || !aligned(x8, 4) ||
-      !aligned(w, 16) || !aligned(ws, 16))
+      splits != (K + kc - 1) / kc || splits > 65535 || in_kind < kCodes ||
+      in_kind > kBf16 || qmin > qmax || !aligned(x, x_align) || !aligned(w, 16) ||
+      !aligned(ws, 16) || (kEpi != kScaleOnly && bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   CUtensorMap map;
   if (!byte_map(&map, w, kInt4 ? K / 2 : K, N, kBN, stage_rows<kInt4>(),
-                CU_TENSOR_MAP_SWIZZLE_128B))
+                CU_TENSOR_MAP_SWIZZLE_128B, N))
     return static_cast<int>(cudaErrorInvalidValue);
+  const float lo = static_cast<float>(qmin), hi = static_cast<float>(qmax);
   cudaError_t err =
-      M <= 16 ? launch_partials<kInt4, 1>(map, x8, ws, M, N, K, splits, kc, st)
-      : M <= 32 ? launch_partials<kInt4, 2>(map, x8, ws, M, N, K, splits, kc, st)
-                : launch_partials<kInt4, 4>(map, x8, ws, M, N, K, splits, kc, st);
+      in_kind == kCodes ? launch_partials_m<kInt4, kCodes>(map, x, sa, ws, M, N, K, splits,
+                                                            kc, lo, hi, st)
+      : in_kind == kF32 ? launch_partials_m<kInt4, kF32>(map, x, sa, ws, M, N, K, splits,
+                                                          kc, lo, hi, st)
+                        : launch_partials_m<kInt4, kBf16>(map, x, sa, ws, M, N, K, splits,
+                                                           kc, lo, hi, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the reduce, as a programmatic dependent launch of the partials
   cudaLaunchConfig_t cfg = {};
@@ -261,10 +352,11 @@ int launch(const void* x8, const void* w, const void* sa, const void* sw, void* 
   const int* wsi = static_cast<const int*>(ws);
   const float* saf = static_cast<const float*>(sa);
   const float* swf = static_cast<const float*>(sw);
+  const float* bf = static_cast<const float*>(bias);
   err = out_bf16
-            ? cudaLaunchKernelEx(&cfg, splitk_reduce_kernel<__nv_bfloat16>, wsi, saf, swf,
-                                 static_cast<__nv_bfloat16*>(out), M, N, splits)
-            : cudaLaunchKernelEx(&cfg, splitk_reduce_kernel<float>, wsi, saf, swf,
+            ? cudaLaunchKernelEx(&cfg, splitk_reduce_kernel<__nv_bfloat16, kEpi>, wsi, saf,
+                                 swf, bf, static_cast<__nv_bfloat16*>(out), M, N, splits)
+            : cudaLaunchKernelEx(&cfg, splitk_reduce_kernel<float, kEpi>, wsi, saf, swf, bf,
                                  static_cast<float*>(out), M, N, splits);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -1,11 +1,16 @@
 // wgmma path of the integer GEMM, for large M (the long forwards' M = 8192
 // and 32768, the prefill's M = 1024).
 //
-// Same function and layouts as int_gemm.cuh. Taken for M >= 128 with K %
-// 64 == 0 and N % 16 == 0 (kernels/gemm_plan.py: TMA describes both
-// operands' rows). Bound on H100 by operations: 2 M K N int8 operations at
-// 1,979 TOPS (a (32768, 14336) x (14336, 4096) product: 1.95 ms) against
-// M K + K N (or K N / 2) + 2 M N bytes (0.80 GB there: 0.24 ms at 3.35 TB/s).
+// Same function and layouts as int_gemm.cuh. Taken for M >= 128 with N %
+// 16 == 0 and any K (kernels/gemm_plan.py: TMA describes both operands'
+// rows; the activation codes come at a row pitch lda that is a multiple of
+// 16 bytes, padded past K where K is not, e.g. the encoder's K = 312 at a
+// pitch of 320, and TMA reads only their K real columns). Bound on H100 by
+// operations at the long shapes: 2 M K N int8 operations at 1,979 TOPS (a
+// (32768, 14336) x (14336, 4096) product: 1.95 ms) against M K + K N (or
+// K N / 2) + 2 M N bytes (0.80 GB there: 0.24 ms at 3.35 TB/s); by bytes
+// at the encoder's shallow K (int4_matmul_fused at M = 4096, K = 312, N =
+// 1200, f32 out: 21.1 MB, 6.3 us, against 3.1 G operations, 1.5 us).
 //
 //   * 128 x 256 output tiles, grouped by 8 row tiles so that blocks that
 //     run together share their weight columns in L2; one persistent block
@@ -33,13 +38,15 @@
 //     tile kt + 1 while the tensor cores work, waits for its products,
 //     frees stage kt and meets the other warpgroup at a named barrier.
 //   * The int32 sums stay in registers (128 a thread); the epilogue is the
-//     tiled path's, in f32 then one rounding to bf16, with stores past M
-//     or N masked. For bf16 the 4 threads of a quad trade their column
-//     pairs by shuffles so that each writes 16 contiguous bytes: a quarter
-//     of the store instructions of 4-byte pairs, which bound the epilogue,
-//     and whole 32-byte sectors. TMA fills rows past M
-//     and K with zeros, which is exact for integer sums (a zero packed byte
-//     is two codes of -7, but it meets only zero activations).
+//     tiled path's (scale; for int4_matmul_fused + bias and GELU or ReLU),
+//     in f32 then one rounding to bf16, with stores past M or N masked.
+//     For bf16 the 4 threads of a quad trade their column pairs by
+//     shuffles so that each writes 16 contiguous bytes: a quarter of the
+//     store instructions of 4-byte pairs, which bound the epilogue, and
+//     whole 32-byte sectors. TMA fills rows past M and columns past K with
+//     zeros, which is exact for integer sums (a zero packed byte is two
+//     codes of -7, but it meets only zero activations), so a ragged K runs
+//     ceil(K / 128) k tiles on zero fill.
 //   * Every wgmma lies on a path the whole warpgroup takes; the role split
 //     reads the warpgroup index through a shuffle, as a uniform value.
 //   * Registers: ptxas gives each of 384 threads 168, too few for 128
@@ -208,12 +215,13 @@ __device__ __forceinline__ void tile_origin(int tile, int tiles_m, int tiles_n, 
 // its k tiles form one stream across the tiles (stage and buffer from the
 // running count), so the producer loads the next tile, and the consumers
 // re-lay its first weight tile, while the epilogue of the last one runs.
-template <bool kInt4, typename OutT>
+template <bool kInt4, typename OutT, int kEpi>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
                   const float* __restrict__ sa, const float* __restrict__ sw,
-                  OutT* __restrict__ C, int M, int N, int K) {
+                  const float* __restrict__ bias, OutT* __restrict__ C, int M, int N,
+                  int K) {
   using L = Smem<kInt4>;
   constexpr int S = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -308,13 +316,15 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         const int col = n0 + 8 * j + 2 * t;
         if (col >= N) continue;  // N is even: col + 1 < N too
         const float s0 = __fmul_rn(s_a, sw[col]), s1 = __fmul_rn(s_a, sw[col + 1]);
+        const float b0 = kEpi == kScaleOnly ? 0.f : bias[col];
+        const float b1 = kEpi == kScaleOnly ? 0.f : bias[col + 1];
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int row = row0 + 8 * hr;
           if (row >= M) continue;
           *reinterpret_cast<float2*>(C + size_t(row) * N + col) =
-              make_float2(__fmul_rn(__int2float_rn(acc[4 * j + 2 * hr]), s0),
-                          __fmul_rn(__int2float_rn(acc[4 * j + 2 * hr + 1]), s1));
+              make_float2(epilogue<kEpi>(acc[4 * j + 2 * hr], s0, b0),
+                          epilogue<kEpi>(acc[4 * j + 2 * hr + 1], s1, b1));
         }
       }
     } else {
@@ -324,13 +334,15 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       // shuffles; only the stores are masked)
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        float sc[4][2];
+        float sc[4][2], bs[4][2];
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int col = n0 + 8 * (4 * q + jj) + 2 * t;
           const bool in = col < N;  // N is even: col + 1 < N too
           sc[jj][0] = __fmul_rn(s_a, in ? sw[col] : 0.f);
           sc[jj][1] = __fmul_rn(s_a, in ? sw[col + 1] : 0.f);
+          bs[jj][0] = kEpi != kScaleOnly && in ? bias[col] : 0.f;
+          bs[jj][1] = kEpi != kScaleOnly && in ? bias[col + 1] : 0.f;
         }
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
@@ -339,8 +351,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
           for (int jj = 0; jj < 4; ++jj) {
             const int i = 4 * (4 * q + jj) + 2 * hr;
             const __nv_bfloat162 v = __halves2bfloat162(
-                __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[i]), sc[jj][0])),
-                __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[i + 1]), sc[jj][1])));
+                __float2bfloat16_rn(epilogue<kEpi>(acc[i], sc[jj][0], bs[jj][0])),
+                __float2bfloat16_rn(epilogue<kEpi>(acc[i + 1], sc[jj][1], bs[jj][1])));
             pr[jj] = *reinterpret_cast<const uint32_t*>(&v);
           }
           // got[k]: thread t ^ k's columns of group 4q + t
@@ -360,10 +372,11 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-template <bool kInt4, typename OutT>
+template <bool kInt4, typename OutT, int kEpi>
 int launch_t(const CUtensorMap& map_a, const CUtensorMap& map_b, const void* sa,
-             const void* sw, void* out, int M, int N, int K, cudaStream_t st) {
-  auto kernel = wgmma_gemm_kernel<kInt4, OutT>;
+             const void* sw, const void* bias, void* out, int M, int N, int K,
+             cudaStream_t st) {
+  auto kernel = wgmma_gemm_kernel<kInt4, OutT, kEpi>;
   constexpr int kBytes = Smem<kInt4>::kBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
@@ -389,24 +402,29 @@ int launch_t(const CUtensorMap& map_a, const CUtensorMap& map_b, const void* sa,
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
   kernel<<<grid, kThreads, kBytes, st>>>(
       map_a, map_b, static_cast<const float*>(sa), static_cast<const float*>(sw),
-      static_cast<OutT*>(out), M, N, K);
+      static_cast<const float*>(bias), static_cast<OutT*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kInt4>
-int launch(const void* x8, const void* w, const void* sa, const void* sw, void* out,
-           int M, int N, int K, int out_bf16, void* stream) {
-  if (M < 1 || N < 16 || N % 16 != 0 || K < 64 || K % 64 != 0 || !aligned(x8, 16) ||
-      !aligned(w, 16))
+// x8: (M, K) codes at a row pitch of lda bytes (a multiple of 16)
+template <bool kInt4, int kEpi>
+int launch(const void* x8, const void* w, const void* sa, const void* sw,
+           const void* bias, void* out, int M, int N, int K, int lda, int out_bf16,
+           void* stream) {
+  if (M < 1 || N < 16 || N % 16 != 0 || K < 1 || (kInt4 && K % 2 != 0) || lda < K ||
+      lda % 16 != 0 || !aligned(x8, 16) || !aligned(w, 16) ||
+      (kEpi != kScaleOnly && bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_a, map_b;
-  if (!byte_map(&map_a, x8, M, K, kBK, kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!byte_map(&map_a, x8, M, K, kBK, kBM, CU_TENSOR_MAP_SWIZZLE_128B, lda) ||
       !byte_map(&map_b, w, kInt4 ? K / 2 : K, N, kBN, kInt4 ? kBK / 2 : kBK,
-                CU_TENSOR_MAP_SWIZZLE_NONE))
+                CU_TENSOR_MAP_SWIZZLE_NONE, N))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch_t<kInt4, __nv_bfloat16>(map_a, map_b, sa, sw, out, M, N, K, st)
-                  : launch_t<kInt4, float>(map_a, map_b, sa, sw, out, M, N, K, st);
+  return out_bf16
+             ? launch_t<kInt4, __nv_bfloat16, kEpi>(map_a, map_b, sa, sw, bias, out, M, N,
+                                                    K, st)
+             : launch_t<kInt4, float, kEpi>(map_a, map_b, sa, sw, bias, out, M, N, K, st);
 }
 
 }  // namespace wg

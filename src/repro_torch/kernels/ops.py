@@ -5,8 +5,12 @@ quantized-cache branch of ``attention_block`` for one-token decode steps,
 and ``chunked_attention`` (the cacheless branch of long forwards). A
 tensor on the card goes to the hand-written CUDA kernel, a tensor on the CPU
 to the kernel's plain PyTorch version, and nothing else decides between them.
-Activation codes are quantized before every matmul; the kernels mask their
-ragged edges, so no divisor tiles are picked here.
+On the CPU, activation codes are quantized before every matmul. On the
+card, a GEMM whose plan is split-K (``gemm_plan.quantizes_in_gemm``: M <=
+64, the decode step) takes the float activations and quantizes them as it
+loads them, with act_quant's arithmetic; every other GEMM gets act_quant's
+codes at the row pitch its path reads (``gemm_plan.code_pitch``). The
+kernels mask their ragged edges, so no divisor tiles are picked here.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from .decode_attention import (decode_attention_cuda,
                                decode_attention_plain)
 from .flash_attention import (TILE, flash_attention_cuda,
                               flash_attention_plain)
+from .gemm_plan import code_pitch, gemm_plan, quantizes_in_gemm
 from .int4_matmul import (int4_matmul_cuda, int4_matmul_fused_cuda,
                           int4_matmul_fused_plain, int4_matmul_plain)
 from .int8_matmul import int8_matmul_cuda, int8_matmul_plain
@@ -36,14 +41,29 @@ def act_quant(x: torch.Tensor, s: torch.Tensor, bits: int = 8) -> torch.Tensor:
     return fn(x2, s, bits).reshape(*x.shape[:-1], K)
 
 
+def gemm_activations(x: torch.Tensor, N: int, K: int, bits: int, s_a: torch.Tensor,
+                     a_bits: int) -> torch.Tensor:
+    """What the card's (M, K) x (K, N) GEMM with ``bits``-bit weights takes
+    for the activations ``x``: ``x`` itself where the GEMM quantizes as it
+    loads (split-K), else act_quant's codes at the row pitch of the plan's
+    path. Decided from the shapes alone."""
+    M = x.shape[0]
+    if quantizes_in_gemm(M, N, K, bits):
+        return x
+    return act_quant_cuda(x, s_a, a_bits, pitch=code_pitch(gemm_plan(M, N, K, bits), K))
+
+
 def int8_matmul(x: torch.Tensor, w8: torch.Tensor, s_a: torch.Tensor,
                 s_w: torch.Tensor, a_bits: int = 8) -> torch.Tensor:
     """x: (M, K) float -> quantize -> int8 GEMM -> dequant to x.dtype.
     w8: (K, N) int8."""
+    K, N = w8.shape
+    s_w = s_w.reshape(1, N).contiguous()
+    if x.is_cuda:
+        return int8_matmul_cuda(gemm_activations(x.contiguous(), N, K, 8, s_a, a_bits),
+                                w8, s_a, s_w, out_dtype=x.dtype, a_bits=a_bits)
     x8 = act_quant(x, s_a, bits=a_bits)
-    s_w = s_w.reshape(1, w8.shape[1]).contiguous()
-    fn = int8_matmul_cuda if x8.is_cuda else int8_matmul_plain
-    return fn(x8, w8, s_a, s_w, out_dtype=x.dtype)
+    return int8_matmul_plain(x8, w8, s_a, s_w, out_dtype=x.dtype)
 
 
 def int4_matmul(x: torch.Tensor, wp: torch.Tensor, s_a: torch.Tensor,
@@ -56,19 +76,25 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor, s_a: torch.Tensor,
     epilogue, one write of the (M, N) result instead of three. With ``act``
     set, ``bias`` (or zeros) is folded in as well.
     """
-    x8 = act_quant(x, s_a, bits=a_bits)
-    K, N = x8.shape[1], wp.shape[1]
-    if wp.shape[0] * 2 != K:  # packing padded K to even; pad x to match
-        x8 = F.pad(x8, (0, wp.shape[0] * 2 - K))
+    Kw, N = wp.shape[0] * 2, wp.shape[1]
     s_w = s_w.reshape(1, N).contiguous()
-    on_card = x8.is_cuda
+    b = None
     if act is not None:
-        b = (torch.zeros((1, N), dtype=torch.float32, device=x8.device)
+        b = (torch.zeros((1, N), dtype=torch.float32, device=x.device)
              if bias is None else bias.reshape(1, N).to(torch.float32).contiguous())
-        fn = int4_matmul_fused_cuda if on_card else int4_matmul_fused_plain
-        return fn(x8, wp, s_a, s_w, b, act, out_dtype=x.dtype)
-    fn = int4_matmul_cuda if on_card else int4_matmul_plain
-    return fn(x8, wp, s_a, s_w, out_dtype=x.dtype)
+    if x.is_cuda:
+        xk = x if x.shape[1] == Kw else F.pad(x, (0, Kw - x.shape[1]))  # packing padded K
+        xk = gemm_activations(xk.contiguous(), N, Kw, 4, s_a, a_bits)
+        if act is not None:
+            return int4_matmul_fused_cuda(xk, wp, s_a, s_w, b, act, out_dtype=x.dtype,
+                                          a_bits=a_bits)
+        return int4_matmul_cuda(xk, wp, s_a, s_w, out_dtype=x.dtype, a_bits=a_bits)
+    x8 = act_quant(x, s_a, bits=a_bits)
+    if x8.shape[1] != Kw:  # packing padded K to even; pad the codes to match
+        x8 = F.pad(x8, (0, Kw - x8.shape[1]))
+    if act is not None:
+        return int4_matmul_fused_plain(x8, wp, s_a, s_w, b, act, out_dtype=x.dtype)
+    return int4_matmul_plain(x8, wp, s_a, s_w, out_dtype=x.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,

@@ -9,8 +9,11 @@ with PyTorch alone:
 
 Codes and unfused outputs must be bit-equal to the plain versions (f32
 and bf16 activations), on each of the integer GEMMs' paths (split-K,
-wgmma, tiles) and over two calls and a CUDA-graph replay; the fused tanh-GELU epilogue within rtol = atol =
-1e-6. Decode attention within atol 1e-5 (rtol 0) for f32 and one bf16 ulp
+wgmma, tiles) and over two calls and a CUDA-graph replay, also where
+split-K quantizes f32 or bf16 activations itself and where wgmma reads
+codes at a padded row pitch; the fused epilogue on every path bit-equal to
+the plain version (the first tests hold tanh-GELU within rtol = atol =
+1e-6 of it; the path tests, bit-equal). Decode attention within atol 1e-5 (rtol 0) for f32 and one bf16 ulp
 plus 1e-5 for bf16 (the online and the one-pass softmax sum in different
 orders, and that f32 difference survives the rounding of outputs near
 zero), and
@@ -34,7 +37,8 @@ from repro_torch.kernels.decode_attention import (SPLIT_ROWS,
                                                   decode_attention_plain,
                                                   gather_kv_blocks)
 from repro_torch.kernels.act_quant import act_quant_cuda, act_quant_plain
-from repro_torch.kernels.gemm_plan import PATH_SPLITK, PATH_WGMMA, gemm_plan
+from repro_torch.kernels.gemm_plan import (PATH_SPLITK, PATH_TILED, PATH_WGMMA,
+                                           code_pitch, gemm_plan, quantizes_in_gemm)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.int4_matmul import (int4_matmul_cuda,
@@ -115,6 +119,8 @@ def test_odd_k_through_ops_matches_the_cpu(dev):
 
 
 def test_ops_launch_kernels_and_count_them(dev):
+    """One launch of each GEMM, and act_quant only for the GEMMs whose plan
+    does not quantize inside (M = 64 at (312, 1200) is split-K: none)."""
     _, s, _, wp, w8, s_w, bias = _operands(dev, 64, 312, 1200)
     x = torch.randn((64, 312), device=dev)
     build.reset_counts()
@@ -122,7 +128,8 @@ def test_ops_launch_kernels_and_count_them(dev):
     ops.int4_matmul(x, wp, s, s_w, a_bits=4)
     ops.int4_matmul(x, wp, s, s_w, a_bits=4, bias=bias, act="gelu")
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"act_quant": 3, "int8_matmul": 1,
+    quant = sum(not quantizes_in_gemm(64, 1200, 312, bits) for bits in (8, 4, 4))
+    assert build.LAUNCHES == {"act_quant": quant, "int8_matmul": 1,
                               "int4_matmul": 1, "int4_matmul_fused": 1,
                               "decode_attention": 0,
                               "decode_attention_paged": 0,
@@ -206,6 +213,137 @@ def test_gemm_replays_from_a_graph(dev, M, K, N):
         torch.cuda.synchronize()
         for o, e in zip(outs, eager):
             assert torch.equal(o, e)
+
+
+def _grid_inputs(dev, M, K, a_bits, dtype, seed):
+    """Activations on the grid of s = 1/16 (x / s exact): random values, a
+    quarter at half-way points x / s = k + 0.5 (rint takes the even k), one
+    in twenty past +-qmax."""
+    from repro_torch.core.quantizer import qrange
+    qmin, qmax = qrange(a_bits)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev) * (0.6 * qmax / 16)
+    k = torch.randint(qmin - 4, qmax + 4, (M, K), generator=g, device=dev)
+    pick = torch.rand((M, K), generator=g, device=dev)
+    x = torch.where(pick < 0.25, (k.float() + 0.5) / 16, x)
+    x = torch.where(pick > 0.95, torch.sign(x) * (qmax + 30) / 16, x)
+    return x.to(dtype), torch.tensor(1 / 16, device=dev)
+
+
+@pytest.mark.parametrize("a_bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(1, 256, 128), (8, 2560, 2560), (9, 316, 144),
+                                   (64, 188, 272), (8, 6912, 2560), (33, 132, 48)])
+def test_split_k_quantizes_float_activations(dev, M, K, N, dtype, a_bits):
+    """f32 / bf16 activations handed to the split-K GEMMs: bit-equal to
+    act_quant's plain version followed by the plain GEMM, two calls equal,
+    one GEMM launch and no act_quant launch each."""
+    x, s_a = _grid_inputs(dev, M, K, a_bits, dtype, seed=M + K + a_bits)
+    _, w8, wp, _, s_w = _gemm_operands(dev, M, K, N, seed=K)
+    x8 = act_quant_plain(x, s_a, a_bits)
+    for bits, kernel, plain, w in ((8, int8_matmul_cuda, int8_matmul_plain, w8),
+                                   (4, int4_matmul_cuda, int4_matmul_plain, wp)):
+        assert quantizes_in_gemm(M, N, K, bits)
+        build.reset_counts()
+        got = kernel(x, w, s_a, s_w, out_dtype=dtype, a_bits=a_bits)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[f"int{bits}_matmul"] == 1 and not build.LAUNCHES["act_quant"]
+        assert torch.equal(got, plain(x8, w, s_a, s_w, out_dtype=dtype)), (bits, M, K, N)
+        assert torch.equal(kernel(x, w, s_a, s_w, out_dtype=dtype, a_bits=a_bits), got)
+
+
+def test_quantizing_split_k_replays_from_a_graph(dev):
+    """A captured call on bf16 activations gives the eager call's bits."""
+    x, s_a = _grid_inputs(dev, 8, 2560, 8, torch.bfloat16, seed=11)
+    _, w8, wp, _, s_w = _gemm_operands(dev, 8, 2560, 2560, seed=12)
+    calls = (lambda: int8_matmul_cuda(x, w8, s_a, s_w, out_dtype=torch.bfloat16),
+             lambda: int4_matmul_cuda(x, wp, s_a, s_w, out_dtype=torch.bfloat16))
+    eager = [fn() for fn in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn() for fn in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+
+
+def test_float_activations_off_split_k_are_refused(dev):
+    x = torch.randn((128, 256), device=dev)
+    _, w8, _, s_a, s_w = _gemm_operands(dev, 128, 256, 256, seed=1)
+    with pytest.raises(ValueError, match="split-K"):
+        int8_matmul_cuda(x, w8, s_a, s_w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "gelu", "relu"])
+@pytest.mark.parametrize("M,K,N,path", [
+    (37, 312, 312, PATH_TILED), (100, 312, 1200, PATH_TILED),
+    (8, 312, 1200, PATH_SPLITK), (64, 768, 3072, PATH_SPLITK),
+    (128, 312, 1200, PATH_WGMMA), (300, 312, 1200, PATH_WGMMA),
+    (1000, 768, 3072, PATH_WGMMA)])
+def test_fused_paths_match_plain(dev, M, K, N, path, act, dtype):
+    """int4_matmul_fused on each path (K = 312: wgmma's codes at a pitch of
+    320), on codes and, on split-K, on f32 activations it quantizes:
+    bit-equal to the plain version, GELU too; two calls equal; for M > 64 the first 100 rows bit-equal to
+    the tiled kernel's (100 rows take the tiles), GELU included."""
+    assert gemm_plan(M, N, K, 4).path == path
+    x, s_a = _grid_inputs(dev, M, K, 4, torch.float32, seed=M + K + N)
+    x4 = act_quant_plain(x, s_a, 4)
+    g = torch.Generator(device=dev).manual_seed(K)
+    wp = pack_int4(torch.randint(-7, 9, (K, N), generator=g, device=dev, dtype=torch.int8))
+    s_w = torch.rand((1, N), generator=g, device=dev) * 0.01 + 1e-3
+    bias = torch.randn((1, N), generator=g, device=dev)
+    want = int4_matmul_fused_plain(x4, wp, s_a, s_w, bias, act, out_dtype=dtype)
+    inputs = [x4] + ([x] if path == PATH_SPLITK else [])
+    for xin in inputs:
+        got = int4_matmul_fused_cuda(xin, wp, s_a, s_w, bias, act, out_dtype=dtype,
+                                     a_bits=4)
+        assert torch.equal(int4_matmul_fused_cuda(xin, wp, s_a, s_w, bias, act,
+                                                  out_dtype=dtype, a_bits=4), got)
+        assert torch.equal(got, want)
+        if M > 64:
+            assert gemm_plan(100, N, K, 4).path == PATH_TILED
+            tiled = int4_matmul_fused_cuda(x4[:100], wp, s_a, s_w, bias, act,
+                                           out_dtype=dtype)
+            assert torch.equal(got[:100], tiled)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quant_padded_pitch(dev, dtype):
+    """act_quant at wgmma's pitch for K = 312 (320): the real columns
+    bit-equal to the plain version; the wgmma GEMMs take that buffer as it
+    is, and poisoning its pad bytes leaves their outputs bit-unchanged."""
+    M, K, N = 300, 312, 1200
+    plan = gemm_plan(M, N, K, 8)
+    pitch = code_pitch(plan, K)
+    assert plan.path == PATH_WGMMA and pitch == 320
+    x, s_a = _grid_inputs(dev, M, K, 8, dtype, seed=4)
+    codes = act_quant_cuda(x, s_a, 8, pitch=pitch)
+    assert codes.shape == (M, K) and codes.stride() == (pitch, 1)
+    assert torch.equal(codes, act_quant_plain(x, s_a, 8))
+    _, w8, wp, _, s_w = _gemm_operands(dev, M, K, N, seed=6)
+    bias = torch.randn((1, N), device=dev)
+    calls = (lambda: int8_matmul_cuda(codes, w8, s_a, s_w, out_dtype=dtype),
+             lambda: int4_matmul_cuda(codes, wp, s_a, s_w, out_dtype=dtype),
+             lambda: int4_matmul_fused_cuda(codes, wp, s_a, s_w, bias, "relu",
+                                            out_dtype=dtype))
+    before = [fn() for fn in calls]
+    plain = act_quant_plain(x, s_a, 8)
+    assert torch.equal(before[0], int8_matmul_plain(plain, w8, s_a, s_w, out_dtype=dtype))
+    assert torch.equal(before[1], int4_matmul_plain(plain, wp, s_a, s_w, out_dtype=dtype))
+    codes.as_strided((M, pitch), (pitch, 1))[:, K:] = 0x5A
+    for fn, b in zip(calls, before):
+        assert torch.equal(fn(), b)
 
 
 # ------------------------------------------------------ decode attention
@@ -339,8 +477,10 @@ def test_decode_attention_paged_wider_tables_equal_dense(dev, H, Hkv, dh, bits, 
 
 def test_decode_step_launches_through_ops(dev):
     """One decode step of a small deployed decoder on the card: every
-    linear through act_quant + an integer GEMM, one decode_attention per
-    layer, no plain version on a CUDA tensor."""
+    linear through an integer GEMM, behind an act_quant launch only where
+    its plan at the step's 4 rows does not quantize inside the GEMM (none:
+    every linear is split-K), one decode_attention per layer, no plain
+    version on a CUDA tensor."""
     import numpy as np
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.policy import QuantPolicy
@@ -362,7 +502,12 @@ def test_decode_step_launches_through_ops(dev):
         build.reset_counts()
         eng.engine_step()            # one decode step
         torch.cuda.synchronize()
-        assert build.LAUNCHES["act_quant"] == 4 * 7
+        d, q, kv = cfg.d_model, cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+        shapes = [(d, q), (d, kv), (d, kv), (q, d), (d, cfg.d_ff), (d, cfg.d_ff),
+                  (cfg.d_ff, d)]
+        quant = sum(2 * (not quantizes_in_gemm(4, N, K, bits))
+                    for bits in (8, 4) for K, N in shapes)
+        assert build.LAUNCHES["act_quant"] == quant
         assert build.LAUNCHES["int8_matmul"] == 2 * 7
         assert build.LAUNCHES["int4_matmul"] == 2 * 7
         assert build.LAUNCHES["decode_attention"] == 4

@@ -87,11 +87,17 @@ def test_long_forward_and_prefill_shapes_take_wgmma(M, K, N, bits):
 @pytest.mark.parametrize("M", [37, 100, 512, 4096])
 @pytest.mark.parametrize("K,N", ENCODER)
 def test_encoder_shapes(M, K, N, bits):
-    """tinybert4: K = 312 or N = 312 is no multiple of 16, so no TMA row
-    and the tiles; (312, 1200) at M <= 64 streams its weight split over K."""
+    """tinybert4: N = 312 is no multiple of 16, so no TMA row and the
+    tiles; (312, 1200) at M <= 64 streams its weight split over K, and at M
+    >= 128 takes wgmma with its codes at a pitch of 320 (K = 312 is no
+    multiple of 16)."""
     plan = gp.gemm_plan(M, N, K, bits)
     if M <= gp.SPLITK_MAX_M and N % 16 == 0:
         assert plan.path == gp.PATH_SPLITK and (plan.splits, plan.kc) == (5, 64)
+        assert gp.code_pitch(plan, K) == K
+    elif M >= gp.WGMMA_MIN_M and N % 16 == 0:
+        assert plan == (gp.PATH_WGMMA, 1, K, 0)
+        assert gp.code_pitch(plan, K) == 320
     else:
         assert plan == (gp.PATH_TILED, 1, K, 0)
 
@@ -101,7 +107,8 @@ def test_encoder_shapes(M, K, N, bits):
     (127, 2560, 2560, gp.PATH_TILED),
     (8, 2568, 2560, gp.PATH_TILED),      # N % 16 != 0: no TMA row
     (8, 2560, 2562, gp.PATH_TILED),      # K % 4 != 0: no word loads
-    (1024, 2560, 2592, gp.PATH_TILED),   # K % 64 != 0
+    (1024, 2560, 2592, gp.PATH_WGMMA),   # K % 64 != 0: a zero-filled last k tile
+    (1024, 2560, 2562, gp.PATH_WGMMA),   # K % 16 != 0: codes at a padded pitch
     (1024, 2568, 2560, gp.PATH_TILED),
     (0, 2560, 2560, gp.PATH_TILED),
     (8, 16, 4, gp.PATH_SPLITK),
@@ -178,7 +185,9 @@ def test_wrappers_hand_the_plan_to_the_c_entry(monkeypatch, M, K, N, bits, out_d
     assert got_name == name
     assert len(args) + 1 == len(build.SIGNATURES[name])
     flag = i8.OUT_DTYPES[out_dtype]
-    assert args[6:] == (M, N, K, flag, plan.path, plan.splits, plan.kc)
+    assert args[6:13] == (M, N, K, flag, plan.path, plan.splits, plan.kc)
+    # the codes' row pitch, their kind (int8 codes) and the 8-bit grid
+    assert args[13:] == (gp.code_pitch(plan, K), 0, -127, 127)
     assert args[4] == out.data_ptr() and args[5] == made[0].data_ptr()
     assert ws_sizes == [max(plan.ws_bytes // 4, 4)]
 
