@@ -190,7 +190,41 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    eager ms, the flash kernels' device ms, tokens/s, peak memory; and a
    second such forward that records the first layer's flash attention and
    the first int-kernel call of each shape, each held against its plain
-   version as in phase 13.
+   version as in phase 13;
+15. the paper's Table 2 on the card (``repro_torch/benchmarks/
+   table2_speedup.py``): one bert-base layer through ``block_apply`` on the
+   grid (batch, tokens) in (16, 110), (16, 168), (64, 26), (64, 36), (16,
+   1), (64, 1) at float32 (TF32 off), float32 with TF32, int8, int4 (JAX's
+   spec: separate GELU) and int4 with the fused epilogue. Each grid point x
+   row is first called once eagerly: the integer kernels' launches as the
+   shape plan names them and no plain version on a CUDA tensor; the first
+   call of each integer kernel at each (M, K, N, path) bit-equal to its
+   plain version (a GEMM that quantized its own float activations against
+   act_quant's plain version followed by the plain GEMM); the integer rows
+   within 1e-5 of the same layer on the plain integer path on the card,
+   the float32 row within 1e-4 of the same layer on the CPU (the TF32 row
+   within 2e-2). Then the runner's rows: device ms (one call in a CUDA
+   graph), eager ms and the bound, fp32 / int4 and int8 / int4 on both;
+   and each integer kernel alone at each bert-base shape beside
+   ``torch._int_mm`` on the same codes, with its path and bound;
+16. the serve CLI in-process (``repro_torch.launch.serve.main``) on its
+   default stablelm-3b and policy: kv8 dense deployed and exported, the
+   artifact served (streams byte-equal), kv8 paged (byte-equal to dense),
+   ``--mode encoder`` on tinybert4 exported and served back (results
+   equal). Then decoder ``score`` requests interleaved with phase 6's
+   traffic, dense and paged: four of bucket 128 in one batched forward and
+   four more one at a time between decode steps; the decode streams
+   byte-identical to phase 6's, every step and forward launching what the
+   plan names, each score bit-equal to the prompt scored alone and within
+   1e-4 (relative) of the reference backend on the card;
+17. load: a short Poisson workload through ``serving.run_load`` on the
+   system clock for the decoder (phase 6's kv8 model, a quarter of the
+   requests scores) and the encoder (phase 3's artifact): tokens/s, TTFT
+   and inter-token p50/p99, SLO goodput, launches per engine step (smoke
+   readings at fixed rates, not end-to-end metrics); then
+   ``benchmarks/serve_latency`` and ``serve_load`` (``--quick``, their
+   reduced configuration) on the card, their JSON printed and written to
+   ``chiprun_out/``.
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -198,6 +232,7 @@ script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import statistics
@@ -212,10 +247,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
-INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
-FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# the card's rates, CUDA-event timing and the least-time bound live in the
+# port (a checkout without it fails here, before anything runs)
+from repro_torch.benchmarks.timing import (  # noqa: E402
+    BF16_OPS_PER_S, FP32_OPS_PER_S, INT8_OPS_PER_S, bound, cuda_ms)
+
 MATMUL_SHAPES = ((312, 312), (312, 1200), (1200, 312))
 M_TIMED = 4096                 # 32 requests x 128 tokens
 #: the quantized linears of one forward of the mixed tinybert4 plan (W8A8
@@ -894,50 +930,6 @@ def compare_codes(batches, codes_a, codes_b, prompts):
 
 
 # ------------------------------------------------------------------ phase 4
-def cuda_ms(fn, samples: int = 20, reps: int = 10, warmup: int = 3,
-            graph: bool = True) -> float:
-    """Median over ``samples`` of the mean time of ``reps`` back-to-back
-    calls, between CUDA events. ``graph=True`` captures the ``reps`` calls
-    in a CUDA graph and times its replay: the device time, without the
-    host's launch overhead between calls; ``graph=False`` times the calls
-    as the eager path issues them."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    if graph:
-        # warm up on the capture stream too (library handles and workspaces
-        # are per stream), then capture there
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, stream=side):
-            for _ in range(reps):
-                fn()
-        run = g.replay
-    else:
-        def run():
-            for _ in range(reps):
-                fn()
-    times = []
-    for _ in range(samples):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        run()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
-    return statistics.median(times)
-
-
-def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
 def time_kernels(dev) -> list[dict]:
     """The encoder's kernels at M = 4096 (32 requests x 128 tokens), each
     (K, N) with its calls per forward from ``gemm_launches``, on the path
@@ -1228,6 +1220,26 @@ def decode_traffic(vocab: int):
     return reqs
 
 
+def record_forwards(eng, record: dict) -> None:
+    """Wrap ``eng``'s prefill and decode forwards: each call appends its
+    kernel launches, with its token rows under "rows", to
+    ``record["prefill"]`` or ``record["decode"]`` (a decoder score runs the
+    prefill forward)."""
+    from repro_torch.kernels import build
+    record.update(prefill=[], decode=[])
+
+    def delta(fn, kind):
+        def wrapped(tokens, *a, **k):
+            before = dict(build.LAUNCHES)
+            out = fn(tokens, *a, **k)
+            record[kind].append({**{n: build.LAUNCHES[n] - before[n] for n in before},
+                                 "rows": int(tokens.numel())})
+            return out
+        return wrapped
+    eng.prefill_forward = delta(eng.prefill_forward, "prefill")
+    eng.decode_forward = delta(eng.decode_forward, "decode")
+
+
 def serve_decode(model, *, launches=None, tops=None, other=None):
     """Serve the decode traffic on a fresh engine; returns the results in
     submission order (the sampled request's two samples last).
@@ -1241,23 +1253,11 @@ def serve_decode(model, *, launches=None, tops=None, other=None):
     import copy
 
     import repro_torch.serving.engine as engine_mod
-    from repro_torch.kernels import build
     from repro_torch.serving import ServingEngine
 
     eng = ServingEngine(model, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
     if launches is not None:
-        launches.update(prefill=[], decode=[])
-
-        def delta(fn, kind):
-            def wrapped(tokens, *a, **k):
-                before = dict(build.LAUNCHES)
-                out = fn(tokens, *a, **k)
-                launches[kind].append({**{n: build.LAUNCHES[n] - before[n] for n in before},
-                                       "rows": int(tokens.numel())})
-                return out
-            return wrapped
-        eng.prefill_forward = delta(eng.prefill_forward, "prefill")
-        eng.decode_forward = delta(eng.decode_forward, "decode")
+        record_forwards(eng, launches)
     streams = []
     for req in decode_traffic(model.plan.cfg.vocab_size):
         out = eng.submit(copy.deepcopy(req))
@@ -2381,6 +2381,74 @@ def prefill_inputs(cfg, S: int, dev) -> dict:
     return {"tokens": toks, "patch_embeds": pe, "patch_mask": mask}
 
 
+class GemmSpies:
+    """Patch ``ops.<kernel>_cuda`` for the integer kernels (``GEMM_NAMES``):
+    the first call
+    of each (kernel, operand shapes and dtypes, keyword arguments) keeps
+    clones of its inputs and output, to be held against the plain version
+    (``check_kept_calls``)."""
+
+    def __init__(self):
+        self.kept: dict = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.orig = {name: getattr(ops, f"{name}_cuda") for name in GEMM_NAMES}
+        for name, fn in self.orig.items():
+            setattr(ops, f"{name}_cuda", self._spy(name, fn))
+        return self
+
+    def _spy(self, name, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            key = (name, *((tuple(t.shape), t.dtype) if torch.is_tensor(t) else t
+                           for t in a), *sorted(kw.items()))
+            if key not in self.kept:
+                self.kept[key] = (name, [t.clone() if torch.is_tensor(t) else t for t in a],
+                                  dict(kw), out.clone())
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self.orig.items():
+            setattr(ops, f"{name}_cuda", fn)
+
+
+def check_kept_calls(kept: dict, tag: str) -> list:
+    """Each kept call bit-equal to its plain version on the same inputs (a
+    GEMM that quantized its own float activations against act_quant's plain
+    version followed by the plain GEMM); returns [kernel, x shape and dtype,
+    weight shape, path] of each."""
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import int4_matmul as i4
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels.gemm_plan import gemm_plan
+    plain = {"int8_matmul": i8.int8_matmul_plain, "int4_matmul": i4.int4_matmul_plain,
+             "int4_matmul_fused": i4.int4_matmul_fused_plain}
+    checked = []
+    for name, args, kw, out in kept.values():
+        kw = dict(kw)
+        a_bits = kw.pop("a_bits", 8)
+        kw.pop("pitch", None)
+        x = args[0]
+        if name == "act_quant":
+            want = aq.act_quant_plain(*args)
+            shape = [name, list(x.shape), str(x.dtype), args[2]]
+        else:
+            codes = x if x.dtype == torch.int8 else aq.act_quant_plain(x, args[2], a_bits)
+            want = plain[name](codes, *args[1:], **kw)
+            M, K = x.shape
+            N = args[1].shape[1]
+            bits = 8 if name == "int8_matmul" else 4
+            shape = [name, [M, K], str(x.dtype), [K, N], gemm_plan(M, N, K, bits).name]
+        if not torch.equal(out, want):
+            diff = (out.double() - want.double()).abs().max().item()
+            raise AssertionError(f"{tag}: {shape}: kernel != plain (max |diff| {diff})")
+        checked.append(shape)
+    return checked
+
+
 def long_forward(model, inputs: dict, *, flash_layers: int = 0,
                  gemms: bool = False) -> dict:
     """One cacheless forward under the model's kernel plan with every count
@@ -2396,9 +2464,9 @@ def long_forward(model, inputs: dict, *, flash_layers: int = 0,
     from repro_torch.models import api, attention
 
     calls = {"full_attention": 0}
-    events, taken, kept = [], [], {}
+    events, taken = [], []
     orig_full, orig_flash = attention.full_attention, ops.flash_attention
-    orig_gemms = {name: getattr(ops, f"{name}_cuda") for name in GEMM_KERNELS}
+    spies = GemmSpies()
 
     def full(*a, **kw):
         calls["full_attention"] += 1
@@ -2414,21 +2482,9 @@ def long_forward(model, inputs: dict, *, flash_layers: int = 0,
             taken.append((q, k, v, out, causal))
         return out
 
-    def spy(name):
-        def call(*a, **kw):
-            out = orig_gemms[name](*a, **kw)
-            key = (name, *((tuple(t.shape), t.dtype) if torch.is_tensor(t) else t
-                           for t in a), *sorted(kw.items()))
-            if key not in kept:
-                kept[key] = (name, [t.clone() if torch.is_tensor(t) else t for t in a],
-                             kw, out.clone())
-            return out
-        return call
-
     attention.full_attention, ops.flash_attention = full, flash
     if gemms:
-        for name in GEMM_KERNELS:
-            setattr(ops, f"{name}_cuda", spy(name))
+        spies.__enter__()
     try:
         torch.cuda.synchronize()
         gc.collect()
@@ -2444,8 +2500,8 @@ def long_forward(model, inputs: dict, *, flash_layers: int = 0,
         launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
     finally:
         attention.full_attention, ops.flash_attention = orig_full, orig_flash
-        for name, fn in orig_gemms.items():
-            setattr(ops, f"{name}_cuda", fn)
+        if gemms:
+            spies.__exit__(None, None, None)
     S = int(inputs["tokens"].shape[1])
     tag = f"{model.plan.cfg.name} S={S}"
     planned = gemm_launches(decoder_linears(model.plan.cfg), S)
@@ -2464,7 +2520,7 @@ def long_forward(model, inputs: dict, *, flash_layers: int = 0,
         raise AssertionError(f"{tag}: logits {tuple(logits.shape)} not finite "
                              f"(1, {S}, {V})")
     flash_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
-    return {"logits": logits, "taken": taken, "kept": list(kept.values()), "S": S,
+    return {"logits": logits, "taken": taken, "kept": spies.kept, "S": S,
             "launches": launches, "plain_on_cuda": plain,
             "full_attention_calls": calls["full_attention"],
             "eager_ms": eager_ms, "tokens_per_s": S / (eager_ms / 1e3),
@@ -2500,32 +2556,16 @@ def check_layers(taken, tag: str) -> float:
     return err
 
 
-def check_gemms(kept, tag: str) -> dict:
-    """Each kept int-kernel call bit-equal to its plain version on the same
-    inputs; returns the shapes checked per kernel."""
-    from repro_torch.kernels import act_quant as aq
-    from repro_torch.kernels import int4_matmul as i4
-    from repro_torch.kernels import int8_matmul as i8
-    from repro_torch.kernels.gemm_plan import gemm_plan
-    plain = {"act_quant": aq.act_quant_plain, "int8_matmul": i8.int8_matmul_plain,
-             "int4_matmul": i4.int4_matmul_plain}
+def check_gemms(kept: dict, tag: str) -> dict:
+    """Each kept int-kernel call of a long forward bit-equal to its plain
+    version (``check_kept_calls``), every GEMM on act_quant's codes (none of
+    these rows quantizes inside the GEMM); returns the shapes checked per
+    kernel."""
     shapes = {name: [] for name in GEMM_KERNELS}
-    for name, args, kw, out in kept:
-        kw = {k: v for k, v in kw.items() if k not in ("pitch", "a_bits")}
-        if name != "act_quant" and args[0].dtype != torch.int8:
-            raise AssertionError(f"{tag}: {name} quantized inside the GEMM at "
-                                 f"{tuple(args[0].shape)}")
-        want = plain[name](*args, **kw)
-        shape = [list(args[0].shape),                 # x and bits, or x8 and w
-                 args[2] if name == "act_quant" else list(args[1].shape)]
-        if name != "act_quant":                       # the GEMM path that served it
-            (M, K), N = args[0].shape, args[1].shape[1]
-            shape.append(gemm_plan(M, N, K, 8 if name == "int8_matmul" else 4).name)
-        if not torch.equal(out, want):
-            diff = (out.double() - want.double()).abs().max().item()
-            raise AssertionError(f"{tag}: {name} {shape} {kw}: kernel != plain "
-                                 f"(max |diff| {diff})")
-        shapes[name].append(shape)
+    for name, x_shape, x_dtype, *rest in check_kept_calls(kept, tag):
+        if name != "act_quant" and x_dtype != "torch.int8":
+            raise AssertionError(f"{tag}: {name} quantized inside the GEMM at {x_shape}")
+        shapes.setdefault(name, []).append([x_shape, *rest])
     missing = [name for name, s in shapes.items() if not s]
     if missing:
         raise AssertionError(f"{tag}: no call of {missing} was checked")
@@ -2765,6 +2805,353 @@ def time_long_forwards(models: dict, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 15
+#: Table 2's float rows against the same layer on the CPU
+TABLE2_TOL = {"float32": 1e-4, "float32_tf32": 2e-2}
+
+
+def table2_linears(cfg, bits: int, fused: bool) -> dict:
+    """(K, N, bits, fused) -> calls of one Table 2 layer call."""
+    from repro_torch.benchmarks.table2_speedup import linears
+    out: dict = {}
+    for i, (K, N) in enumerate(linears(cfg)):
+        key = (K, N, bits, fused and i == 4)       # FFN-up takes the fused epilogue
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def table2_phase(dev) -> dict:
+    """The paper's Table 2 on the card (``benchmarks/table2_speedup.py``):
+    one eager call of every grid point x row checked first (the launches
+    the shape plan names and no plain version on a CUDA tensor; the first
+    call of each integer kernel at each (M, K, N, path) bit-equal to its
+    plain version; each integer row within 1e-5 of the same layer on the
+    plain integer path on the card (the reference backend); the float32 row
+    within 1e-4 of the same layer on the CPU, the TF32 row within 2e-2),
+    then the runner's timed rows, and each integer kernel alone at each
+    bert-base shape beside ``torch._int_mm`` on the same codes."""
+    from repro_torch.benchmarks import table2_speedup as t2
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import block_apply
+
+    cfg = t2.layer_config()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = {bits: t2.layer_params(cfg, bits, g, dev) for bits in (0, 8, 4)}
+    cpu_fp = tree_map(lambda a: a.cpu(), params[0])
+    layers, launches = [], dict.fromkeys(GEMM_NAMES, 0)
+    spies = GemmSpies()
+    for batch, seq in t2.GRID:
+        M = batch * seq
+        x = torch.randn((batch, seq, cfg.d_model), generator=g, device=dev)
+        with torch.no_grad():
+            ref_cpu = block_apply(x.cpu(), cpu_fp, cfg, t2.layer_spec("none", 0, False))[0]
+        for name, mode, bits, fuse, tf32 in t2.ROWS:
+            spec = t2.layer_spec(mode, bits, fuse)
+            build.reset_counts()
+            with t2.tf32_matmuls(tf32), spies, torch.no_grad():
+                out = block_apply(x, params[bits], cfg, spec)[0]
+            torch.cuda.synchronize()
+            got, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+            want = (gemm_launches(table2_linears(cfg, bits, fuse), M) if bits
+                    else dict.fromkeys(GEMM_NAMES, 0))
+            if {k: got[k] for k in GEMM_NAMES} != want or any(plain.values()):
+                raise AssertionError(f"table2 {batch}x{seq} {name}: launched {got}, "
+                                     f"expected {want}; plain on CUDA {plain}")
+            for k in GEMM_NAMES:
+                launches[k] += got[k]
+            if bits:
+                with torch.no_grad():
+                    ref = block_apply(x, params[bits], cfg,
+                                      dataclasses.replace(spec, use_kernels=False))[0]
+                err, tol, against = (out - ref).abs().max().item(), 1e-5, "reference backend"
+            else:
+                err = (out.cpu() - ref_cpu).abs().max().item()
+                tol, against = TABLE2_TOL[name], "cpu"
+            if not (err <= tol and bool(torch.isfinite(out).all())):
+                raise AssertionError(f"table2 {batch}x{seq} {name}: max |diff| {err} "
+                                     f"against the {against} > {tol}")
+            layers.append({"batch": batch, "tokens": seq, "row": name,
+                           "max_abs_err": err, "against": against, "tol": tol,
+                           "launches": {k: v for k, v in got.items() if v}})
+    calls = check_kept_calls(spies.kept, "table2")
+    timed = t2.run(device=dev)
+    return {"layers_checked": layers, "gemm_calls_bit_equal": calls,
+            "launches": {**dict.fromkeys(build.LAUNCHES, 0), **launches},
+            "rows": timed["rows"], "ratios": timed["ratios"], "paper": timed["paper"],
+            "gemm_times": time_table2_gemms(spies.kept)}
+
+
+def time_table2_gemms(kept: dict) -> list:
+    """Each kept integer-kernel call timed alone (device time of one call
+    in a CUDA graph, and eager), beside ``torch._int_mm`` on the same int8
+    codes (weights unpacked for int4; codes zero-padded to 32 rows where
+    the library refuses fewer) and the call's bound: its operands read and
+    its output written once, 2MKN operations at the int8 peak (act_quant:
+    4 operations an element at the fp32 peak)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm_plan import gemm_plan
+    from repro_torch.kernels.kv_pack import unpack_nibbles_rows
+
+    rows = []
+    for name, args, kw, out in kept.values():
+        fn = getattr(ops, f"{name}_cuda")
+        call = lambda fn=fn, args=args, kw=kw: fn(*args, **kw)
+        x = args[0]
+        M, K = x.shape
+        row = {"kernel": name, "M": M, "K": K, "x_dtype": str(x.dtype),
+               "ms": cuda_ms(call), "eager_ms": cuda_ms(call, graph=False)}
+        if name == "act_quant":
+            row["bound_ms"], row["bound_by"] = bound(M * K * x.element_size() + M * K,
+                                                     4 * M * K, FP32_OPS_PER_S)
+            row["library_ms"] = None
+        else:
+            w = args[1]
+            bits = 8 if name == "int8_matmul" else 4
+            N = w.shape[1]
+            w8 = w if bits == 8 else unpack_nibbles_rows(w)
+            codes = x if x.dtype == torch.int8 else aq.act_quant_plain(
+                x, args[2], kw.get("a_bits", 8))
+            nbytes = (M * K * x.element_size() + w.numel() + 4 + 4 * N
+                      + (4 * N if name == "int4_matmul_fused" else 0)
+                      + M * N * out.element_size())
+            row["N"] = N
+            row["path"] = gemm_plan(M, N, K, bits).name
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+            row.update(int_mm_yardsticks(F.pad(codes, (0, 0, 0, max(0, 32 - M))), w8))
+            row["library_note"] = ("torch._int_mm on the same int8 codes (int32 out, "
+                                   "no epilogue; zero-padded to 32 rows where fewer), "
+                                   "the faster weight layout")
+        rows.append(row)
+    return rows
+
+
+# ----------------------------------------------------------------- phase 16
+CLI_BURST = ["--requests", "16", "--slots", "8", "--max-len", "128"]
+#: decoder score prompts: four of bucket 128 submitted together (one
+#: batched forward), then one alone every few decode steps
+SCORE_BATCHED = (100, 112, 120, 128)
+SCORE_LATER = (8, 33, 300, 512)
+SCORE_TOL = 1e-4       # relative, against the plain integer path on the card
+
+
+def serve_cli(dev) -> dict:
+    """The serve CLI in-process (``repro_torch.launch.serve.main``) on its
+    default arch and policy, stablelm-3b with W8A8 layers 0-15 and W4A4
+    16-31: kv8 dense deployed in-process and exported, the artifact served
+    (streams byte-equal), kv8 paged deployed in-process (streams byte-equal
+    to dense); then ``--mode encoder`` on tinybert4, exported and served
+    back (results equal). Each run's launches are counted from 0."""
+    import shutil
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    art = ROOT / "build" / "chip_smoke_cli_artifact"
+    enc_art = ROOT / "build" / "chip_smoke_cli_encoder"
+    runs = {"decode_kv8": ["--kv-bits", "8", "--export", str(art)],
+            "decode_kv8_artifact": ["--artifact", str(art)],
+            "paged_kv8": ["--kv-bits", "8", "--kv-paging", "paged"],
+            "encoder": ["--mode", "encoder", "--export", str(enc_art)],
+            "encoder_artifact": ["--mode", "encoder", "--artifact", str(enc_art)]}
+    out = {}
+    for name, argv in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        res = serve.main([*argv, *CLI_BURST])
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"], plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+        if any(plain.values()):
+            raise AssertionError(f"serve CLI {name}: plain versions on CUDA {plain}")
+        out[name] = res
+    shutil.rmtree(art, ignore_errors=True)
+    for a, b in (("decode_kv8", "decode_kv8_artifact"), ("decode_kv8", "paged_kv8")):
+        if out[a]["streams"] != out[b]["streams"]:
+            raise AssertionError(f"serve CLI: {b} streams differ from {a}")
+    if out["encoder"]["results"] != out["encoder_artifact"]["results"]:
+        raise AssertionError("serve CLI: encoder artifact results differ")
+    for name, res in out.items():
+        done = set(res["finish_reasons"])
+        if len(res["finish_reasons"]) != 16 or not done <= {"length", "stop", "done"}:
+            raise AssertionError(f"serve CLI {name}: finished {res['finish_reasons']}")
+        res.pop("results", None)
+    return out
+
+
+def score_prompts(vocab: int) -> tuple[list, list]:
+    rng = np.random.default_rng(21)
+    draw = lambda n: rng.integers(1, vocab, n).astype(np.int32)
+    return [draw(n) for n in SCORE_BATCHED], [draw(n) for n in SCORE_LATER]
+
+
+def score_end_to_end(models: dict, dense_streams: dict) -> dict:
+    """Decoder ``score`` requests interleaved with phase 6's decode traffic
+    through one scheduler, dense and paged (kv8): once no generation
+    request waits, four prompts of bucket 128 together (one batched forward
+    of n = 4) and four more one at a time between decode steps. Every decode stream must be
+    byte-identical to phase 6's dense run; every decode step and forward
+    must launch what the plan names; each score bit-equal to the same
+    prompt scored alone, and within ``SCORE_TOL`` (relative) of the plain
+    integer path on the card (the reference backend)."""
+    import copy
+
+    from repro_torch.deploy import DeployedModel, ExecutionPlan
+    from repro_torch.kernels import build
+    from repro_torch.serving import EncodeRequest, ServingEngine
+
+    model = models[8]
+    cfg = model.plan.cfg
+    batched, later = score_prompts(cfg.vocab_size)
+    prompts = batched + later
+    linears = decoder_linears(cfg)
+
+    def alone(m):
+        eng = ServingEngine(m, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
+        vals = []
+        for p in prompts:
+            vals.append(float(eng.submit_encode(EncodeRequest(tokens=p, task="score"))
+                              .result().value))
+        return vals
+
+    p = model.plan
+    ref_plan = ExecutionPlan.build(cfg, p.policy, backend="reference", mode="decode",
+                                   kv_bits=8, prefill_batch=p.prefill_batch)
+    solo = alone(model)
+    ref = alone(DeployedModel(plan=ref_plan, params=model.params))
+    rel = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(solo, ref))
+    if rel > SCORE_TOL:
+        raise AssertionError(f"scores vs the reference backend: relative {rel} > "
+                             f"{SCORE_TOL}")
+    out = {"scores_solo": solo, "scores_reference": ref,
+           "max_rel_err_vs_reference": rel}
+    for paging, per_step in (("dense", PER_DECODE_STEP), ("paged", PAGED_DECODE_STEP)):
+        m = model if paging == "dense" else paged_model(model)
+        eng = ServingEngine(m, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
+        record: dict = {}
+        record_forwards(eng, record)
+        gc.collect()
+        torch.cuda.empty_cache()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        streams = []
+        for req in decode_traffic(cfg.vocab_size):
+            res = eng.submit(copy.deepcopy(req))
+            streams += res if isinstance(res, list) else [res]
+        # scores enter only once no generation request waits, so they never
+        # move one: the batch when four slots are free, the rest one at a
+        # time every 8 steps
+        handles, pending, steps = [], list(later), 0
+        while eng.scheduler.has_work or pending or not handles:
+            if not eng.scheduler.queue_depth:
+                free = DECODE_SLOTS - eng.scheduler.num_active
+                if not handles and free >= len(batched):
+                    handles = [eng.submit_encode(EncodeRequest(tokens=q, task="score"))
+                               for q in batched]
+                elif handles and pending and steps % 8 == 0:
+                    handles.append(eng.submit_encode(EncodeRequest(
+                        tokens=pending.pop(0), task="score")))
+            eng.engine_step()
+            steps += 1
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        planned = check_launches(f"score {paging}", record, per_step, linears)
+        got = [list(map(int, s.result().tokens)) for s in streams]
+        if got != dense_streams[8]:
+            raise AssertionError(f"score {paging}: decode streams changed by the "
+                                 "score traffic")
+        scores = [float(h.result().value) for h in handles]
+        if scores != solo:
+            diff = max(abs(a - b) for a, b in zip(scores, solo))
+            raise AssertionError(f"score {paging}: batched/interleaved scores != solo "
+                                 f"(max |diff| {diff})")
+        s = eng.metrics.summary()
+        if s["encode_steps"] != 1 + len(later):     # the four in ONE forward
+            raise AssertionError(f"score {paging}: {s['encode_steps']} score forwards "
+                                 f"for {len(prompts)} scores, expected {1 + len(later)}")
+        out[paging] = {"streams_equal_to_phase6": len(got), "scores": scores,
+                       "score_forwards": s["encode_steps"],
+                       "launches": launches, "act_quant_planned": planned,
+                       "serve_s": serve_s, "steps": steps,
+                       "encode_p50_ms": s.get("encode_p50_ms"),
+                       "decode_p50_ms": s.get("decode_p50_ms")}
+    return out
+
+
+# ----------------------------------------------------------------- phase 17
+def load_phase(models: dict, dev) -> dict:
+    """Short Poisson workloads through ``serving.run_load`` on the system
+    clock: the decoder (phase 6's kv8 stablelm-3b, 8 slots; a quarter of the
+    requests decoder scores) and the encoder (phase 3's tinybert4 artifact;
+    classify). Tokens/s, TTFT (from when each request was due),
+    inter-token p50/p99, SLO goodput and kernel launches per engine step.
+    The rates, mixes and SLOs are fixed smoke settings that no source or
+    knee sweep backs: these are smoke readings, not the port's end-to-end
+    metrics. Then the serve benchmarks' JSON (``benchmarks/serve_latency.py``,
+    ``serve_load.py``, ``--quick``) into ``chiprun_out/``: their reduced
+    ``bench_config`` checks the schema on the card and seeds no cell."""
+    from repro_torch.benchmarks import serve_latency, serve_load
+    from repro_torch.deploy import DeployedModel
+    from repro_torch.kernels import build
+    from repro_torch.serving import (SLO, GenerationRequest, ServingEngine, Workload,
+                                     make_arrivals, run_load)
+
+    cells = {
+        "decoder": (models[8], DECODE_SLOTS, DECODE_MAX_LEN,
+                    Workload(n_requests=24, rate_rps=4.0,
+                             vocab=models[8].plan.cfg.vocab_size, prompt_len=(16, 128),
+                             new_tokens=(8, 32), encode_frac=0.25, encode_task="score"),
+                    SLO(ttft_s=1.0, itl_s=0.25)),
+        "encoder": (DeployedModel.load(str(ROOT / "build" / "chip_smoke_artifact"),
+                                       device=dev), 8, 128,
+                    Workload(n_requests=64, rate_rps=100.0, vocab=30522,
+                             prompt_len=(4, 128), encode_frac=1.0,
+                             encode_task="classify"),
+                    SLO(ttft_s=0.1, itl_s=0.1)),
+    }
+    out = {}
+    for name, (model, slots, max_len, w, slo) in cells.items():
+        eng = ServingEngine(model, slots=slots, max_len=max_len)
+        if model.plan.mode == "decode":          # first calls allocate
+            eng.submit(GenerationRequest(prompt=np.arange(1, 40, dtype=np.int32),
+                                         max_new_tokens=4))
+            eng.run_until_drained()
+            eng.pop_done()
+        gc.collect()
+        build.reset_counts()
+        res = run_load(eng, make_arrivals(w, seed=0))
+        torch.cuda.synchronize()
+        launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+        if any(plain.values()):
+            raise AssertionError(f"load {name}: plain versions on CUDA {plain}")
+        s = res.summary(slo)
+        if s["n_completed"] != w.n_requests:
+            raise AssertionError(f"load {name}: {s['n_completed']} of {w.n_requests} "
+                                 "requests completed")
+        tokens = sum(len(r.tokens) for r in res.records)
+        prompt_tokens = sum(r.prompt_len for r in res.records)
+        out[name] = {"workload": dataclasses.asdict(w),
+                     "slo": dataclasses.asdict(slo), **s, "tokens": tokens,
+                     "tokens_per_s": tokens / s["duration_s"],
+                     "prompt_tokens_per_s": prompt_tokens / s["duration_s"],
+                     "launches": launches,
+                     "launches_per_step": {k: v / res.steps for k, v in launches.items()
+                                           if v}}
+    bench = ROOT / "chiprun_out"
+    bench.mkdir(exist_ok=True)
+    out["serve_latency"] = serve_latency.main(quick=True, out=str(bench / "BENCH_serve.json"),
+                                              device=dev)
+    out["serve_load"] = serve_load.main(quick=True, out=str(bench / "BENCH_load.json"),
+                                        device=dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2915,6 +3302,39 @@ def main() -> int:
           "per_model": long_times, "seconds": seconds["long_times"]})
     del llava, prefill_models
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    table2 = table2_phase(dev)
+    seconds["table2"] = time.perf_counter() - t0
+    for r in table2["rows"]:
+        emit({"phase": "table2", **r})
+    for r in table2["ratios"]:
+        emit({"phase": "table2_ratio", **r})
+    for r in table2["gemm_times"]:
+        emit({"phase": "table2_gemm_time", **r})
+    emit({"phase": "table2_checks", "layers_checked": table2["layers_checked"],
+          "gemm_calls_bit_equal": table2["gemm_calls_bit_equal"],
+          "seconds": seconds["table2"]})
+
+    t0 = time.perf_counter()
+    cli = serve_cli(dev)
+    seconds["serve_cli"] = time.perf_counter() - t0
+    emit({"phase": "serve_cli", "runs": {name: {k: v for k, v in res.items()
+                                                if k != "streams"}
+                                         for name, res in cli.items()},
+          "seconds": seconds["serve_cli"]})
+    t0 = time.perf_counter()
+    score = score_end_to_end(models, dense_streams)
+    seconds["score_end_to_end"] = time.perf_counter() - t0
+    emit({"phase": "score_end_to_end", **score, "seconds": seconds["score_end_to_end"]})
+
+    t0 = time.perf_counter()
+    load = load_phase(models, dev)
+    seconds["load"] = time.perf_counter() - t0
+    for name in ("decoder", "encoder"):
+        emit({"phase": "load", "cell": name, **load[name]})
+    emit({"phase": "serve_latency_json", **load["serve_latency"]})
+    emit({"phase": "serve_load_json", **load["serve_load"]})
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
         *(run["layers_max_abs_err_vs_plain"] for run in prefill.values()),
@@ -2930,7 +3350,13 @@ def main() -> int:
                         **{f"prefill_{name}_{PREFILL_LENGTHS[0]}": run["launches"]
                            for name, run in prefill.items()},
                         **{f"prefill_{name}_{PREFILL_LENGTHS[-1]}": run["launches"]
-                           for name, run in long_times.items()}}
+                           for name, run in long_times.items()},
+                        "table2": table2["launches"],
+                        **{f"serve_cli_{name}": res["launches"] for name, res in cli.items()},
+                        "score_dense_kv8": score["dense"]["launches"],
+                        "score_paged_kv8": score["paged"]["launches"],
+                        "load_decoder": load["decoder"]["launches"],
+                        "load_encoder": load["encoder"]["launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
     planned = {"encoder": e2e["expected_launches"]["act_quant"],
@@ -2938,14 +3364,30 @@ def main() -> int:
                **{f"paged_kv{kv}": v["act_quant_planned"] for kv, v in paged.items()},
                "prefix_dense_kv8": prefix["dense_prefix"]["act_quant_planned"],
                "prefix_paged_kv8": prefix["paged_prefix"]["act_quant_planned"],
-               "prefix_paged_60pct_kv8": prefix["paged_prefix_60pct"]["act_quant_planned"]}
+               "prefix_paged_60pct_kv8": prefix["paged_prefix_60pct"]["act_quant_planned"],
+               "score_dense_kv8": score["dense"]["act_quant_planned"],
+               "score_paged_kv8": score["paged"]["act_quant_planned"]}
+    # the serve CLI's and the load generator's short prompts take split-K
+    # (no act_quant) or not by their draw; the CLI's encoder policy is W4A4
+    cli_decode = ("int8_matmul", "int4_matmul", "decode_attention")
     for path, need in (("encoder", ENCODER_KERNELS), ("decode_kv8", DECODER_KERNELS),
                        ("decode_kv4", DECODER_KERNELS), ("paged_kv8", PAGED_KERNELS),
                        ("paged_kv4", PAGED_KERNELS), ("prefix_dense_kv8", DECODER_KERNELS),
                        ("prefix_paged_kv8", PAGED_KERNELS),
                        ("prefix_paged_60pct_kv8", PAGED_KERNELS),
                        *((path, PREFILL_KERNELS) for path in launches_by_path
-                         if path.startswith("prefill_"))):
+                         if path.startswith("prefill_")),
+                       ("table2", GEMM_NAMES), ("serve_cli_decode_kv8", cli_decode),
+                       ("serve_cli_decode_kv8_artifact", cli_decode),
+                       ("serve_cli_paged_kv8", ("int8_matmul", "int4_matmul",
+                                                "decode_attention_paged")),
+                       ("serve_cli_encoder", ("int4_matmul", "int4_matmul_fused")),
+                       ("serve_cli_encoder_artifact", ("int4_matmul", "int4_matmul_fused")),
+                       ("score_dense_kv8", DECODER_KERNELS),
+                       ("score_paged_kv8", PAGED_KERNELS),
+                       ("load_decoder", cli_decode),
+                       ("load_encoder", ("int8_matmul", "int4_matmul",
+                                         "int4_matmul_fused"))):
         idle = [k for k in need if not launches_by_path[path][k]
                 and (k != "act_quant" or planned.get(path, 1))]
         if idle:
@@ -2958,6 +3400,9 @@ def main() -> int:
             entry["long_forward_gemms"] = long_rows
         if entry["name"] == "int4_matmul_fused":
             entry["other_shapes"] = fused_rows
+        t2_rows = [r for r in table2["gemm_times"] if r["kernel"] == entry["name"]]
+        if t2_rows:
+            entry["table2_gemms"] = t2_rows
     emit({"phase": "seconds", **seconds})
     report = ROOT / "chiprun_out" / "chip_smoke_report.json"
     report.parent.mkdir(exist_ok=True)
@@ -2974,6 +3419,8 @@ def main() -> int:
                                   "long_gemm_times": gemm_rows,
                                   "long_act_quant_times": quant_rows,
                                   "fused_times": fused_rows,
+                                  "table2": table2, "serve_cli": cli,
+                                  "score_end_to_end": score, "load": load,
                                   "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})

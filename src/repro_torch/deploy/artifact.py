@@ -26,7 +26,7 @@ from ..core.tree import tree_map
 from ..device import resolve_device
 from .plan import ExecutionPlan, plan_from_meta, plan_to_meta, resolve_segments
 
-__all__ = ["DeployedModel", "deploy", "params_from_numpy",
+__all__ = ["DeployedModel", "deploy", "params_from_numpy", "retarget_act_bits",
            "ARTIFACT_FORMAT", "ARTIFACT_VERSION"]
 
 ARTIFACT_FORMAT = "mkq-deployed-model"
@@ -140,6 +140,29 @@ def _rescale_act_scales(params_int, factors: list[float]):
     out["layers"] = [scale_tree(t, f)
                      for t, f in zip(params_int["layers"], factors)]
     return out
+
+
+def retarget_act_bits(model: "DeployedModel", act_bits) -> "DeployedModel":
+    """A new DeployedModel serving the same packed weights at another
+    activation precision (DESIGN.md §13), as the JAX package's: ``act_bits``
+    4/8 pick that grid for every quantized segment, 0 runs fp activations
+    (on the reference backend), None returns to the policy's per-layer
+    grid. Stored ``s_a`` scales are rescaled by the qmax ratio; codes and
+    every other plan knob stay."""
+    plan = model.plan
+    if not plan.deployed:
+        raise ValueError("retarget_act_bits needs a deployed (mode='int') "
+                         "artifact")
+    kw = plan.build_kwargs()
+    kw["act_bits"] = act_bits
+    if act_bits == 0:
+        kw["backend"] = "reference"   # fp activations: the parity path
+    if kw["backend"] == "reference":
+        kw["fuse_epilogue"] = False   # fusing is a kernel-backend notion
+    new_plan = ExecutionPlan.build(plan.cfg, plan.policy, **kw)
+    params = _rescale_act_scales(
+        model.params, _act_scale_factors(plan, plan.act_bits, act_bits))
+    return DeployedModel(plan=new_plan, params=params)
 
 
 @dataclasses.dataclass

@@ -106,13 +106,16 @@ def _normal(g: torch.Generator, shape, device) -> torch.Tensor:
                        dtype=torch.float32) * 0.02
 
 
-def init_linear(g, k: int, n: int, bias: bool, stacked: int, device) -> dict:
-    """fp linear params (+ unit quant scales, calibrated later)."""
-    p = {"w": _normal(g, (stacked, k, n), device),
-         "s_w": torch.ones((stacked, 1, n), device=device),
-         "s_a": torch.ones((stacked,), device=device)}
+def init_linear(g, k: int, n: int, bias: bool, stacked: Optional[int],
+                device) -> dict:
+    """fp linear params (+ unit quant scales, calibrated later); a leading
+    layer dim of ``stacked`` unless it is None."""
+    lead = () if stacked is None else (stacked,)
+    p = {"w": _normal(g, lead + (k, n), device),
+         "s_w": torch.ones(lead + (1, n), device=device),
+         "s_a": torch.ones(lead, device=device)}
     if bias:
-        p["b"] = torch.zeros((stacked, n), device=device)
+        p["b"] = torch.zeros(lead + (n,), device=device)
     return p
 
 
@@ -124,6 +127,33 @@ def init_norm(d: int, stacked: Optional[int], device, kind: str = "ln") -> dict:
     return p
 
 
+def init_block(g: torch.Generator, cfg: ModelConfig, stacked: Optional[int],
+               device) -> dict:
+    """One transformer block's fp params (``stacked`` of them along a
+    leading layer dim, or one unstacked block when None): the JAX
+    ``init_block`` tree, same keys, shapes and init scales (weights
+    N(0, 0.02), biases 0, norms 1 / 0, quant scales 1). Values come from
+    ``g``; ``jax.random``'s cannot be reproduced, so parity tests carry
+    JAX's arrays across instead."""
+    if cfg.family not in ("bert", "dense", "vlm") or cfg.fused_proj:
+        raise ValueError(f"init_block: family {cfg.family!r} (fused_proj="
+                         f"{cfg.fused_proj}) arrives with a later slice of "
+                         "the port")
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hkv = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    lin = lambda k, n, bias: init_linear(g, k, n, bias, stacked, device)
+    p = {"ln1": init_norm(d, stacked, device, cfg.norm),
+         "attn": {"wq": lin(d, hq, cfg.qkv_bias), "wk": lin(d, hkv, cfg.qkv_bias),
+                  "wv": lin(d, hkv, cfg.qkv_bias), "wo": lin(hq, d, cfg.out_bias)},
+         "ln2": init_norm(d, stacked, device, cfg.norm)}
+    if cfg.act == "swiglu":
+        p["ffn"] = {"w1": lin(d, f, False), "w3": lin(d, f, False),
+                    "w2": lin(f, d, False)}
+    else:
+        p["ffn"] = {"w1": lin(d, f, True), "w2": lin(f, d, True)}
+    return p
+
+
 def init_lm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
     """The JAX ``init_lm`` tree (same keys and shapes) for the bert, dense
     and vlm families. Values come from ``g``, so they differ from
@@ -132,31 +162,10 @@ def init_lm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
     if cfg.family not in ("bert", "dense", "vlm"):
         raise ValueError(f"init_lm: family {cfg.family!r} arrives with a "
                          "later slice of the port")
-    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    hq, hkv = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
-    V = cfg.padded_vocab
-
-    def ffn():   # drawn after the attention weights, as before
-        if cfg.act == "swiglu":
-            return {"w1": init_linear(g, d, f, False, L, device),
-                    "w3": init_linear(g, d, f, False, L, device),
-                    "w2": init_linear(g, f, d, False, L, device)}
-        return {"w1": init_linear(g, d, f, True, L, device),
-                "w2": init_linear(g, f, d, True, L, device)}
-
-    params = {
-        "embed": _normal(g, (V, d), device),
-        "layers": {
-            "ln1": init_norm(d, L, device, cfg.norm),
-            "attn": {"wq": init_linear(g, d, hq, cfg.qkv_bias, L, device),
-                     "wk": init_linear(g, d, hkv, cfg.qkv_bias, L, device),
-                     "wv": init_linear(g, d, hkv, cfg.qkv_bias, L, device),
-                     "wo": init_linear(g, hq, d, cfg.out_bias, L, device)},
-            "ln2": init_norm(d, L, device, cfg.norm),
-            "ffn": ffn(),
-        },
-        "final_norm": init_norm(d, None, device, cfg.norm),
-    }
+    d, V = cfg.d_model, cfg.padded_vocab
+    params = {"embed": _normal(g, (V, d), device)}
+    params["layers"] = init_block(g, cfg, cfg.num_layers, device)
+    params["final_norm"] = init_norm(d, None, device, cfg.norm)
     if cfg.learned_pos:
         params["pos_embed"] = _normal(g, (8192, d), device)
     if not cfg.tie_embeddings:

@@ -38,11 +38,16 @@ pump; it returns the ``(rid, token)`` pairs it emitted.
   grouped the same way and resolved by ONE bidirectional forward with
   per-row length masking; every request frees its slot inside the step
   that admits it.
+* **decoder score** (``submit_encode(task='score')`` on a decode engine,
+  DESIGN.md §14): the prompt's log-likelihood ``sum_i log p(t_i | t_<i)``
+  from ONE batched, bucketed causal forward per (bucket, n) over a kv-16
+  scratch state (the prefill forward). Score requests ride the same
+  scheduler as generation traffic and resolve in the step that admits
+  them, before that step's decode.
 
 Greedy streams are ``argmax``; sampled ones draw from a per-request
 generator seeded from (seed, token index), so a request's tokens depend on
-(prompt, seed) only. Left for later slices: token-mode prefill and the
-decoder ``score`` task.
+(prompt, seed) only. Left for a later slice: token-mode prefill.
 """
 from __future__ import annotations
 
@@ -93,11 +98,14 @@ class ServingEngine:
     bounds the pending queue (``submit``/``submit_encode`` raise
     ``QueueFullError`` past it). ``kv_budget_bytes`` sizes the block pool
     of a ``kv_paging='paged'`` plan (default: the dense layout's bytes).
+    ``metrics`` is the recorder the engine writes to (default: a fresh
+    :class:`ServeMetrics` on the engine's clock).
     """
 
     def __init__(self, model, plan: Optional[ExecutionPlan] = None, *,
                  slots: int = 8, max_len: int = 512,
                  max_queue: Optional[int] = None,
+                 metrics: Optional[ServeMetrics] = None,
                  clock: Clock = SYSTEM_CLOCK,
                  kv_budget_bytes: Optional[int] = None):
         if isinstance(model, DeployedModel):
@@ -125,11 +133,15 @@ class ServingEngine:
         # one clock for deadlines, wait stamps and step timings
         self.clock = clock
         self.scheduler = Scheduler(slots, max_queue=max_queue, clock=clock)
-        self.metrics = ServeMetrics(clock=clock)
+        self.metrics = (metrics if metrics is not None
+                        else ServeMetrics(clock=clock))
         self.generated: list[list[int]] = [[] for _ in range(slots)]
         self._streams: dict = {}              # rid -> TokenStream|EncodeHandle
         self._events: list[tuple[int, int]] = []
         self._next_fork = 0
+        # prompt tokens encoded in the last engine_step: the load
+        # generator's virtual-cost model reads it after each pump
+        self.last_step_encode_tokens = 0
         # per-slot sampling state, set at admit; the step index is the
         # slot's generated-token count
         self._seed = np.zeros(slots, np.int64)
@@ -242,13 +254,11 @@ class ServingEngine:
     def submit_encode(self, req: EncodeRequest, *,
                       on_result: Optional[Callable[[int, object], None]] = None
                       ) -> EncodeHandle:
-        """Enqueue a prefill-only request on an encoder engine; the result
-        lands on the returned :class:`EncodeHandle`."""
-        if self.mode != "encoder":
-            raise ValueError(
-                "this engine serves a mode='decode' plan; the decoder "
-                "'score' task (prompt log-likelihood) is a later slice of "
-                "the port: submit GenerationRequests via submit")
+        """Enqueue a prefill-only request; the result lands on the
+        returned :class:`EncodeHandle`. An encoder plan serves classify /
+        embed / score from its heads; a decode engine serves ``score``
+        only (the prompt's log-likelihood through the batched bucketed
+        prefill forward), interleaved with its generation traffic."""
         self.scheduler.assign_id(req)      # so rejections carry a real rid
         plen = len(req.tokens)
         if plen <= 0:
@@ -257,13 +267,25 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.rid}: input ({plen}) exceeds engine max_len "
                 f"({self.max_len})")
-        needs = ("classifier",) if req.task in ("classify", "score") \
-            else ("pooler",)
-        for head in needs:
-            if head not in self.params:
+        if self.mode == "encoder":
+            needs = ("classifier",) if req.task in ("classify", "score") \
+                else ("pooler",)
+            for head in needs:
+                if head not in self.params:
+                    raise ValueError(
+                        f"request {req.rid}: task={req.task!r} needs a "
+                        f"{head!r} head the deployed artifact does not have")
+        else:
+            if self.plan.prefill_mode != "chunked":
                 raise ValueError(
-                    f"request {req.rid}: task={req.task!r} needs a "
-                    f"{head!r} head the deployed artifact does not have")
+                    f"request {req.rid}: token-mode engines feed prompts "
+                    "through a shared cursor and cannot serve prefill-only "
+                    "requests")
+            if req.task != "score":
+                raise ValueError(
+                    f"request {req.rid}: a decoder artifact serves only "
+                    f"task='score' (prompt log-likelihood), got "
+                    f"{req.task!r}")
         handle = EncodeHandle(self, req, on_result=on_result)
         self._streams[req.rid] = handle
         try:
@@ -326,6 +348,7 @@ class ServingEngine:
         (decode mode) or one batched encode per group (encoder mode).
         Returns the ``(rid, token)`` pairs emitted this step."""
         self._events = []
+        self.last_step_encode_tokens = 0
         fits = None
         if self.paged:
             # ONE byte budget drives admission: reservations are per round
@@ -333,12 +356,16 @@ class ServingEngine:
             self._reserved = 0
             fits = self._paged_fits
         placed = self._admit(fits)
-        if self.mode == "encoder":
-            if placed:
-                self._encode_admitted(placed)
-        else:
-            if placed:
-                self._prefill_admitted(placed)
+        # encode and generation traffic arrive through one admit round:
+        # encode jobs resolve at once (freeing their slots), then the
+        # generation jobs prefill and join the decode batch below
+        enc = [(s, r) for s, r in placed if isinstance(r, EncodeRequest)]
+        gen = [(s, r) for s, r in placed if not isinstance(r, EncodeRequest)]
+        if enc:
+            self._encode_admitted(enc)
+        if gen:
+            self._prefill_admitted(gen)
+        if self.mode == "decode":
             self._decode_active()
         for req in self.scheduler.pop_shed():
             self._finalize_unslotted(req, "shed")
@@ -610,7 +637,9 @@ class ServingEngine:
         blocks — fits in free + evictable pool blocks, minus what this
         round's earlier admissions already reserved. Prefix hits only ever
         reduce the blocks actually allocated, so a reservation can never be
-        exceeded."""
+        exceeded. Encode requests retain no KV and always fit."""
+        if isinstance(req, EncodeRequest):
+            return True
         need = blocks_needed(len(req.prompt), req.max_new_tokens)
         if self.pool.available() - self._reserved < need:
             return False
@@ -740,8 +769,12 @@ class ServingEngine:
 
     # -------------------------------------------------------------- encode
     def encode_batch(self, tokens, lengths) -> dict[str, torch.Tensor]:
-        """One bidirectional forward over a padded (n, bucket) batch with
-        per-row ``lengths``; returns every head the artifact carries."""
+        """One forward over a padded (n, bucket) batch with per-row
+        ``lengths``. Encoder plans run the bidirectional stack and return
+        every head the artifact carries; decode plans return ``score``, the
+        prompt's log-likelihood (``score_batch``)."""
+        if self.mode == "decode":
+            return {"score": self.score_batch(tokens, lengths)}
         with torch.no_grad():
             h = bert_encode(self.params, self.plan, tokens, lengths=lengths)
             out = {"embed": bert_pool(self.params, h)}
@@ -753,6 +786,21 @@ class ServingEngine:
                 # relevance score: positive-class log-probability
                 out["score"] = logp[:, 1] if logits.shape[-1] >= 2 else logp[:, 0]
         return out
+
+    def score_batch(self, tokens, lengths) -> torch.Tensor:
+        """The decoder ``score`` task: ``sum_{i>=1} log p(t_i | t_<i)`` of
+        each row's first ``lengths[i]`` tokens, from the causal prefill
+        forward over a kv-16 scratch state (padded tails sit after every
+        real token, so they change nothing a real token attends to)."""
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        logits, _ = self.prefill_forward(tokens)
+        with torch.no_grad():
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            ll = torch.gather(logp[:, :-1], -1, tokens[:, 1:, None])[..., 0]
+            pos = torch.arange(1, tokens.shape[1], device=self.device)
+            mask = pos[None, :] < lengths[:, None]
+            return torch.where(mask, ll, torch.zeros_like(ll)).sum(dim=1)
 
     def _encode_admitted(self, placed) -> None:
         jobs = [(s, req, _bucket_for(len(req.tokens), self.max_len))
@@ -781,6 +829,7 @@ class ServingEngine:
         out = self.encode_batch(toks, lens)
         out = {task: v.cpu().numpy() for task, v in out.items()}
         self.metrics.record("encode", self.clock() - t0, total)
+        self.last_step_encode_tokens += total
         for i, (s, req) in enumerate(group):
             if self.scheduler.active[s] is not req:
                 continue   # an earlier on_result callback cancelled it

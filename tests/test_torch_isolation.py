@@ -45,7 +45,12 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
                  "src/repro_torch/serving/kv_cache.py",
                  "src/repro_torch/serving/block_pool.py",
                  "src/repro_torch/serving/prefix_cache.py",
-                 "src/repro_torch/deploy/artifact.py"):
+                 "src/repro_torch/deploy/artifact.py",
+                 "src/repro_torch/serving/loadgen.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/benchmarks/table2_speedup.py",
+                 "src/repro_torch/benchmarks/serve_latency.py",
+                 "src/repro_torch/benchmarks/serve_load.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.core import qat\n"

@@ -180,9 +180,9 @@ def test_bad_requests_rejected(models):
 
 
 def test_engine_needs_an_encoder_plan(models):
-    """Each mode refuses the other's requests: a decode engine has no
-    encode path (the decoder score task is a later slice) and an encoder
-    engine no decode loop."""
+    """Each mode refuses the other's requests: an encoder engine has no
+    decode loop, and a decode engine's encode path serves the decoder
+    ``score`` task only (prompt log-likelihood), as the JAX engine's."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import api
     from repro_torch.serving import GenerationRequest
@@ -194,5 +194,7 @@ def test_engine_needs_an_encoder_plan(models):
     plan = ExecutionPlan.build(cfg, None, mode="decode")
     dec = ServingEngine(api.init_model(cfg, torch.Generator().manual_seed(0),
                                        "cpu"), plan, slots=2, max_len=8)
-    with pytest.raises(ValueError, match="later slice"):
-        dec.submit_encode(EncodeRequest(tokens=np.arange(1, 4), task="score"))
+    with pytest.raises(ValueError, match="only task='score'"):
+        dec.submit_encode(EncodeRequest(tokens=np.arange(1, 4), task="classify"))
+    res = dec.submit_encode(EncodeRequest(tokens=np.arange(1, 4), task="score")).result()
+    assert res.finish_reason == "done" and np.isfinite(res.value) and res.value < 0
