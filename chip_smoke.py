@@ -224,7 +224,42 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    readings at fixed rates, not end-to-end metrics); then
    ``benchmarks/serve_latency`` and ``serve_load`` (``--quick``, their
    reduced configuration) on the card, their JSON printed and written to
-   ``chiprun_out/``.
+   ``chiprun_out/``;
+18. the paper's QAT recipe at full tinybert4 width (``benchmarks/common``):
+   a bert-base fp teacher and the fp student trained 8 steps each on
+   ``SyntheticClassification(30522, 64, 32)``, the student calibrated
+   (``build_qat_student``) and trained 30 steps W4A4 in every layer (mse
+   scale gradients, MINI + output KD); every loss finite, the learned
+   activation scales moved. The first quantized linear's fake-quant codes
+   ``round(clip(x / s_a))`` bit-equal to act_quant's kernel on the same
+   embeddings, and ``lsq_quantize`` equal to ``s_a`` times those codes.
+   ``deploy(recalibrate=False)`` keeps the learned scales (checked) ->
+   ``save`` -> ``load`` -> an encoder ``ServingEngine`` answering 16
+   classify requests of 4-128 tokens, each forward launching the integer
+   kernels as ``gemm_launches`` derives for its rows, no plain version on
+   a CUDA tensor, each result within rtol 1e-5 / atol 1e-6 of the direct
+   forward. The deployed forward against the fake-quant one on 4 x 32
+   rows under phase 3's noise rule, each row's activation codes recorded
+   on both paths: the first linear's codes equal, at most half the rows
+   with a changed code, rows with none within rtol = atol = 1e-4, rows
+   with one within ``QAT_LOGIT_ATOL``, argmax equal on every row; step times (eager) and peak device memory;
+19. the train CLI's default at full width: ``launch.train.main(["--steps",
+   "3", "--batch", "8", "--seq", "128"])`` on stablelm-3b (fake-quant W8A8
+   layers 0-15 and W4A4 16-31, mse scale gradients, no teacher, f32
+   params and Adam state, bf16 activations): finite losses, each step's
+   eager ms, peak device memory, no checkpoint (``--ckpt-every`` 50).
+   Then ``--reduced --ckpt-every 2``: 4 steps uninterrupted bit-equal, on
+   every leaf, to a run stopped by SIGTERM after 2 steps (the CLI's
+   preemption path: it checkpoints and exits) and resumed for 2 more.
+   Then ``benchmarks/table1_glue.run(quick=True)``, ``run_artifact(quick=
+   True)`` (deployed on the cuda backend: scored through the integer
+   kernels, no plain version on a CUDA tensor) and
+   ``table3_ablation.run(quick=True)``: their rows and the quality payload
+   printed, the payload written to ``chiprun_out/BENCH_quality.json`` and
+   read by ``tools/check_quality.py``, which must pass: against itself,
+   since the committed baseline is the JAX package's, so what it gates is
+   the paper's claim (the W4A4 artifact within 5 points of the fp
+   student).
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -232,6 +267,7 @@ script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -858,21 +894,35 @@ def end_to_end(dev) -> dict:
 
 def served_codes(serve, model):
     """Serve once more, recording every activation-code tensor the forwards
-    quantize (kernel or reference backend) and every padded batch they run,
-    in order. A split-K GEMM quantizes inside its kernel, which keeps no
-    codes: for such a call the spy records act_quant's kernel on the same
-    activations (the same arithmetic, held bit-equal to the GEMM's in
-    phase 2)."""
+    quantize (``recording_codes``) and every padded batch they run, in
+    order."""
+    codes, batches = [], []
+    with recording_codes(codes):
+        _, results = serve(model, on_batch=batches.append)
+    return {"results": results, "batches": batches}, codes
+
+
+@contextlib.contextmanager
+def recording_codes(codes: list):
+    """Append to ``codes``, as (rows, K) int8 arrays in call order, every
+    activation-code tensor a forward quantizes: on the deployed paths the
+    kernel's or the reference backend's (a split-K GEMM quantizes inside
+    its kernel, which keeps no codes: for such a call the spy records
+    act_quant's kernel on the same activations, the same arithmetic, held
+    bit-equal to the GEMM's in phase 2); on the fake-quant path
+    ``round(clip(x / s_a))``, ``lsq_quantize``'s forward, for each
+    activation (0-d scale; weights carry per-channel scales)."""
+    from repro_torch.core.quantizer import quantize_to_int
     from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import ops
     from repro_torch.models import layers
 
-    codes, batches = [], []
     # ops.act_quant on the CPU, act_quant_cuda on the card (ops calls it
     # directly for every GEMM that does not quantize)
     originals = {(ops, "act_quant"): ops.act_quant,
                  (ops, "act_quant_cuda"): ops.act_quant_cuda,
                  (layers, "quantize_to_int"): layers.quantize_to_int,
+                 (layers, "fake_quant"): layers.fake_quant,
                  **{(ops, name): getattr(ops, name) for name in (
                      "int8_matmul_cuda", "int4_matmul_cuda", "int4_matmul_fused_cuda")}}
 
@@ -890,15 +940,23 @@ def served_codes(serve, model):
             return fn(x, w, s_a, *a, a_bits=a_bits, **kw)
         return recorded
 
+    def fake_spy(fn):
+        def recorded(x, s, bits, *a, **kw):
+            if bits is not None and s.dim() == 0:
+                z = quantize_to_int(x.detach(), s.detach(), bits)
+                codes.append(z.reshape(-1, z.shape[-1]).cpu().numpy())
+            return fn(x, s, bits, *a, **kw)
+        return recorded
+
     for (mod, name), fn in originals.items():
-        setattr(mod, name, gemm_spy(fn) if name.endswith("matmul_cuda")
-                or name.endswith("fused_cuda") else spy(fn))
+        setattr(mod, name, fake_spy(fn) if name == "fake_quant"
+                else gemm_spy(fn) if name.endswith(("matmul_cuda", "fused_cuda"))
+                else spy(fn))
     try:
-        _, results = serve(model, on_batch=batches.append)
+        yield codes
     finally:
         for (mod, name), fn in originals.items():
             setattr(mod, name, fn)
-    return {"results": results, "batches": batches}, codes
 
 
 def compare_codes(batches, codes_a, codes_b, prompts):
@@ -3152,6 +3210,360 @@ def load_phase(models: dict, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 18
+#: the quantized linears of one forward of the QAT student deployed W4A4 in
+#: every layer (tinybert4): (K, N, weight bits, fused) -> calls
+QAT_LINEARS = {(312, 312, 4, False): 16, (312, 1200, 4, True): 4,
+               (1200, 312, 4, False): 4}
+#: the paper's recipe at full tinybert4 width: steps of the bert-base
+#: teacher, the fp student and the QAT student (MINI + output KD)
+TEACHER_STEPS, STUDENT_STEPS, QAT_STEPS = 8, 8, 30
+QAT_TASK = (30522, 64, 32)       # SyntheticClassification(vocab, seq, batch)
+#: deployed vs fake-quant logits: phase 3's bound for forwards in which
+#: float noise moved an activation code
+QAT_LOGIT_ATOL = 5e-2
+
+
+def qat_end_to_end(dev) -> dict:
+    """The paper's recipe at full tinybert4 width on the card: a bert-base fp
+    teacher and the fp student trained a few steps, the student calibrated
+    (``build_qat_student``) and trained W4A4 (every layer int4, 4-bit
+    activations, mse scale gradients, MINI + output KD), deployed with its
+    learned scales, saved, loaded and served through the integer kernels."""
+    import dataclasses as dc
+
+    from repro_torch.benchmarks import common
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.quantizer import lsq_quantize, qrange
+    from repro_torch.data import SyntheticClassification
+    from repro_torch.deploy import DeployedModel, ExecutionPlan, deploy
+    from repro_torch.kernels import build
+    from repro_torch.kernels.act_quant import act_quant_cuda
+    from repro_torch.models.bert import bert_classify_logits, init_bert_classifier
+    from repro_torch.models.transformer import _embed
+    from repro_torch.serving import EncodeRequest, ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tcfg = get_config("tinybert4"), get_config("bert-base")
+    vocab, seq, batch = QAT_TASK
+    data = SyntheticClassification(vocab, seq, batch, num_classes=2, seed=0)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    runs = {}
+
+    def train(name, params, plan, steps, **kw):
+        losses, stamps = [], []
+
+        def on_step(i, loss):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            losses.append(loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = common.train_classifier(params, plan, data, steps=steps, lr=1e-4,
+                                      on_step=on_step, **kw)
+        vals = torch.stack(losses).cpu()
+        if not bool(torch.isfinite(vals).all()):
+            raise AssertionError(f"{name}: non-finite losses {vals.tolist()}")
+        ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+        runs[name] = {"steps": steps, "first_step_eager_ms": ms[0],
+                      "step_eager_ms_median": statistics.median(ms[1:]),
+                      "loss_first": float(vals[0]), "loss_last": float(vals[-1])}
+        return out
+
+    tplan, fplan = common.plan_for(tcfg), common.plan_for(cfg)
+    teacher = train("teacher_fp32_bert_base", init_bert_classifier(tcfg, 2, gen(1), dev),
+                    tplan, TEACHER_STEPS)
+    fp_student = train("student_fp32", init_bert_classifier(cfg, 2, gen(2), dev),
+                       fplan, STUDENT_STEPS)
+    policy = QuantPolicy(num_layers=cfg.num_layers, mode="fake",
+                         last_k_int4=cfg.num_layers, grad_mode="mse")
+    qplan = common.plan_for(cfg, policy)
+    calibrated = common.build_qat_student(cfg, policy, data, fp_student)
+    student = train("qat_w4a4_mse_mini_output_kd", calibrated, qplan, QAT_STEPS,
+                    teacher=teacher, teacher_plan=tplan)
+    moved = {key: float(torch.mean(torch.abs(student["layers"]["attn"]["wq"][key]
+                                             / calibrated["layers"]["attn"]["wq"][key] - 1)))
+             for key in ("s_a", "s_w")}
+    if not moved["s_a"] > 0:
+        raise AssertionError("QAT left the activation scales where calibration put them")
+
+    # the first quantized linear (layer 0's wq reads the embeddings): the
+    # fake-quant codes round(clip(x / s_a)) against act_quant's kernel
+    qmin, qmax = qrange(4)
+    toks = torch.as_tensor(data.batch(9000)["tokens"], device=dev)
+    with torch.no_grad():
+        x = _embed(student, cfg, toks).reshape(-1, cfg.d_model).contiguous()
+        s_a = student["layers"]["attn"]["wq"]["s_a"][0]
+        fake = torch.round(torch.clamp(x / s_a, qmin, qmax)).to(torch.int8)
+        kern = act_quant_cuda(x, s_a, 4)
+        if not torch.equal(fake, kern):
+            raise AssertionError(f"first-linear codes: {int((fake != kern).sum())} of "
+                                 f"{fake.numel()} differ from act_quant's")
+        if not torch.equal(lsq_quantize(x, s_a, 4, "mse"), s_a * kern.to(torch.float32)):
+            raise AssertionError("lsq_quantize's output is not s_a x act_quant's codes")
+
+    plan = ExecutionPlan.build(cfg, dc.replace(policy, mode="int"), backend="cuda",
+                               mode="encoder", prefill_batch=4)
+    model = deploy(student, plan, recalibrate=False, device=dev)
+    art = ROOT / "build" / "chip_smoke_qat_artifact"
+    model.save(str(art))
+    loaded = DeployedModel.load(str(art), device=dev)
+    if loaded.plan != plan:
+        raise AssertionError("plan did not round-trip through the artifact")
+    for block, site in [("attn", w) for w in ("wq", "wk", "wv", "wo")] + [
+            ("ffn", "w1"), ("ffn", "w2")]:     # the learned scales, not recalibrated
+        for key in ("s_a", "s_w"):
+            if not torch.equal(loaded.params["layers"][0][block][site][key],
+                               student["layers"][block][site][key]):
+                raise AssertionError(f"deploy moved the learned {site}/{key}")
+
+    # Deployed vs fake-quant forward, phase 3's noise rule row by row: the
+    # integer GEMM and the fake-quant matmul round differently, and an
+    # activation whose x / s lies that close to a rounding boundary gets
+    # another code on the two paths, which moves its row's later layers.
+    # The first linear of every forward quantizes identically; rows with no
+    # changed code agree within rtol = atol = 1e-4, rows with one within
+    # QAT_LOGIT_ATOL; argmax agrees on every row. Such noise moves a code in
+    # a few rows (one request of 16 in phase 3); a scale that deploy moved
+    # changes codes in every row, so at most half the rows may change one.
+    n_linear = sum(QAT_LINEARS.values())
+    err = {"no_code_changed": 0.0, "codes_changed": 0.0}
+    flipped_rows, n_flips, n_codes, rows, margins, mags = 0, 0, 0, 0, [], []
+    with torch.no_grad():
+        for i in range(4):
+            t = torch.as_tensor(data.batch(10_000 + i)["tokens"], device=dev)
+            with recording_codes([]) as fake_codes:
+                want = bert_classify_logits(student, qplan, t).cpu().numpy()
+            with recording_codes([]) as kern_codes:
+                got = bert_classify_logits(loaded.params, loaded.plan, t).cpu().numpy()
+            if not len(fake_codes) == len(kern_codes) == n_linear:
+                raise AssertionError(f"{len(fake_codes)} fake-quant and {len(kern_codes)} "
+                                     f"deployed quantized linears, expected {n_linear}")
+            B = t.shape[0]
+            flips = np.zeros(B, dtype=np.int64)
+            for j, (fz, kz) in enumerate(zip(fake_codes, kern_codes)):
+                changed = (fz.reshape(B, -1) != kz.reshape(B, -1)).sum(axis=1)
+                if j == 0 and changed.any():
+                    raise AssertionError(f"batch {i}: first-linear codes differ between "
+                                         f"the fake-quant and the deployed forward")
+                flips += changed
+                n_codes += fz.size
+            for r in range(B):
+                key = "codes_changed" if flips[r] else "no_code_changed"
+                tol = dict(rtol=0.0, atol=QAT_LOGIT_ATOL) if flips[r] else \
+                    dict(rtol=1e-4, atol=1e-4)
+                np.testing.assert_allclose(got[r], want[r], **tol, err_msg=(
+                    f"batch {i} row {r}: deployed vs fake-quant, {flips[r]} codes changed"))
+                err[key] = max(err[key], float(np.abs(got[r] - want[r]).max()))
+                if np.argmax(got[r]) != np.argmax(want[r]):
+                    raise AssertionError(f"batch {i} row {r}: argmax differs from the "
+                                         f"fake-quant forward ({got[r]} vs {want[r]})")
+            flipped_rows += int((flips > 0).sum())
+            n_flips += int(flips.sum())
+            rows += B
+            mags.append(np.abs(want).ravel())
+            margins.append(np.abs(want[:, 0] - want[:, 1]))
+    if 2 * flipped_rows > rows:
+        raise AssertionError(f"{flipped_rows} of {rows} rows changed activation codes "
+                             f"({n_flips} codes) between the fake-quant and the "
+                             f"deployed forward")
+    logits = {"abs_median": float(np.median(np.concatenate(mags))),
+              "abs_max": float(np.concatenate(mags).max()),
+              "margin_median": float(np.median(np.concatenate(margins))),
+              "margin_min": float(np.concatenate(margins).min())}
+
+    rng = np.random.default_rng(3)
+    lengths = [4, 7, 8, 12, 16, 21, 31, 32, 40, 57, 64, 77, 96, 111, 127, 128]
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+
+    def serve(counted=None):
+        eng = ServingEngine(loaded, slots=8, max_len=128)
+        if counted is not None:
+            encode = eng.encode_batch
+
+            def recorded(toks, lens):
+                counted.append(int(np.asarray(toks).size))
+                return encode(toks, lens)
+            eng.encode_batch = recorded
+        hs = [eng.submit_encode(EncodeRequest(tokens=p, task="classify")) for p in prompts]
+        eng.run_until_drained()
+        return eng, [h.result() for h in hs]
+
+    serve()                                        # warm-up
+    torch.cuda.synchronize()
+    counted = []
+    build.reset_counts()
+    eng, results = serve(counted)
+    torch.cuda.synchronize()
+    launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+    del eng.encode_batch
+    expected = dict.fromkeys(GEMM_NAMES, 0)
+    for M in counted:
+        for name, n in gemm_launches(QAT_LINEARS, M).items():
+            expected[name] += n
+    if {k: launches[k] for k in expected} != expected:
+        raise AssertionError(f"{ {k: launches[k] for k in GEMM_NAMES} } launches over "
+                             f"forwards of rows {counted}, expected {expected}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors: {plain}")
+    for p, r in zip(prompts, results):
+        val = np.asarray(r.value)
+        if r.finish_reason != "done" or val.shape != (2,) or not np.all(np.isfinite(val)):
+            raise AssertionError(f"request {r.rid}: {r.finish_reason} {val!r}")
+        direct = eng.encode_batch(p[None], np.array([len(p)]))["classify"][0].cpu().numpy()
+        np.testing.assert_allclose(val, direct, rtol=1e-5, atol=1e-6)
+    return {"model": cfg.name, "teacher": tcfg.name, "task": list(QAT_TASK),
+            "policy": policy.describe(), "plan": plan.describe(), "runs": runs,
+            "scale_mean_rel_change_layer0_wq": moved,
+            "first_linear_codes_bit_equal": int(fake.numel()),
+            "logits_max_abs_diff_vs_fake_quant": err,
+            "logits_tolerance": {"no_code_changed": 1e-4, "codes_changed": QAT_LOGIT_ATOL},
+            "fake_quant_logits": logits, "rows_compared": rows,
+            "rows_with_changed_codes": flipped_rows, "codes_changed": n_flips,
+            "codes_compared": n_codes,
+            "requests": len(results), "forward_rows": counted, "launches": launches,
+            "expected_launches": expected, "plain_on_cuda": plain,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+# ----------------------------------------------------------------- phase 19
+#: the train CLI's default at full width: stablelm-3b, 3 steps of 8 x 128
+TRAIN_ARGV = ["--steps", "3", "--batch", "8", "--seq", "128"]
+
+
+def preempted_after(n: int, builder):
+    """``builder`` (``launch.train.build_train_step``) whose step sends
+    this process SIGTERM after its ``n``-th call, as a preemption would:
+    ``run_training`` checkpoints that step and returns."""
+    import os
+    import signal
+    import threading
+
+    if threading.current_thread() is not threading.main_thread():
+        raise RuntimeError("run_training handles SIGTERM only on the main thread")
+
+    def build(*a, **kw):
+        step, done = builder(*a, **kw), []
+
+        def run(*args):
+            out = step(*args)
+            done.append(1)
+            if len(done) == n:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return run
+    return build
+
+
+def train_cli_phase(dev) -> dict:
+    """``launch.train.main`` on its default (stablelm-3b, fake-quant W8A8 +
+    W4A4 with mse scale gradients, no teacher) at full width; the reduced
+    model's checkpoint/resume; Table 1, its deployed quality bench and
+    Table 3 at ``quick`` size, the quality payload read by
+    ``tools/check_quality.py``."""
+    import shutil
+
+    from repro_torch.benchmarks import table1_glue, table3_ablation
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
+    steps, builder = [], train.build_train_step
+
+    def timed_builder(*a, **kw):
+        step = builder(*a, **kw)
+
+        def run(params, opt, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt, batch)
+            torch.cuda.synchronize()
+            steps.append({"eager_ms": 1e3 * (time.perf_counter() - t0),
+                          **{k: float(v) for k, v in out[2].items()}})
+            return out
+        return run
+
+    train.build_train_step = timed_builder
+    try:
+        t0 = time.perf_counter()
+        state, metrics = train.main(TRAIN_ARGV + ["--ckpt-dir", str(work / "full_width")])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    finally:
+        train.build_train_step = builder
+    if len(steps) != 3 or int(state["opt"].step) != 3:
+        raise AssertionError(f"{len(steps)} steps ran, opt at {int(state['opt'].step)}")
+    if not all(np.isfinite(s["loss/train"]) for s in steps):
+        raise AssertionError(f"non-finite losses: {steps}")
+    if CheckpointManager(str(work / "full_width")).all_steps():
+        raise AssertionError("a checkpoint was written at --ckpt-every 50")
+    n_params = sum(t.numel() for _, t in tree_leaves_with_path(state["params"]))
+    full = {"argv": TRAIN_ARGV, "params": n_params, "steps": steps,
+            "step_eager_ms": [s["eager_ms"] for s in steps], "total_s": total_s,
+            "resident_before_gb": resident,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    base = ["--reduced", "--steps", "4", "--ckpt-every", "2"]
+    straight, _ = train.main(base + ["--ckpt-dir", str(work / "uninterrupted")])
+    train.build_train_step = preempted_after(2, builder)
+    try:
+        part, _ = train.main(base + ["--ckpt-dir", str(work / "resumed")])
+    finally:
+        train.build_train_step = builder
+    resumed, _ = train.main(base + ["--ckpt-dir", str(work / "resumed")])
+    a = dict(tree_leaves_with_path(straight["params"]))
+    b = dict(tree_leaves_with_path(resumed["params"]))
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    if int(part["opt"].step) != 2 or unequal:
+        raise AssertionError(f"resumed run differs from the uninterrupted one: {unequal}")
+    resume = {"leaves_bit_equal": len(a), "checkpoints": CheckpointManager(
+        str(work / "resumed")).all_steps()}
+
+    t0 = time.perf_counter()
+    table1 = table1_glue.run(quick=True, device=dev)
+    table1_s = time.perf_counter() - t0
+    build.reset_counts()
+    t0 = time.perf_counter()
+    payload = table1_glue.run_artifact(quick=True, artifact_dir=str(work / "quality_w4a4"),
+                                       device=dev)
+    artifact_s = time.perf_counter() - t0
+    launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+    if any(plain.values()):
+        raise AssertionError(f"quality bench: plain versions on CUDA {plain}")
+    t0 = time.perf_counter()
+    table3 = table3_ablation.run(quick=True, device=dev)
+    table3_s = time.perf_counter() - t0
+    out = ROOT / "chiprun_out" / "BENCH_quality.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(payload, indent=2, sort_keys=True))
+    # the unchanged quality gate reads the payload (current against itself:
+    # the committed baseline is the JAX package's, which torch cannot match),
+    # so it gates the paper's claim alone: W4A4 within 5 points of fp
+    gate = subprocess.run([sys.executable, str(ROOT / "tools" / "check_quality.py"),
+                           "--current", str(out), "--baseline", str(out)],
+                          capture_output=True, text=True)
+    if gate.returncode != 0 or "W4A4 vs fp delta" not in gate.stdout:
+        raise AssertionError(f"check_quality failed (rc {gate.returncode}): "
+                             f"{gate.stdout}{gate.stderr}")
+    return {"full_width": full, "reduced_resume": resume,
+            "table1": [list(r) for r in table1], "table1_s": table1_s,
+            "quality": payload, "quality_s": artifact_s,
+            "quality_launches": launches, "check_quality_rc": gate.returncode,
+            "check_quality": gate.stdout.strip().splitlines(),
+            "table3": [list(r) for r in table3], "table3_s": table3_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3335,6 +3747,28 @@ def main() -> int:
         emit({"phase": "load", "cell": name, **load[name]})
     emit({"phase": "serve_latency_json", **load["serve_latency"]})
     emit({"phase": "serve_load_json", **load["serve_load"]})
+    del models, dense_streams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    qat = qat_end_to_end(dev)
+    seconds["qat_end_to_end"] = time.perf_counter() - t0
+    emit({"phase": "qat_end_to_end", **qat, "seconds": seconds["qat_end_to_end"]})
+
+    t0 = time.perf_counter()
+    trained = train_cli_phase(dev)
+    seconds["train_cli"] = time.perf_counter() - t0
+    emit({"phase": "train_cli", **trained["full_width"],
+          "reduced_resume": trained["reduced_resume"]})
+    for name, algo, acc in trained["table1"]:
+        emit({"phase": "table1", "name": name, "algo": algo, "accuracy": acc})
+    for name, acc in trained["table3"]:
+        emit({"phase": "table3", "name": name, "accuracy": acc})
+    emit({"phase": "quality_json", **trained["quality"],
+          "check_quality_rc": trained["check_quality_rc"],
+          "check_quality": trained["check_quality"],
+          "seconds": {k: trained[k] for k in ("table1_s", "quality_s", "table3_s")}})
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
         *(run["layers_max_abs_err_vs_plain"] for run in prefill.values()),
@@ -3356,7 +3790,9 @@ def main() -> int:
                         "score_dense_kv8": score["dense"]["launches"],
                         "score_paged_kv8": score["paged"]["launches"],
                         "load_decoder": load["decoder"]["launches"],
-                        "load_encoder": load["encoder"]["launches"]}
+                        "load_encoder": load["encoder"]["launches"],
+                        "qat_encoder": qat["launches"],
+                        "table1_quality": trained["quality_launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
     planned = {"encoder": e2e["expected_launches"]["act_quant"],
@@ -3366,7 +3802,8 @@ def main() -> int:
                "prefix_paged_kv8": prefix["paged_prefix"]["act_quant_planned"],
                "prefix_paged_60pct_kv8": prefix["paged_prefix_60pct"]["act_quant_planned"],
                "score_dense_kv8": score["dense"]["act_quant_planned"],
-               "score_paged_kv8": score["paged"]["act_quant_planned"]}
+               "score_paged_kv8": score["paged"]["act_quant_planned"],
+               "qat_encoder": qat["expected_launches"]["act_quant"]}
     # the serve CLI's and the load generator's short prompts take split-K
     # (no act_quant) or not by their draw; the CLI's encoder policy is W4A4
     cli_decode = ("int8_matmul", "int4_matmul", "decode_attention")
@@ -3387,7 +3824,9 @@ def main() -> int:
                        ("score_paged_kv8", PAGED_KERNELS),
                        ("load_decoder", cli_decode),
                        ("load_encoder", ("int8_matmul", "int4_matmul",
-                                         "int4_matmul_fused"))):
+                                         "int4_matmul_fused")),
+                       ("qat_encoder", ("act_quant", "int4_matmul", "int4_matmul_fused")),
+                       ("table1_quality", GEMM_NAMES)):
         idle = [k for k in need if not launches_by_path[path][k]
                 and (k != "act_quant" or planned.get(path, 1))]
         if idle:
@@ -3421,6 +3860,7 @@ def main() -> int:
                                   "fused_times": fused_rows,
                                   "table2": table2, "serve_cli": cli,
                                   "score_end_to_end": score, "load": load,
+                                  "qat_end_to_end": qat, "train_cli": trained,
                                   "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})

@@ -1,8 +1,9 @@
 """MKQ-BERT on PyTorch and CUDA: the port of the JAX package ``repro``.
 
 The layout mirrors the JAX package (``configs``, ``core``, ``kernels``,
-``models``, ``deploy``, ``checkpoint``, ``serving``), so each counterpart
-sits under the same module name. The port imports neither ``jax`` nor
+``models``, ``deploy``, ``checkpoint``, ``serving``, ``optim``, ``data``,
+``launch``, ``benchmarks``), so each counterpart sits under the same module
+name. The port imports neither ``jax`` nor
 ``repro``. Its integer kernels are hand-written CUDA for Hopper
 (``kernels/csrc``), each beside a plain PyTorch version that CPU tensors
 take. Entry points run on the card unless the caller passes

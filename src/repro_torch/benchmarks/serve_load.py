@@ -19,7 +19,8 @@ The JAX file's ``mixed_tenant`` and ``replica_scale`` scenarios need the
 multi-tenant engine and replica sets, which arrive with a later slice of
 the port; they are not run. The int4 wall variant runs without the JAX
 engine's ``warmup=`` pre-compilation (the port's counterpart is the step
-under CUDA graphs, also a later slice). The JSON keeps the JAX file's
+under CUDA graphs, ROADMAP Queue 4 item 1: performance work after the first
+benchmark). The JSON keeps the JAX file's
 schema, so ``tools/check_bench.py`` reads it unchanged.
 
 ``python -m repro_torch.benchmarks.serve_load [--quick] [--device cpu]

@@ -1,12 +1,19 @@
-"""Artifact reader/writer: the format shared with the JAX package.
+"""Checkpoints and artifacts in the format the JAX package writes.
 
-Layout:  <dir>/ARTIFACT.json   (meta)
-         <dir>/arrays.npz      (flattened leaves; '/'-joined tree paths as
-                                keys, list indices numeric)
+Artifact layout:   <dir>/ARTIFACT.json   (meta)
+                   <dir>/arrays.npz      (flattened leaves; '/'-joined tree
+                                          paths as keys, list indices numeric)
+Checkpoint layout: <dir>/step_000000042/
+                     shard_00000.npz     (flattened leaf arrays, this host's)
+                     META.json           (step, time, metrics, keys)
+                   <dir>/LATEST          (atomic pointer file)
 
-Writes go to a temp dir + os.rename (atomic on POSIX), so a crash mid-save
-never publishes a partial artifact. The training checkpoint manager arrives
-with a later slice.
+Keys are the JAX package's: dict keys and list indices joined by '/', and a
+named tuple's fields (the Adam state) as ``.name``, so a checkpoint of
+either package restores in the other. Writes go to a temp dir + os.rename
+(atomic on POSIX), so a crash mid-save never publishes a partial artifact
+or corrupts the latest checkpoint: the restart path (``launch/train.py``)
+always resumes from a complete step.
 """
 from __future__ import annotations
 
@@ -15,16 +22,20 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..core.tree import is_namedtuple
+
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
-    """Nested dict/list of tensors or arrays -> {'a/0/b': ndarray}."""
+    """Nested dict/list/named tuple of tensors or arrays -> {'a/0/b': ndarray}."""
     if isinstance(tree, dict):
         items = ((str(k), v) for k, v in tree.items())
+    elif is_namedtuple(tree):
+        items = ((f".{name}", v) for name, v in zip(tree._fields, tree))
     elif isinstance(tree, (list, tuple)):
         items = ((str(i), v) for i, v in enumerate(tree))
     else:
@@ -34,6 +45,25 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     for key, val in items:
         out.update(_flatten(val, f"{prefix}/{key}" if prefix else key))
     return out
+
+
+def _unflatten(tree_like, arrays: dict[str, np.ndarray], prefix: str = ""):
+    """The leaves of ``arrays`` in the structure of ``tree_like``, each cast
+    to its template leaf's dtype and placed on its device."""
+    join = lambda k: f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(tree_like, dict):
+        return {k: _unflatten(v, arrays, join(k)) for k, v in tree_like.items()}
+    if is_namedtuple(tree_like):
+        return type(tree_like)(*(_unflatten(v, arrays, join(f".{name}"))
+                                 for name, v in zip(tree_like._fields, tree_like)))
+    if isinstance(tree_like, (list, tuple)):
+        return [_unflatten(v, arrays, join(i)) for i, v in enumerate(tree_like)]
+    if prefix not in arrays:
+        raise KeyError(f"checkpoint missing leaf {prefix}")
+    arr = torch.from_numpy(np.array(arrays[prefix], copy=True))
+    if torch.is_tensor(tree_like):
+        return arr.to(dtype=tree_like.dtype, device=tree_like.device)
+    return arr
 
 
 def _nest(arrays: dict[str, np.ndarray]):
@@ -102,3 +132,79 @@ def load_artifact(path: str) -> tuple[Any, dict]:
     with np.load(os.path.join(path, "arrays.npz"), allow_pickle=False) as z:
         arrays = dict(z)
     return _nest(arrays), meta
+
+
+class CheckpointManager:
+    """Atomic, keep-k, auto-resume checkpoints of a state tree."""
+
+    def __init__(self, directory: str, keep: int = 3, host_index: int = 0):
+        self.dir = directory
+        self.keep = keep
+        self.host = host_index
+        os.makedirs(directory, exist_ok=True)
+
+    # ------------------------------------------------------------- save
+    def save(self, step: int, state: Any, metrics: Optional[dict] = None):
+        final = os.path.join(self.dir, f"step_{step:09d}")
+        tmp = tempfile.mkdtemp(dir=self.dir, prefix=".tmp_")
+        try:
+            arrays = _flatten(state)
+            np.savez(os.path.join(tmp, f"shard_{self.host:05d}.npz"), **arrays)
+            meta = {"step": step, "time": time.time(),
+                    "metrics": metrics or {}, "keys": sorted(arrays)}
+            with open(os.path.join(tmp, "META.json"), "w") as f:
+                json.dump(meta, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)                       # atomic publish
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        self._write_latest(step)
+        self._gc()
+        return final
+
+    def _write_latest(self, step: int):
+        tmp = os.path.join(self.dir, ".LATEST.tmp")
+        with open(tmp, "w") as f:
+            f.write(str(step))
+        os.rename(tmp, os.path.join(self.dir, "LATEST"))
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:09d}"),
+                          ignore_errors=True)
+
+    # ------------------------------------------------------------- load
+    def all_steps(self) -> list[int]:
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_"):
+                try:
+                    out.append(int(name.split("_")[1]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        path = os.path.join(self.dir, "LATEST")
+        if os.path.exists(path):
+            with open(path) as f:
+                step = int(f.read().strip())
+            if os.path.exists(os.path.join(self.dir, f"step_{step:09d}")):
+                return step
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, state_like: Any, step: Optional[int] = None):
+        """Returns (state, step) or (None, None) when no checkpoint exists.
+        Leaves take ``state_like``'s dtypes and devices."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        d = os.path.join(self.dir, f"step_{step:09d}")
+        with np.load(os.path.join(d, f"shard_{self.host:05d}.npz"),
+                     allow_pickle=False) as z:
+            data = dict(z)
+        return _unflatten(state_like, data), step

@@ -5,7 +5,7 @@ from __future__ import annotations
 import dataclasses
 
 from .archs import ARCHS
-from .base import ModelConfig
+from .base import ModelConfig, TrainHParams
 
 
 def get_config(name: str) -> ModelConfig:
@@ -33,4 +33,4 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "reduced"]
+__all__ = ["ARCHS", "ModelConfig", "TrainHParams", "get_config", "reduced"]

@@ -92,3 +92,21 @@ class ModelConfig:
         d = {k: v for k, v in d.items() if k in known}
         d["dp_axes"] = tuple(d.get("dp_axes", ("data",)))
         return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    """QAT hyperparameters (paper §5.2), the JAX package's defaults (its
+    distributed-training fields, microbatching and gradient compression,
+    are not ported)."""
+    lr_weights: float = 1e-5
+    lr_act_scale: float = 0.01
+    lr_weight_scale: float = 0.001
+    warmup_frac: float = 0.10
+    total_steps: int = 1000
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    grad_clip: float = 1.0
+    alpha: float = 10.0         # output-distill weight
+    beta: float = 1.0           # MINI-distill weight

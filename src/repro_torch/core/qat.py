@@ -1,15 +1,17 @@
-"""Deploy half of the QAT pipeline: calibration -> int deployment.
+"""QAT pipeline: calibration -> fake-quant training -> int deployment.
 
 Calibration (paper §3.1):
 * weight scales: abs-max per output channel / l_max(bits-of-that-layer),
   a pure tree transform over stacked (layer-leading) leaves;
 * activation scales: run N forward batches in ``calibration_mode``; every
   quantizable matmul reports percentile(|input|) in call order, and the
-  stream is folded back onto the ``s_a`` leaves by the family's site order.
+  stream is folded back onto the ``s_a`` leaves by the family's site order
+  (or, with ``calibrate_act_scales_global``, one global percentile drives
+  every ``s_a``).
 
-Deployment: ``deploy_params`` splits stacked layers at segment boundaries
-and replaces every fp weight with packed int4 / int8 codes. The fake-quant
-training half arrives with the QAT slice.
+Training runs ``qlinear``'s fake mode (``launch/train``, ``benchmarks/
+common``). Deployment: ``deploy_params`` splits stacked layers at segment
+boundaries and replaces every fp weight with packed int4 / int8 codes.
 """
 from __future__ import annotations
 
@@ -135,6 +137,27 @@ def calibrate_act_scales(params, cfg: ModelConfig, policy: QuantPolicy,
         layers = set_in(layers, site.split("/"), k)
     new_params["layers"] = layers
     return new_params
+
+
+def calibrate_act_scales_global(params, cfg: ModelConfig, policy: QuantPolicy,
+                                forward_fn: Callable, batches: list[dict],
+                                percentile: float = 99.99):
+    """Fallback: one global percentile drives every s_a (documented approx)."""
+    with calibration.calibration_mode(percentile) as cm:
+        for b in batches:
+            forward_fn(params, b)
+    stat = float(max(np.max(r) for r in cm.records)) if cm.records else 1.0
+    _, qmax = qrange(policy.default_bits)
+
+    def walk(node):
+        if _is_linear(node):
+            new = dict(node)
+            new["s_a"] = torch.full_like(node["s_a"], max(stat / qmax, 1e-8))
+            return new
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+    return walk(params)
 
 
 def _quantize_stack(tree, w_bits: int):

@@ -37,10 +37,21 @@ def params_from_numpy(tree, device=None):
     """A nested dict/list of numpy arrays (JAX params through
     ``jax.tree.map(np.asarray, ...)``, or a loaded ``arrays.npz``) -> the
     port's tensor tree on ``device``, dtypes kept (uint8 packed nibbles,
-    int8 codes, f32 scales and weights)."""
+    int8 codes, f32 scales and weights). A named tuple with the fields of
+    an Adam state (JAX's ``AdamState``: step, m, v) becomes the port's
+    ``optim.AdamState``, so an optimizer step can resume from JAX's."""
+    from ..optim import AdamState
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev),
-                    tree)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if getattr(node, "_fields", None) == AdamState._fields:
+            return AdamState(*(conv(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+    return conv(tree)
 
 
 def deploy(params, plan: ExecutionPlan, calib_batches: Optional[list] = None,

@@ -28,7 +28,7 @@ on its own. ``--backend cuda`` (the default) runs the hand-written kernels,
 ``reference`` the plain integer path. Flags of later slices are refused
 with an error naming what they wait for: ``--tenant``, ``--tp`` > 1 and
 ``--replicas`` > 1 (device layout and fleet), ``--warmup`` (the engine's
-step under CUDA graphs).
+step under CUDA graphs, performance work after the first benchmark).
 
 ``main(argv)`` returns what the run served (each request's tokens or
 encode result, the metrics summary), so a caller can compare two runs.
@@ -55,8 +55,8 @@ LATER = {"--tenant": "multi-tenant serving (ROADMAP Queue 1 item 6, device "
                  "and fleet)",
          "--replicas": "data-parallel replicas (ROADMAP Queue 1 item 6, "
                        "device layout and fleet)",
-         "--warmup": "the engine's step under CUDA graphs (ROADMAP Queue 1 "
-                     "item 3)"}
+         "--warmup": "the engine's step under CUDA graphs (ROADMAP Queue 4 "
+                     "item 1, performance work after the first benchmark)"}
 
 
 def _build_encoder_model(args, dev):

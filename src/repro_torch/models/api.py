@@ -3,10 +3,11 @@
 ``forward(params, plan, state=..., tokens=..., patch_embeds=...,
 patch_mask=...) -> (logits, new_state)`` for the transformer families the
 port serves (dense decoders, the vlm with its patch-embedding stub, and the
-bert stack as an LM). The JAX package's ``forward`` also returns taps and
-an aux loss, which belong to the QAT and MoE slices. Families without a KV
-slot cache (xlstm, hybrid, encdec) and MoE raise a ``ValueError`` that
-names the slice they arrive with.
+bert stack as an LM); ``want_taps=True`` adds the last layer's q/k/v taps
+as a third element. The JAX package's ``forward`` always returns taps and
+an aux loss; the aux loss belongs to the MoE slice (0 for these families).
+Families without a KV slot cache (xlstm, hybrid, encdec) and MoE raise a
+``ValueError`` that names the slice they arrive with.
 """
 from __future__ import annotations
 
@@ -37,15 +38,17 @@ def init_model(cfg: ModelConfig, g: torch.Generator, device) -> dict:
 
 
 def forward(params, plan, *, state: Optional[dict] = None, tokens,
-            patch_embeds=None, patch_mask=None):
+            patch_embeds=None, patch_mask=None, want_taps: bool = False):
     """One forward under ``plan`` (an ``ExecutionPlan``): logits (B, S,
     padded_vocab) and the decode state advanced by S tokens (updated in
     place; None without a state). vlm inputs: ``patch_embeds`` (B, P, d)
-    placed at the True positions of ``patch_mask`` (B, S)."""
+    placed at the True positions of ``patch_mask`` (B, S). ``want_taps``
+    adds a third element, the last layer's q/k/v for distillation."""
     _check_family(plan.cfg)
     return transformer.lm_forward(params, plan.cfg, plan.segments,
                                   tokens=tokens, patch_embeds=patch_embeds,
-                                  patch_mask=patch_mask, caches=state)
+                                  patch_mask=patch_mask, caches=state,
+                                  want_taps=want_taps)
 
 
 def decode_state(cfg: ModelConfig, batch: int, max_len: int,

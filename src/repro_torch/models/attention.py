@@ -104,9 +104,12 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                     hd: int, spec: QuantSpec, causal: bool = True,
                     rope: bool = False, rope_theta: float = 10000.0,
                     cache: Optional[dict] = None,
-                    kv_len: Optional[torch.Tensor] = None, chunk: int = 0):
+                    kv_len: Optional[torch.Tensor] = None, chunk: int = 0,
+                    want_taps: bool = False):
     """One attention sublayer (the residual is the caller's). Returns
-    ``(out, new_kv)``.
+    ``(out, new_kv)``, or ``(out, new_kv, taps)`` with ``want_taps``: the
+    projected q, k and v before RoPE, each (B, S, heads * hd), which MINI
+    distillation reads.
 
     cache: one layer's decode cache, fp ``{'k', 'v', 'len'}`` or quantized
         ``{'k_q', 'v_q', 'k_scale', 'v_scale', 'len'}``; ``len`` is a 0-d
@@ -128,6 +131,10 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
     q = _split_heads(qlinear(x, p["wq"], spec), n_heads)
     k = _split_heads(qlinear(x, p["wk"], spec), n_kv)
     v = _split_heads(qlinear(x, p["wv"], spec), n_kv)
+    taps = None
+    if want_taps:
+        taps = {"q": q.reshape(B, Sq, -1), "k": k.reshape(B, Sq, -1),
+                "v": v.reshape(B, Sq, -1)}
     if rope:
         positions = torch.arange(Sq, device=x.device)[None, :]
         if cache is not None:
@@ -183,5 +190,5 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                              causal=causal,
                              kv_len=(None if kv_len is None
                                      else kv_len.reshape(-1, 1, 1, 1)))
-    out = out.reshape(B, Sq, n_heads * hd)
-    return qlinear(out, p["wo"], spec), new_kv
+    out = qlinear(out.reshape(B, Sq, n_heads * hd), p["wo"], spec)
+    return (out, new_kv, taps) if want_taps else (out, new_kv)

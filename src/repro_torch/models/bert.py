@@ -8,6 +8,8 @@ padded key positions are masked out of the bidirectional attention, so a
 bucket-padded batch row matches the unpadded forward (to float rounding:
 PyTorch picks its reduction order by shape, so the match is within a stated
 tolerance, and the integer codes of the first quantized linear are equal).
+``want_taps`` also returns the last layer's q/k/v for MINI distillation,
+and ``classification_loss`` is the fine-tuning objective.
 """
 from __future__ import annotations
 
@@ -49,8 +51,10 @@ def _device(params) -> torch.device:
     return params["embed"].device
 
 
-def bert_encode(params, plan, tokens, *, lengths=None):
-    """Final hidden states (B, S, d) through the plan's segments.
+def bert_encode(params, plan, tokens, *, lengths=None, want_taps: bool = False):
+    """Final hidden states (B, S, d) through the plan's segments, or
+    ``(h, taps)`` with ``want_taps``: the last layer's q/k/v (only the last
+    layer is tapped, as in the JAX package: MINI needs no layer mapping).
 
     ``lengths`` (B,) masks key positions ``>= lengths[b]`` out of every
     attention layer. Padded QUERY positions still produce (garbage) outputs;
@@ -64,12 +68,19 @@ def bert_encode(params, plan, tokens, *, lengths=None):
     x = _embed(params, cfg, tokens)
     layers = params["layers"]
     presliced = isinstance(layers, (list, tuple))
+    taps = None
+    last = segments[-1][1] - 1
     for si, (start, end, spec) in enumerate(segments):
         seg = layers[si] if presliced else slice_stack(layers, start, end)
         for i in range(end - start):
             lp = tree_map(lambda a: a[i], seg)
-            x, _ = block_apply(x, lp, cfg, spec, kv_len=kv_len)
-    return _norm(x, params["final_norm"], cfg.norm)
+            tap = want_taps and start + i == last
+            out = block_apply(x, lp, cfg, spec, kv_len=kv_len, want_taps=tap)
+            x = out[0]
+            if tap:
+                taps = out[2]
+    h = _norm(x, params["final_norm"], cfg.norm)
+    return (h, taps) if want_taps else h
 
 
 def bert_pool(params, h: torch.Tensor) -> torch.Tensor:
@@ -79,7 +90,21 @@ def bert_pool(params, h: torch.Tensor) -> torch.Tensor:
 
 
 def bert_classify_logits(params, plan, tokens, *,
-                         lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h = bert_encode(params, plan, tokens, lengths=lengths)
+                         lengths: Optional[torch.Tensor] = None,
+                         want_taps: bool = False):
+    """Class logits (B, num_classes), or ``(logits, taps)`` with
+    ``want_taps``."""
+    h = bert_encode(params, plan, tokens, lengths=lengths, want_taps=want_taps)
+    if want_taps:
+        h, taps = h
     pooled = bert_pool(params, h)
-    return pooled @ params["classifier"]["w"] + params["classifier"]["b"]
+    logits = pooled @ params["classifier"]["w"] + params["classifier"]["b"]
+    return (logits, taps) if want_taps else logits
+
+
+def classification_loss(logits: torch.Tensor, labels) -> torch.Tensor:
+    """Mean cross-entropy of integer ``labels`` (B,) under ``logits``."""
+    labels = torch.as_tensor(labels, device=logits.device).to(torch.int64)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    return torch.mean(logz - gold)

@@ -6,14 +6,15 @@ never quantized.
 
 ``qlinear`` is the single quantized-matmul primitive:
 
-  mode 'none'  : x @ w            (fp baseline / calibration forward)
+  mode 'none'  : x @ w            (fp baseline / teacher / calibration forward)
+  mode 'fake'  : Q_a[x] @ Q_w[w]  (QAT; LSQ with 'mse' or 'ste' scale grads,
+                 ``core.quantizer.lsq_quantize``): plain PyTorch with
+                 autograd, as the JAX package computes it outside any kernel
   mode 'int'   : int8 codes matmul'd with an int32 accumulator and a fused
                  dequant; weights arrive pre-quantized (packed int4 or int8)
                  via core.packing. ``use_kernels`` dispatches to the
                  hand-written kernels (``kernels.ops``); otherwise the plain
                  integer path below runs.
-
-The QAT mode 'fake' arrives with the QAT slice.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 
 from ..core import calibration
 from ..core.packing import unpack_int4
-from ..core.quantizer import quantize_to_int
+from ..core.quantizer import fake_quant, quantize_to_int
 from ..kernels.int4_matmul import gelu_tanh
 from ..kernels.int8_matmul import int_matmul_exact
 
@@ -36,7 +37,7 @@ __all__ = ["QuantSpec", "qlinear", "rmsnorm", "layernorm", "gelu_f32",
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
     """Static per-call quantization spec (bits vary per layer-SEGMENT)."""
-    mode: str = "none"          # none | int  (fake: QAT slice)
+    mode: str = "none"          # none | fake | int
     w_bits: int = 0             # 0 = unquantized
     a_bits: int = 0
     grad_mode: str = "mse"
@@ -62,11 +63,13 @@ def qlinear(x: torch.Tensor, p: dict, spec: QuantSpec,
         calibration.record_input(x)
     if spec.mode == "int":
         return _qlinear_int(x, p, spec, act=act)
-    if spec.mode != "none":
-        raise NotImplementedError(f"qlinear mode {spec.mode!r} arrives with "
-                                  "the QAT slice")
     assert act is None, "fused act requires the deployed int4 kernel path"
-    out = x @ p["w"].to(x.dtype)
+    w = p["w"]
+    if spec.mode == "fake" and spec.enabled:
+        w = fake_quant(w, p["s_w"], spec.w_bits, spec.grad_mode)
+        if spec.a_bits:
+            x = fake_quant(x, p["s_a"], spec.a_bits, spec.grad_mode)
+    out = x @ w.to(x.dtype)
     b = p.get("b")
     if b is not None:
         out = out + b.to(out.dtype)

@@ -70,12 +70,15 @@ def ffn_apply(x, p, cfg: ModelConfig, spec: QuantSpec):
 
 
 def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
-                cache: Optional[dict] = None, kv_len=None):
+                cache: Optional[dict] = None, kv_len=None,
+                want_taps: bool = False):
     """One block. Pre-LN (decoders): x += attn(LN(x)); x += ffn(LN(x)).
     Post-LN (BERT): x = LN(x + attn(x)); x = LN(x + ffn(x)). Returns
-    ``(x, new_kv)``; ``new_kv`` is the new tokens' (k, v) when ``cache``
-    is given, else None. Forwards longer than ``cfg.attn_chunk_threshold``
-    offer attention the chunk ``cfg.attn_chunk``."""
+    ``(x, new_kv)``, or ``(x, new_kv, taps)`` with ``want_taps`` (the
+    attention's q/k/v taps); ``new_kv`` is the new tokens' (k, v) when
+    ``cache`` is given, else None. Forwards longer than
+    ``cfg.attn_chunk_threshold`` offer attention the chunk
+    ``cfg.attn_chunk``."""
     if cfg.family == "moe":
         raise NotImplementedError("MoE layers arrive with a later slice")
     pre = cfg.norm == "rms" or not cfg.learned_pos  # BERT uses post-LN
@@ -86,18 +89,18 @@ def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
             h, p["attn"], n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
             hd=cfg.hd, spec=spec, causal=cfg.causal, rope=cfg.rope,
             rope_theta=cfg.rope_theta, cache=cache, kv_len=kv_len,
-            chunk=chunk)
+            chunk=chunk, want_taps=True)
 
     if pre:
-        a, new_kv = attn(_norm(x, p["ln1"], cfg.norm))
+        a, new_kv, taps = attn(_norm(x, p["ln1"], cfg.norm))
         x = x + a
         x = x + ffn_apply(_norm(x, p["ln2"], cfg.norm), p["ffn"], cfg, spec)
     else:
-        a, new_kv = attn(x)
+        a, new_kv, taps = attn(x)
         x = _norm(x + a, p["ln1"], cfg.norm)
         f = ffn_apply(x, p["ffn"], cfg, spec)
         x = _norm(x + f, p["ln2"], cfg.norm)
-    return x, new_kv
+    return (x, new_kv, taps) if want_taps else (x, new_kv)
 
 
 # ------------------------------------------------------------------ init
@@ -176,7 +179,10 @@ def init_lm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            patch_embeds: Optional[torch.Tensor] = None,
            patch_mask: Optional[torch.Tensor] = None, offset: int = 0):
-    x = params["embed"][tokens].to(cfg.torch_dtype)
+    # F.embedding, not indexing: its backward sums the rows of repeated
+    # tokens in a fixed order (indexing's accumulates in parallel on the
+    # CPU), so training runs repeat bit for bit
+    x = F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
     if patch_embeds is not None:
         # the anyres stub: the k-th masked position takes patch row k
         # (clipped to the last row when more positions are masked)
@@ -263,9 +269,11 @@ def write_new_kv(cs: dict, idx: int, new_kv) -> None:
 
 def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
                patch_embeds=None, patch_mask=None,
-               caches: Optional[dict] = None):
-    """Returns ``(logits, new_caches)``; logits (B, S, padded_vocab) in the
-    activation dtype, padded-vocab entries at -1e9.
+               caches: Optional[dict] = None, want_taps: bool = False):
+    """Returns ``(logits, new_caches)``, or ``(logits, new_caches, taps)``
+    with ``want_taps`` (the last layer's q/k/v, as the JAX package taps
+    only the last layer); logits (B, S, padded_vocab) in the activation
+    dtype, padded-vocab entries at -1e9.
 
     patch_embeds / patch_mask (vlm): (B, P, d) patch embeddings placed, in
     order, at the True positions of the (B, S) bool mask.
@@ -285,12 +293,18 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
     # deployed int mode: layers arrive as a per-segment list (packed
     # weights cannot live in one stacked array across bit-width segments)
     presliced = isinstance(layers, (list, tuple))
+    taps = None
+    last = segments[-1][1] - 1
     for si, (start, end, spec) in enumerate(segments):
         seg = layers[si] if presliced else slice_stack(layers, start, end)
         for i in range(end - start):
             lp = tree_map(lambda a: a[i], seg)
             cache_l = None if caches is None else layer_cache(caches, start + i)
-            x, new_kv = block_apply(x, lp, cfg, spec, cache=cache_l)
+            tap = want_taps and start + i == last
+            out = block_apply(x, lp, cfg, spec, cache=cache_l, want_taps=tap)
+            x, new_kv = out[0], out[1]
+            if tap:
+                taps = out[2]
             if caches is not None:
                 write_new_kv(caches, start + i, new_kv)
     new_caches = None
@@ -302,7 +316,8 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
         logits = x @ params["embed"].T.to(x.dtype)
     else:
         logits = x @ head.to(x.dtype)
-    return mask_padded_vocab(logits, cfg), new_caches
+    logits = mask_padded_vocab(logits, cfg)
+    return (logits, new_caches, taps) if want_taps else (logits, new_caches)
 
 
 def lm_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -329,6 +344,17 @@ def lm_caches(cfg: ModelConfig, batch: int, max_len: int,
     return {"k": z((L, batch, max_len, Hkv, cfg.hd), dtype),
             "v": z((L, batch, max_len, Hkv, cfg.hd), dtype),
             "len": length}
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token CE in fp32; labels already shifted by the data pipeline
+    (entries below 0 are ignored)."""
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0).to(torch.int64)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 def mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

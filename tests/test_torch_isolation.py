@@ -50,7 +50,18 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/benchmarks/table2_speedup.py",
                  "src/repro_torch/benchmarks/serve_latency.py",
-                 "src/repro_torch/benchmarks/serve_load.py"):
+                 "src/repro_torch/benchmarks/serve_load.py",
+                 "src/repro_torch/core/quantizer.py",
+                 "src/repro_torch/core/distill.py",
+                 "src/repro_torch/core/autosearch.py",
+                 "src/repro_torch/optim/adam.py",
+                 "src/repro_torch/optim/schedule.py",
+                 "src/repro_torch/data/synthetic.py",
+                 "src/repro_torch/checkpoint/manager.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/benchmarks/common.py",
+                 "src/repro_torch/benchmarks/table1_glue.py",
+                 "src/repro_torch/benchmarks/table3_ablation.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.core import qat\n"
@@ -120,3 +131,19 @@ def test_tf32_is_off_for_the_fp32_model():
     import repro_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_training_entry_points_default_to_the_card(no_cuda, tmp_path):
+    from repro_torch.benchmarks import table1_glue, table3_ablation
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        table1_glue.run(steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        table1_glue.run_artifact(quick=True, artifact_dir=str(tmp_path / "a"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        table1_glue.cli(["--quick"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        table3_ablation.run(steps=1)
+    assert not any(tmp_path.iterdir())      # nothing ran before the refusal

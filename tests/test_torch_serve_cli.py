@@ -93,7 +93,7 @@ def test_encoder_mode(tmp_path, task):
 REFUSED = {"tenant": (["--tenant", "a=art_dir"], "item 6"),
            "tp": (["--tp", "2"], "item 6"),
            "replicas": (["--replicas", "2"], "item 6"),
-           "warmup": (["--warmup"], "item 3")}
+           "warmup": (["--warmup"], "Queue 4 item 1")}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
