@@ -259,7 +259,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    read by ``tools/check_quality.py``, which must pass: against itself,
    since the committed baseline is the JAX package's, so what it gates is
    the paper's claim (the W4A4 artifact within 5 points of the fp
-   student).
+   student);
+20. the fleet, over phase 6's kv8 and phase 3's tinybert4 artifacts
+   reloaded from ``build/``: (a) a ``ReplicaSet`` of two engines (8 slots,
+   max_len 512 each), dense and paged, serving phase 6's requests of at
+   most 32 new tokens and its sampled one (n = 2): streams
+   byte-identical to phase 6's single engine, every member's decode step
+   and prefill launching what the plan names, no plain version on a CUDA
+   tensor, device memory grown by the members' KV (plus 64 MiB each) and
+   never by the weights; tokens/s beside phase 6's single engine (a smoke
+   reading); (b) one ``MultiTenantEngine``: a flood of 48 classify / embed
+   / score requests on ``cls`` (tinybert4) submitted before four of phase
+   6's generation requests (16-24 new tokens) on ``gen``: every request finishes, each
+   tenant's results byte-equal to the same requests served alone, a quota
+   rejection raised and then released; (c) the serve CLI in-process with
+   ``--replicas 2 --artifact`` (streams equal to one engine serving its
+   burst) and with two ``--tenant``s, then ``--tp 2``, refused for want of
+   a second card; (d) ``serve_load``'s ``mixed_tenant`` and
+   ``replica_scale`` (``--quick``), the JSON in
+   ``chiprun_out/BENCH_load_fleet.json``: the classify tenant's goodput
+   1.0 beside the flood, two replicas at least 1.8x one engine's virtual
+   capacity with byte-identical streams.
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -3564,6 +3584,302 @@ def train_cli_phase(dev) -> dict:
             "table3": [list(r) for r in table3], "table3_s": table3_s}
 
 
+# ----------------------------------------------------------------- phase 20
+#: the CLI burst of phase 20: the serve CLI's synthetic prompts (4-11
+#: tokens, 8 new each)
+FLEET_CLI_BURST = ["--requests", "16", "--slots", "8", "--max-len", "128"]
+#: the multi-tenant run: a classify flood of this many requests (4-128
+#: tokens) beside phase 6's generation requests of these indices
+TENANT_FLOOD = 48
+TENANT_GEN = (0, 5, 11, 7)             # 16, 16, 16 and 24 new tokens
+#: the replica sets serve phase 6's requests of these indices: those of at
+#: most 32 new tokens and the sampled one (index 16, n = 2, its two
+#: samples phase 6's streams 16 and 17)
+FLEET_REQUESTS = (0, 2, 5, 7, 9, 11, 13, 16)
+KV_SLACK = 64 << 20   # bytes of device memory a member may add past its KV
+
+
+def serve_fleet(rs, record: dict):
+    """Phase 6's requests ``FLEET_REQUESTS`` through the ReplicaSet ``rs``
+    (each member's forwards recorded into ``record``, as
+    ``record_forwards`` does for one engine); the results in submission
+    order, the n = 2 samples last."""
+    import copy
+    records = []
+    for e in rs.engines:
+        records.append({})
+        record_forwards(e, records[-1])
+    streams = []
+    traffic = decode_traffic(rs.engines[0].cfg.vocab_size)
+    for req in (traffic[i] for i in FLEET_REQUESTS):
+        out = rs.submit(copy.deepcopy(req))
+        streams += out if isinstance(out, list) else [out]
+    rs.run_until_drained()
+    record.update(prefill=[f for r in records for f in r["prefill"]],
+                  decode=[f for r in records for f in r["decode"]],
+                  per_member_decode=[len(r["decode"]) for r in records])
+    results = [st.result() for st in streams]
+    for r in results:
+        if r.finish_reason not in ("length", "stop"):
+            raise AssertionError(f"replica request {r.rid} finished {r.finish_reason!r}")
+    return results
+
+
+def _bytes(tensors) -> int:
+    return sum(int(t.numel()) * t.element_size() for t in tensors)
+
+
+def fleet_replicas(model, dense_streams: list, single: dict) -> dict:
+    """Part (a): ``ReplicaSet(2)`` over phase 6's kv8 model, dense and
+    paged, serving phase 6's requests ``FLEET_REQUESTS``: streams
+    byte-identical to phase 6's single engine, every member step launching what the plan names, no
+    plain version on a CUDA tensor, and the device memory grown by the two
+    members' KV (plus ``KV_SLACK`` each), never by a copy of the weights.
+    Tokens/s of each set beside phase 6's single engine on all of phase 6's
+    requests (this call): smoke readings of the system clock."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import ReplicaSet
+
+    weights = _bytes(_leaves(model.params))
+    want = [dense_streams[i] for i in FLEET_REQUESTS if i < 16] + dense_streams[16:]
+    out = {"weight_bytes": weights, "requests": list(FLEET_REQUESTS)}
+    for paging, per_step, kernels in (("dense", PER_DECODE_STEP, DECODER_KERNELS),
+                                      ("paged", PAGED_DECODE_STEP, PAGED_KERNELS)):
+        m = model if paging == "dense" else paged_model(model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        rs = ReplicaSet(m, replicas=2, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        kv = [_bytes(e.pool.bufs.values() if e.paged else e.kv.state.values())
+              for e in rs.engines]
+        if any(e.params is not m.params for e in rs.engines):
+            raise AssertionError(f"replicas {paging}: a member holds its own params")
+        if grown > sum(kv) + 2 * KV_SLACK or grown >= weights:
+            raise AssertionError(f"replicas {paging}: device memory grew {grown} B for "
+                                 f"{sum(kv)} B of KV ({weights} B of weights)")
+        record = {}
+        build.reset_counts()
+        t0 = time.perf_counter()
+        results = serve_fleet(rs, record)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        planned = check_launches(f"replicas {paging}", record, per_step,
+                                 decoder_linears(m.plan.cfg))
+        idle = [k for k in kernels if not launches[k] and (k != "act_quant" or planned)]
+        if idle:
+            raise AssertionError(f"replicas {paging}: kernels never launched: {idle}")
+        got = [list(map(int, r.tokens)) for r in results]
+        if got != want:
+            bad = sum(a != b for a, b in zip(got, want))
+            raise AssertionError(f"replicas {paging}: {bad} of {len(got)} streams differ "
+                                 "from phase 6's single engine")
+        tokens = sum(len(t) for t in got)
+        out[paging] = {"streams_equal_to_phase6": len(got), "launches": launches,
+                       "act_quant_planned": planned,
+                       "plain_on_cuda": dict(build.PLAIN_ON_CUDA),
+                       "decode_steps_per_member": record["per_member_decode"],
+                       "prefill_forwards": len(record["prefill"]),
+                       "memory_grown_bytes": grown, "kv_bytes_per_member": kv,
+                       "serve_s": serve_s, "tokens": tokens,
+                       "tokens_per_s": tokens / serve_s}
+        del rs
+    out["phase6_single_engine_tokens_per_s"] = single["tokens"] / single["serve_s"]
+    return out
+
+
+def fleet_tenants(enc, dec) -> dict:
+    """Part (b): one ``MultiTenantEngine`` hosting phase 3's tinybert4
+    artifact (``cls``) and phase 6's kv8 model (``gen``) on the card. A
+    classify flood submitted first, phase 6's generation requests
+    ``TENANT_GEN`` after it: every request finishes, each tenant's results are
+    byte-equal to the same requests served alone (a tenant's engine sees
+    the same admissions either way, since all are submitted before the
+    first step), and a quota rejection is raised and then released."""
+    import copy
+
+    from repro_torch.kernels import build
+    from repro_torch.serving import (EncodeRequest, GenerationRequest,
+                                     MultiTenantEngine, QuotaExceededError,
+                                     ServingEngine)
+
+    rng = np.random.default_rng(20)
+    tasks = ("classify", "embed", "score")
+    flood = [EncodeRequest(tokens=rng.integers(1, enc.plan.cfg.vocab_size,
+                                               int(rng.integers(4, 129))).astype(np.int32),
+                           task=tasks[i % 3]) for i in range(TENANT_FLOOD)]
+    traffic = decode_traffic(dec.plan.cfg.vocab_size)
+    gen = [traffic[i] for i in TENANT_GEN]
+    mt = MultiTenantEngine(quantum_tokens=64)
+    mt.add_tenant("cls", enc, slots=8, max_len=128)
+    mt.add_tenant("gen", dec, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
+    served = []
+    for name, t in mt.tenants.items():
+        real = t.engine.engine_step
+        t.engine.engine_step = (lambda n=name, f=real: (served.append(n), f())[1])
+    gc.collect()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    hs = [mt.submit_encode(copy.deepcopy(r), tenant="cls") for r in flood]
+    ss = [mt.submit(copy.deepcopy(r), tenant="gen") for r in gen]
+    steps = mt.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+    if any(plain.values()):
+        raise AssertionError(f"tenants: plain versions on CUDA {plain}")
+    if any(h.result().finish_reason != "done" for h in hs) or \
+            any(s.result().finish_reason not in ("length", "stop") for s in ss):
+        raise AssertionError("tenants: a request did not finish")
+    enc_alone = ServingEngine(enc, slots=8, max_len=128)
+    alone_h = [enc_alone.submit_encode(copy.deepcopy(r)) for r in flood]
+    enc_alone.run_until_drained()
+    dec_alone = ServingEngine(dec, slots=DECODE_SLOTS, max_len=DECODE_MAX_LEN)
+    alone_s = [dec_alone.submit(copy.deepcopy(r)) for r in gen]
+    dec_alone.run_until_drained()
+    for a, b in zip(hs, alone_h):
+        if not np.array_equal(np.asarray(a.result().value), np.asarray(b.result().value)):
+            raise AssertionError(f"tenants: cls request {a.rid} differs from serving alone")
+    for a, b in zip(ss, alone_s):
+        if not np.array_equal(a.result().tokens, b.result().tokens):
+            raise AssertionError(f"tenants: gen request {a.rid} differs from serving alone")
+    # the quota: a second request past the budget is refused, and fits once
+    # the first has finished and released its tokens
+    t = mt.tenants["gen"]
+    quota_req = lambda: GenerationRequest(prompt=gen[0].prompt.copy(), max_new_tokens=8)
+    t.token_budget = 2 * (len(gen[0].prompt) + 8) - 1     # one fits, two do not
+    mt.submit(quota_req(), tenant="gen")
+    held = t.outstanding_tokens
+    try:
+        mt.submit(quota_req(), tenant="gen")
+        raise AssertionError("tenants: the quota did not refuse a request past it")
+    except QuotaExceededError:
+        pass
+    mt.run_until_drained()
+    released = t.outstanding_tokens
+    mt.submit(quota_req(), tenant="gen")
+    mt.run_until_drained()
+    if released or t.outstanding_tokens:
+        raise AssertionError(f"tenants: quota not released ({released}, "
+                             f"{t.outstanding_tokens})")
+    by_label = mt.metrics.summary()["by_label"]
+    last_cls = max(i for i, n in enumerate(served[:steps]) if n == "cls")
+    return {"engine_steps": steps, "steps_by_tenant": {n: served[:steps].count(n)
+                                                        for n in ("cls", "gen")},
+            "last_cls_step": last_cls, "serve_s": serve_s, "launches": launches,
+            "plain_on_cuda": plain, "cls_equal_alone": len(hs),
+            "gen_equal_alone": len(ss), "quota_held_tokens": held,
+            "quota_rejected": 1, "quota_released": True,
+            "gen_tokens": int(sum(len(s.result().tokens) for s in ss)),
+            "by_label": by_label}
+
+
+def fleet_cli(dec, enc_art: Path, dec_art: Path) -> dict:
+    """Part (c): the serve CLI in-process with ``--replicas 2`` on phase 6's
+    artifact (its streams equal to one engine on the same model serving the
+    CLI's burst) and with ``--tenant cls=... --tenant gen=...``; then
+    ``--tp 2`` on this one card, which must be refused for want of cards."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.serving import GenerationRequest, ServingEngine
+
+    out = {}
+    runs = {"replicas": ["--artifact", str(dec_art), "--replicas", "2"],
+            "tenants": ["--tenant", f"cls={enc_art}", "--tenant", f"gen={dec_art}"]}
+    for name, argv in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        res = serve.main([*argv, *FLEET_CLI_BURST])
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"], plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+        if any(plain.values()):
+            raise AssertionError(f"serve CLI {name}: plain versions on CUDA {plain}")
+        if len(res["finish_reasons"]) != 16 or \
+                not set(res["finish_reasons"]) <= {"length", "stop", "done"}:
+            raise AssertionError(f"serve CLI {name}: finished {res['finish_reasons']}")
+        out[name] = res
+    # the CLI's burst (its generator, seed 0) through one engine on the
+    # model already resident: the replica set's streams must equal it
+    eng = ServingEngine(dec, slots=8, max_len=128)
+    rng = np.random.default_rng(0)
+    streams = []
+    for _ in range(16):
+        plen = int(rng.integers(4, 12))
+        prompt = rng.integers(1, dec.plan.cfg.vocab_size, plen).astype(np.int32)
+        streams.append(eng.submit(GenerationRequest(prompt=prompt, max_new_tokens=8)))
+    eng.run_until_drained()
+    want = [[int(t) for t in s.result().tokens] for s in streams]
+    if out["replicas"]["streams"] != want:
+        raise AssertionError("serve CLI --replicas 2: streams differ from one engine")
+    out["replicas"]["streams_equal_to_one_engine"] = len(want)
+    out["tenants"]["tenant_of_each"] = out["tenants"].pop("tenants")
+    out["tenants"].pop("outputs")
+    out["replicas"].pop("streams")
+    try:
+        serve.main(["--tp", "2", "--backend", "reference", *FLEET_CLI_BURST])
+        raise AssertionError("serve CLI --tp 2 ran on a host with one card")
+    except RuntimeError as e:
+        if f"tp=2 needs 2 devices, host has {torch.cuda.device_count()}" not in str(e):
+            raise
+        out["tp2_refused"] = str(e)
+    return out
+
+
+def fleet_scenarios(dev) -> dict:
+    """Part (d): ``serve_load``'s ``mixed_tenant`` (with ``encoder_steady``,
+    its neighbour in ``run_virtual_encoder``) and ``replica_scale``
+    (``--quick``) on the card, the JSON written to
+    ``chiprun_out/BENCH_load_fleet.json``: the classify tenant's goodput
+    1.0 beside the flood, and two replicas at least 1.8x one engine's
+    virtual capacity with byte-identical streams (``tools/check_bench.py``'s
+    gate)."""
+    from repro_torch.benchmarks import serve_load
+    virtual = serve_load.run_virtual_encoder(True, dev)
+    virtual["replica_scale"] = serve_load.run_replica_scale(dev)
+    path = ROOT / "chiprun_out" / "BENCH_load_fleet.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps({"bench": "serve_load", "quick": True,
+                                **serve_load.device_info(dev), "virtual": virtual},
+                               indent=2, sort_keys=True))
+    cls = virtual["mixed_tenant"]["summary"]["by_tenant"]["cls"]
+    rep = virtual["replica_scale"]
+    if cls["goodput"] != 1.0 or not rep["streams_match"] or rep["capacity_ratio"] < 1.8 \
+            or rep["replicas"]["goodput"]["mean"] != 1.0:
+        raise AssertionError(f"fleet scenarios: cls {cls}, replica_scale {rep}")
+    return {"mixed_tenant_by_tenant": virtual["mixed_tenant"]["summary"]["by_tenant"],
+            "replica_scale": rep, "json": str(path.relative_to(ROOT))}
+
+
+def fleet_phase(dev, dense_streams: list, single: dict) -> dict:
+    """Phase 20: replicas, tenants, the serve CLI's fleet flags and the
+    fleet scenarios, over phase 6's kv8 and phase 3's tinybert4
+    artifacts reloaded from ``build/``."""
+    from repro_torch.deploy import DeployedModel
+    dec_art = ROOT / "build" / "chip_smoke_decode_artifact"
+    enc_art = ROOT / "build" / "chip_smoke_artifact"
+    seconds = {}
+    t0 = time.perf_counter()
+    dec = DeployedModel.load(str(dec_art), device=dev)
+    enc = DeployedModel.load(str(enc_art), device=dev)
+    seconds["load"] = time.perf_counter() - t0
+    out = {}
+    for part, fn in (("replicas", lambda: fleet_replicas(dec, dense_streams, single)),
+                     ("tenants", lambda: fleet_tenants(enc, dec)),
+                     ("cli", lambda: fleet_cli(dec, enc_art, dec_art)),
+                     ("scenarios", lambda: fleet_scenarios(dev))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        seconds[part] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3747,7 +4063,7 @@ def main() -> int:
         emit({"phase": "load", "cell": name, **load[name]})
     emit({"phase": "serve_latency_json", **load["serve_latency"]})
     emit({"phase": "serve_load_json", **load["serve_load"]})
-    del models, dense_streams
+    del models                      # phase 20 reloads the kv8 artifact
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3769,6 +4085,12 @@ def main() -> int:
           "check_quality_rc": trained["check_quality_rc"],
           "check_quality": trained["check_quality"],
           "seconds": {k: trained[k] for k in ("table1_s", "quality_s", "table3_s")}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet = fleet_phase(dev, dense_streams[8], dec["per_kv"][8])
+    seconds["fleet"] = time.perf_counter() - t0
+    emit({"phase": "fleet", **fleet, "seconds_total": seconds["fleet"]})
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
         *(run["layers_max_abs_err_vs_plain"] for run in prefill.values()),
@@ -3792,7 +4114,12 @@ def main() -> int:
                         "load_decoder": load["decoder"]["launches"],
                         "load_encoder": load["encoder"]["launches"],
                         "qat_encoder": qat["launches"],
-                        "table1_quality": trained["quality_launches"]}
+                        "table1_quality": trained["quality_launches"],
+                        "fleet_replicas_dense": fleet["replicas"]["dense"]["launches"],
+                        "fleet_replicas_paged": fleet["replicas"]["paged"]["launches"],
+                        "fleet_tenants": fleet["tenants"]["launches"],
+                        "serve_cli_replicas": fleet["cli"]["replicas"]["launches"],
+                        "serve_cli_tenants": fleet["cli"]["tenants"]["launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
     planned = {"encoder": e2e["expected_launches"]["act_quant"],
@@ -3803,7 +4130,9 @@ def main() -> int:
                "prefix_paged_60pct_kv8": prefix["paged_prefix_60pct"]["act_quant_planned"],
                "score_dense_kv8": score["dense"]["act_quant_planned"],
                "score_paged_kv8": score["paged"]["act_quant_planned"],
-               "qat_encoder": qat["expected_launches"]["act_quant"]}
+               "qat_encoder": qat["expected_launches"]["act_quant"],
+               "fleet_replicas_dense": fleet["replicas"]["dense"]["act_quant_planned"],
+               "fleet_replicas_paged": fleet["replicas"]["paged"]["act_quant_planned"]}
     # the serve CLI's and the load generator's short prompts take split-K
     # (no act_quant) or not by their draw; the CLI's encoder policy is W4A4
     cli_decode = ("int8_matmul", "int4_matmul", "decode_attention")
@@ -3826,7 +4155,14 @@ def main() -> int:
                        ("load_encoder", ("int8_matmul", "int4_matmul",
                                          "int4_matmul_fused")),
                        ("qat_encoder", ("act_quant", "int4_matmul", "int4_matmul_fused")),
-                       ("table1_quality", GEMM_NAMES)):
+                       ("table1_quality", GEMM_NAMES),
+                       ("fleet_replicas_dense", DECODER_KERNELS),
+                       ("fleet_replicas_paged", PAGED_KERNELS),
+                       ("fleet_tenants", ("int8_matmul", "int4_matmul",
+                                          "int4_matmul_fused", "decode_attention")),
+                       ("serve_cli_replicas", cli_decode),
+                       ("serve_cli_tenants", ("int8_matmul", "int4_matmul",
+                                              "int4_matmul_fused", "decode_attention"))):
         idle = [k for k in need if not launches_by_path[path][k]
                 and (k != "act_quant" or planned.get(path, 1))]
         if idle:
@@ -3861,7 +4197,7 @@ def main() -> int:
                                   "table2": table2, "serve_cli": cli,
                                   "score_end_to_end": score, "load": load,
                                   "qat_end_to_end": qat, "train_cli": trained,
-                                  "seconds": seconds},
+                                  "fleet": fleet, "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})
     print(card_line(), flush=True)

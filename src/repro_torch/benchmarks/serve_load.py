@@ -12,16 +12,20 @@ offered load, the counterpart of the JAX package's
 * **virtual** — the same generator on a ``VirtualClock`` with a fixed
   ``VirtualCost``: steady, overload-shedding and cancel-churn scenarios on
   the decoder, the steady one again on a W4A4 engine, a pure encoder
-  stream, and the paged-vs-dense capacity burst under one KV byte budget.
-  Their goodput / shed / reject numbers are exact and machine-independent.
+  stream, ``mixed_tenant`` (one ``MultiTenantEngine`` hosting the encoder,
+  offered a modest stream, beside a W4A4 decoder flooded past its bounded
+  queue: the fair-share evidence, per tenant), the paged-vs-dense capacity
+  burst under one KV byte budget, and ``replica_scale`` (one engine vs a
+  ``ReplicaSet`` of two over the same model: capacity ratio and stream
+  identity). Their goodput / shed / reject numbers are exact and
+  machine-independent.
 
-The JAX file's ``mixed_tenant`` and ``replica_scale`` scenarios need the
-multi-tenant engine and replica sets, which arrive with a later slice of
-the port; they are not run. The int4 wall variant runs without the JAX
-engine's ``warmup=`` pre-compilation (the port's counterpart is the step
-under CUDA graphs, ROADMAP Queue 4 item 1: performance work after the first
-benchmark). The JSON keeps the JAX file's
-schema, so ``tools/check_bench.py`` reads it unchanged.
+The int4 wall variant runs without the JAX engine's ``warmup=``
+pre-compilation (the port's counterpart is the step under CUDA graphs,
+ROADMAP Queue 4 item 1: performance work after the first benchmark). The
+JSON keeps the JAX file's schema, so ``tools/check_bench.py`` reads it
+unchanged (it gates ``replica_scale``: at least 1.8x one engine's capacity
+and byte-identical streams).
 
 ``python -m repro_torch.benchmarks.serve_load [--quick] [--device cpu]
 [--trials N] [--trace T.json] [--out BENCH_load.json]``
@@ -37,11 +41,12 @@ import numpy as np
 import torch
 
 from ..core.policy import QuantPolicy
-from ..deploy import ExecutionPlan, deploy
+from ..deploy import DeployedModel, ExecutionPlan, deploy
 from ..device import resolve_device
 from ..models.bert import init_bert_classifier, tinybert_config
-from ..serving import (SLO, BlockPool, GenerationRequest, ServingEngine,
-                       VirtualClock, VirtualCost, Workload, bootstrap_summary,
+from ..serving import (SLO, BlockPool, GenerationRequest, MultiTenantEngine,
+                       ReplicaSet, ServingEngine, VirtualClock, VirtualCost,
+                       Workload, bootstrap_summary, make_arrivals, run_load,
                        run_trials)
 from ..serving.loadgen import load_trace
 from ..serving.prefix_cache import PREFIX_BLOCK
@@ -200,9 +205,16 @@ def encoder_model(dev):
 
 
 def run_virtual_encoder(quick: bool, dev) -> dict:
-    """``encoder_steady``: a pure classify stream against the encoder
-    engine, prefill-only goodput on the virtual clock."""
+    """Virtual-clock encoder and multi-tenant scenarios:
+
+    * ``encoder_steady``: a pure classify stream against the encoder
+      engine, prefill-only goodput;
+    * ``mixed_tenant``: ONE ``MultiTenantEngine`` hosting the encoder
+      ('cls', modest offered rate) beside a W4A4 decoder ('gen', flooded
+      past its bounded queue): deficit round-robin must keep the modest
+      tenant's goodput while the flood absorbs its own rejections."""
     n = 12 if quick else 32
+    out = {}
     bmodel = encoder_model(dev)
     w_enc = Workload(n_requests=n, rate_rps=40.0, vocab=256, prompt_len=(4, 12),
                      encode_frac=1.0)
@@ -211,10 +223,38 @@ def run_virtual_encoder(quick: bool, dev) -> dict:
                                                clock=VirtualClock()),
                          w_enc, n_trials=2, cost=VCOST)
     s = bootstrap_summary(results, slo_enc)
+    out["encoder_steady"] = {"cost": VCOST.__dict__, "summary": s}
     g = s.get("goodput", {"mean": 0.0})
     print(f"[virtual] encoder_steady: goodput {g['mean']:.3f}, "
           f"completed {s['n_completed']}/{s['n_counted']}")
-    return {"encoder_steady": {"cost": VCOST.__dict__, "summary": s}}
+
+    cfg = bench_config()
+    w4_plan = ExecutionPlan.build(cfg, _int4_policy(cfg), backend="cuda", act_bits=4)
+    lmodel = DeployedModel(plan=w4_plan, params=build_params(
+        cfg, _int4_policy(cfg), "cuda", None, dev, act_bits=4))
+    w_cls = Workload(n_requests=n, rate_rps=20.0, vocab=256, prompt_len=(4, 12),
+                     encode_frac=1.0, tenant="cls")
+    w_gen = Workload(n_requests=2 * n, rate_rps=300.0, vocab=cfg.vocab_size,
+                     prompt_len=(4, 12), new_tokens=(2, 6), tenant="gen")
+    slo_mix = SLO(ttft_s=0.5, itl_s=0.1)
+
+    def make_mt():
+        mt = MultiTenantEngine(clock=VirtualClock(), quantum_tokens=32)
+        mt.add_tenant("cls", bmodel, slots=2, max_len=64)
+        mt.add_tenant("gen", lmodel, slots=2, max_len=64, max_queue=4)
+        return mt
+
+    results = []
+    for i in range(2):
+        arrivals = sorted(make_arrivals(w_cls, seed=100 + i)
+                          + make_arrivals(w_gen, seed=200 + i), key=lambda a: a.t)
+        results.append(run_load(make_mt(), arrivals, cost=VCOST))
+    s = bootstrap_summary(results, slo_mix)
+    out["mixed_tenant"] = {"cost": VCOST.__dict__, "summary": s}
+    for name, cell in s.get("by_tenant", {}).items():
+        print(f"[virtual] mixed_tenant/{name}: goodput {cell['goodput']:.3f} "
+              f"({cell['n_good']}/{cell['n_counted']})")
+    return out
 
 
 def run_paged_capacity(quick: bool, dev) -> dict:
@@ -271,6 +311,64 @@ def run_paged_capacity(quick: bool, dev) -> dict:
     return out
 
 
+def run_replica_scale(dev) -> dict:
+    """One 2-slot engine vs a ``ReplicaSet`` of two over the same deployed
+    model (bench_config, W4A4 weights, kv_bits 8, the kernels), the same
+    burst of 24 short prompts with 16 new tokens each. Virtual time charges
+    one ``decode_step_s`` per ``engine_step()`` (a ReplicaSet pumps every
+    member: replicas as concurrent hardware) plus ``prefill_per_token_s``
+    per prompt token entering service, so ``capacity_ratio`` (single /
+    replicas elapsed) is 2.0 at ideal scaling; ``streams_match`` holds the
+    per-request tokens byte-identical across the two. ``--quick`` does not
+    shrink it: the burst is what the 1.8x gate was set on."""
+    n, slots, max_len, new_tokens = 24, 2, 64, 16
+    cfg = bench_config()
+    pol = _int4_policy(cfg)
+    plan = ExecutionPlan.build(cfg, pol, backend="cuda", kv_bits=8)
+    model = DeployedModel(plan=plan, params=build_params(cfg, pol, "cuda", None, dev))
+    rng = np.random.default_rng(42)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(3, 6))).astype(np.int32)
+               for _ in range(n)]
+
+    def burst(make_engine):
+        vc = VirtualClock()
+        eng = make_engine(vc)
+        streams = [eng.submit(GenerationRequest(prompt=p, max_new_tokens=new_tokens))
+                   for p in prompts]
+        plen = {s.rid: len(p) for s, p in zip(streams, prompts)}
+        seen: set = set()
+        for _ in range(10_000):
+            events = eng.engine_step()
+            # a rid's first event marks its prefill: charge its prompt
+            new = {rid for rid, _ in events} - seen
+            seen |= new
+            vc.advance(VCOST.decode_step_s + VCOST.prefill_per_token_s
+                       * sum(plen[r] for r in new))
+            if not eng.scheduler.has_work:
+                break
+        else:
+            raise RuntimeError("replica_scale burst did not drain")
+        done = eng.pop_done()
+        toks = [tuple(int(t) for t in s.result().tokens) for s in streams]
+        good = sum(r.finish_reason == "length" for r in done)
+        return {"elapsed_virtual_s": vc(), "n_requests": n,
+                "goodput": {"mean": good / n}}, toks
+
+    single_cell, single_toks = burst(
+        lambda vc: ServingEngine(model, slots=slots, max_len=max_len, clock=vc))
+    rep_cell, rep_toks = burst(
+        lambda vc: ReplicaSet(model, replicas=2, slots=slots, max_len=max_len, clock=vc))
+    ratio = single_cell["elapsed_virtual_s"] / max(rep_cell["elapsed_virtual_s"], 1e-9)
+    out = {"cost": VCOST.__dict__, "replica_count": 2, "single": single_cell,
+           "replicas": rep_cell, "capacity_ratio": ratio,
+           "streams_match": single_toks == rep_toks}
+    print(f"[virtual] replica_scale: {single_cell['elapsed_virtual_s']:.3f}s single vs "
+          f"{rep_cell['elapsed_virtual_s']:.3f}s x2 ({ratio:.2f}x), goodput "
+          f"{rep_cell['goodput']['mean']:.2f}/{single_cell['goodput']['mean']:.2f}, "
+          f"streams_match={out['streams_match']}")
+    return out
+
+
 def main(quick: bool = False, trials: Optional[int] = None,
          trace_path: Optional[str] = None,
          out: Optional[str] = "BENCH_load.json", device=None) -> dict:
@@ -280,6 +378,7 @@ def main(quick: bool = False, trials: Optional[int] = None,
     virtual = run_virtual(quick, dev)
     virtual.update(run_virtual_encoder(quick, dev))
     virtual["paged_capacity"] = run_paged_capacity(quick, dev)
+    virtual["replica_scale"] = run_replica_scale(dev)
     payload = {"bench": "serve_load", "quick": quick, "trace": trace_path,
                **device_info(dev), "wall": wall, "virtual": virtual}
     if out:

@@ -10,10 +10,18 @@ Layout:  <dir>/ARTIFACT.json   (format+version, cfg, policy, plan build args)
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 on a host without CUDA; pass ``device="cpu"`` for the plain CPU path.
+
+Tensor parallelism (a ``tp > 1`` plan): ``deploy`` and ``load`` run on
+every rank of a process group of ``tp`` ranks and keep this rank's shard
+(``distributed.shard_serving``); ``save`` gathers the full logical arrays
+(``gather_serving``) and rank 0 writes them, so an artifact's arrays never
+depend on the tp it was saved at, and ``load(tp=...)`` reshards it to any
+other degree.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -103,7 +111,18 @@ def deploy(params, plan: ExecutionPlan, calib_batches: Optional[list] = None,
         # retargets the stored scales onto its grid
         params_int = _rescale_act_scales(
             params_int, _act_scale_factors(plan, None, plan.act_bits))
-    return DeployedModel(plan=plan, params=params_int)
+    return DeployedModel(plan=plan, params=_place(params_int, plan, dev))
+
+
+def _place(params_int, plan: ExecutionPlan, dev):
+    """This rank's shard of a full deployed tree under a tp plan (the tree
+    itself at tp=1); raises outside a process group of ``plan.tp`` ranks."""
+    group = plan.make_group(dev)
+    if group is None:
+        return params_int
+    from ..distributed import serving_param_specs, shard_serving
+    return shard_serving(params_int, serving_param_specs(params_int),
+                         group.rank, group.tp)
 
 
 # ------------------------------------------------------ act-grid retargeting
@@ -188,13 +207,32 @@ class DeployedModel:
         return self.params["embed"].device
 
     def save(self, path: str) -> str:
+        """Write the artifact. Under a tp plan every rank must call this:
+        the shards are gathered to the full logical arrays and rank 0
+        writes them (the meta keeps the plan's tp); the others wait for
+        it."""
         meta = {"format": ARTIFACT_FORMAT, "version": ARTIFACT_VERSION,
                 **plan_to_meta(self.plan)}
-        return ckpt.save_artifact(path, self.params, meta)
+        group = self.plan.make_group(self.device)
+        if group is None:
+            return ckpt.save_artifact(path, self.params, meta)
+        import torch.distributed as dist
+
+        from ..distributed import gather_serving, serving_param_specs
+        full = gather_serving(self.params, serving_param_specs(self.params),
+                              group.tp)
+        if group.rank == 0:
+            path = ckpt.save_artifact(path, full, meta)
+        dist.barrier()
+        return os.path.abspath(path)
 
     @classmethod
-    def load(cls, path: str, *, device=None) -> "DeployedModel":
-        """Load a saved artifact (either package's) onto ``device``."""
+    def load(cls, path: str, *, tp: Optional[int] = None,
+             device=None) -> "DeployedModel":
+        """Load a saved artifact (either package's) onto ``device``.
+        ``tp`` overrides the recorded tensor-parallel degree (the arrays
+        are full logical arrays, so resharding is placement); a tp > 1
+        layout loads only in a process group of that many ranks."""
         dev = resolve_device(device)
         arrays, meta = ckpt.load_artifact(path)
         if meta.get("format") != ARTIFACT_FORMAT:
@@ -204,5 +242,8 @@ class DeployedModel:
             raise ValueError(
                 f"{path}: artifact version {meta['version']} is newer than "
                 f"this build understands ({ARTIFACT_VERSION})")
-        return cls(plan=plan_from_meta(meta),
-                   params=params_from_numpy(arrays, dev))
+        if tp is not None:
+            meta = {**meta, "build": {**meta["build"], "tp": int(tp)}}
+        plan = plan_from_meta(meta)
+        return cls(plan=plan,
+                   params=_place(params_from_numpy(arrays, dev), plan, dev))

@@ -16,9 +16,13 @@ between the two packages unchanged.
 Two modes are served: ``"encoder"`` (the bert family, prefill-only) and
 ``"decode"`` (the dense decoder and vlm families over a dense slot KV cache
 or a paged block pool, ``kv_paging``, at kv_bits 16, 8 or 4, chunked
-prefill, with the shared-prefix cache when ``prefix_cache > 0``). What
-later slices add raises ``ValueError`` naming that slice: tensor
-parallelism, token-mode prefill and the other model families.
+prefill, with the shared-prefix cache when ``prefix_cache > 0``). A
+``tp > 1`` plan shards the deployed integer weights and the KV heads over
+``tp`` ranks (``_validate_tp``: JAX's rules, in JAX's order) and runs the
+plain integer path, whose row-parallel int32 sums keep every stream
+byte-identical to tp=1; ``make_group`` checks the ranks when a model is
+placed, not at build. What later slices add raises ``ValueError`` naming
+that slice: token-mode prefill and the other model families.
 """
 from __future__ import annotations
 
@@ -43,6 +47,10 @@ MODES = ("decode", "encoder")
 #: as the JAX engine serves it)
 DECODE_FAMILIES = ("dense", "vlm")
 
+#: families whose decode state is not a KV slot cache (JAX's list): no
+#: sharding rules exist for their fp recurrent state
+TOKEN_ONLY_FAMILIES = ("xlstm", "hybrid", "encdec")
+
 #: the artifact meta's name for the kernel backend
 _META_BACKEND = {"cuda": "pallas"}
 _FROM_META_BACKEND = {"pallas": "cuda"}
@@ -53,15 +61,56 @@ _DECODE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def resolve_segments(cfg: ModelConfig, policy: Optional[QuantPolicy],
                      use_kernels: bool = False, fuse_epilogue: bool = False,
-                     act_bits: Optional[int] = None
+                     act_bits: Optional[int] = None, tp: int = 1
                      ) -> list[tuple[int, int, QuantSpec]]:
     """Policy -> contiguous (start, end, QuantSpec) runs. ``act_bits``: None
     keeps the policy's per-layer assignment, 4/8 forces that grid on every
-    quantized layer, 0 keeps activations in floating point."""
+    quantized layer, 0 keeps activations in floating point. ``tp`` is the
+    tensor-parallel degree the row-parallel linears sum over."""
     if policy is None:
         return [(0, cfg.num_layers, QuantSpec())]
     return segments_from_policy(policy, use_kernels, fuse_epilogue,
-                                act_bits=act_bits)
+                                act_bits=act_bits, tp=tp)
+
+
+def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
+                 act_bits: Optional[int], segments, tp: int) -> None:
+    """Structural checks of a tensor-parallel plan, the JAX package's
+    ``_validate_tp``: the same conditions in the same order, each naming
+    the knob that caused it."""
+    if backend != "reference":
+        raise ValueError(
+            f"tp={tp}: the hand-written kernels are single-device; shard on "
+            "backend='reference' (the plain integer path)")
+    if cfg.family in TOKEN_ONLY_FAMILIES:
+        raise ValueError(
+            f"tp={tp}: no sharding rules for family {cfg.family!r}'s fp "
+            "recurrent decode state; transformer-cache families only")
+    if policy is None or policy.mode != "int":
+        raise ValueError(
+            f"tp={tp} shards DEPLOYED integer weights (row-parallel partial "
+            "sums stay exact in int32); build from a mode='int' policy")
+    if act_bits == 0:
+        raise ValueError(
+            f"tp={tp} needs integer accumulation for byte-identical streams; "
+            "act_bits=0 contracts in floating point over the sharded axis")
+    for dim_name, dim in (("num_heads", cfg.num_heads),
+                          ("num_kv_heads", cfg.num_kv_heads),
+                          ("d_ff", cfg.d_ff)):
+        if dim % tp:
+            raise ValueError(
+                f"tp={tp} does not divide {dim_name}={dim}; pick a tp that "
+                "divides the attention-head and FFN dims")
+    # int4 codes pack two values a byte along the contracting axis, so a
+    # row-parallel int4 weight shards its packed K/2 rows
+    if any(sp.w_bits == 4 for _, _, sp in segments):
+        for dim_name, dim in (("num_heads*head_dim", cfg.num_heads * cfg.hd),
+                              ("d_ff", cfg.d_ff)):
+            if dim % (2 * tp):
+                raise ValueError(
+                    f"tp={tp} with int4 segments: packed codes shard the K/2 "
+                    f"nibble-pair rows, so {dim_name}={dim} must divide by "
+                    f"2*tp={2 * tp}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,10 +167,6 @@ class ExecutionPlan:
         if prefill_mode not in ("chunked", "token"):
             raise ValueError(f"prefill_mode must be 'auto', 'chunked' or "
                              f"'token', got {prefill_mode!r}")
-        tp = int(tp)
-        if tp != 1:
-            raise ValueError(f"tp={tp}: tensor parallelism is a later slice "
-                             "of the port")
         prefix_cache = int(prefix_cache)
         prefill_batch = int(prefill_batch)
         if prefix_cache < 0:
@@ -195,11 +240,16 @@ class ExecutionPlan:
         use_kernels = backend == "cuda"
         if fuse_epilogue is None:
             fuse_epilogue = use_kernels
-        segments = resolve_segments(cfg, policy, use_kernels, fuse_epilogue,
-                                    act_bits=act_bits)
         # lazy: repro_torch.serving imports deploy at module load
         from ..serving.api import SamplingParams
         sampling = SamplingParams.resolve(sampling)
+        tp = int(tp)
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        segments = resolve_segments(cfg, policy, use_kernels, fuse_epilogue,
+                                    act_bits=act_bits, tp=tp)
+        if tp > 1:
+            _validate_tp(cfg, policy, backend, act_bits, segments, tp)
         return cls(cfg=cfg, policy=policy, backend=backend, kv_bits=kv_bits,
                    prefill_mode=prefill_mode, decode_dtype=decode_dtype,
                    fuse_epilogue=bool(fuse_epilogue),
@@ -216,19 +266,35 @@ class ExecutionPlan:
         """The one fp dtype of the serving decode state."""
         return _DECODE_DTYPES[self.decode_dtype]
 
+    @property
+    def kv_heads(self) -> int:
+        """KV heads one rank holds: ``num_kv_heads / tp``."""
+        return self.cfg.num_kv_heads // self.tp
+
+    def make_group(self, device):
+        """This process's ``launch.mesh.TPGroup`` for the plan's tp degree,
+        or None at tp=1. Lazy on purpose, as JAX's ``make_mesh``: the ranks
+        are checked when a model is placed, not at build, so a tp=4 plan
+        builds (for inspection, or to reload at another tp) on a host with
+        one device and no process group."""
+        if self.tp == 1:
+            return None
+        from ..launch.mesh import make_tp_group
+        return make_tp_group(self.tp, device)
+
     def decode_state(self, batch: int, max_len: int, *,
                      per_slot_len: bool = False,
                      kv_bits: Optional[int] = None, device=None) -> dict:
-        """The decode state with the plan's dtype and kv_bits on ``device``.
-        The ``kv_bits`` override is for the engine's fp prefill scratch
-        cache: prefill runs at full precision and quantizes on slot
-        insert."""
+        """The decode state with the plan's dtype and kv_bits on ``device``,
+        this rank's ``kv_heads`` of it. The ``kv_bits`` override is for the
+        engine's fp prefill scratch cache: prefill runs at full precision
+        and quantizes on slot insert."""
         from ..models import api
         return api.decode_state(
             self.cfg, batch, max_len, self.torch_dtype,
             per_slot_len=per_slot_len,
             kv_bits=self.kv_bits if kv_bits is None else kv_bits,
-            device=device)
+            device=device, kv_heads=self.kv_heads)
 
     @property
     def deployed(self) -> bool:
@@ -257,7 +323,8 @@ class ExecutionPlan:
             ("" if self.kv_paging == "dense" else "kv_paging=paged, ")
             + f"kv_bits={self.kv_bits}, prefill={self.prefill_mode}, "
             f"dtype={self.decode_dtype}, ")
-        return (f"ExecutionPlan({self.cfg.name}, mode={self.mode}, "
+        tp = "" if self.tp == 1 else f"tp={self.tp}, "
+        return (f"ExecutionPlan({self.cfg.name}, mode={self.mode}, {tp}"
                 f"backend={self.backend}, {kv}segments=({segs}))")
 
 

@@ -1,0 +1,97 @@
+"""Tensor-parallel process groups of the port, the counterpart of the JAX
+package's ``make_tp_mesh``.
+
+A tp plan runs one process per rank. Every rank serves the same requests
+in the same order (the sampler's inputs are replicated), holds its slices
+of the weights and KV heads, and meets the others in one int32 all-reduce
+per row-parallel linear. On the CPU the ranks talk over gloo; on the card
+over NCCL, one card a rank.
+
+``spawn_tp(fn, tp, *args)`` starts ``tp`` ranks with
+``torch.multiprocessing`` and a ``torch.distributed.FileStore`` in a
+temporary directory (no port, no network), runs ``fn(*args)`` in each and
+returns rank 0's result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import tempfile
+from typing import Callable
+
+import torch
+
+__all__ = ["TPGroup", "make_tp_group", "spawn_tp"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """This process's place in a tensor-parallel group: ``rank`` of
+    ``tp``; the collectives use the default process group."""
+    tp: int
+    rank: int
+
+
+def make_tp_group(tp: int, device) -> TPGroup:
+    """The group a tp plan serves in. The caller (``spawn_tp``, or its own
+    launcher) has initialised the default process group with ``tp`` ranks:
+    gloo for CPU tensors, NCCL for CUDA ones with one card a rank. A host
+    with fewer than ``tp`` cards raises, as JAX's ``make_tp_mesh`` does for
+    devices; so does a missing or differently sized group."""
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        have = torch.cuda.device_count()
+        if have < tp:
+            raise RuntimeError(f"tp={tp} needs {tp} devices, host has {have} "
+                               "(the CPU runs any tp over gloo: --device cpu)")
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"tp={tp} needs a process group of {tp} ranks, this process has 1 "
+            "(no group: start the ranks with repro_torch.launch.mesh.spawn_tp, "
+            f"or init_process_group with world_size={tp})")
+    world = dist.get_world_size()
+    if world != tp:
+        raise RuntimeError(f"tp={tp} needs a process group of {tp} ranks, "
+                           f"this one has {world}")
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    backend = dist.get_backend()
+    if backend != want:
+        raise RuntimeError(f"tp={tp} on {dev.type} runs over {want}, the "
+                           f"process group uses {backend}")
+    return TPGroup(tp=tp, rank=dist.get_rank())
+
+
+def _rank_main(rank: int, tp: int, store_dir: str, backend: str,
+               fn: Callable, args: tuple) -> None:
+    import torch.distributed as dist
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    store = dist.FileStore(os.path.join(store_dir, "store"), tp)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=tp)
+    try:
+        out = fn(*args)
+        if rank == 0:
+            with open(os.path.join(store_dir, "result.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_tp(fn: Callable, tp: int, *args, device="cpu"):
+    """Run ``fn(*args)`` on ``tp`` freshly spawned ranks in one process
+    group (gloo on the CPU, NCCL on the card) and return rank 0's result.
+    ``fn`` must be importable by name (a module-level function). A rank
+    that raises makes this raise once every rank has ended."""
+    import torch.multiprocessing as mp
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < tp:
+        raise RuntimeError(f"tp={tp} needs {tp} devices, host has "
+                           f"{torch.cuda.device_count()}")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="repro_torch_tp_") as d:
+        mp.start_processes(_rank_main, args=(tp, d, backend, fn, args),
+                           nprocs=tp, join=True, start_method="spawn")
+        with open(os.path.join(d, "result.pkl"), "rb") as f:
+            return pickle.load(f)

@@ -12,7 +12,12 @@ Entry modes:
                      byte-identical to the in-memory run that exported it;
 * ``--mode encoder`` prefill-only serving: deploys an int4 BERT classifier
                      (or loads one with --artifact) and serves a burst of
-                     ``EncodeRequest``\\ s (``--task`` classify/embed/score).
+                     ``EncodeRequest``\\ s (``--task`` classify/embed/score);
+* ``--tenant NAME=DIR`` (repeatable) multi-tenant serving: each NAME loads
+                     the artifact at DIR into one ``MultiTenantEngine``
+                     (shared clock and metrics, deficit-round-robin fair
+                     share); the burst round-robins over the tenants, encode
+                     traffic for encoder artifacts, generation otherwise.
 
 Generation flags map onto the request API: ``--temperature/--top-k/
 --top-p/--seed`` build the burst's ``SamplingParams`` (temperature 0 =
@@ -22,13 +27,22 @@ stop-token ids, ``--stream`` prints each token as the engine emits it.
 pool, ``--prefix-cache-mb`` turns on shared-prefix reuse, ``--policy-from``
 deploys the per-layer bit assignment a search artifact chose.
 
+Scale axes (DESIGN.md §16): ``--replicas N`` serves the burst through a
+``ReplicaSet`` of N engines over the one deployed model (least-loaded
+dispatch, one rid space); ``--tp N`` shards the deployed weights and KV
+heads over N ranks, one process each (``launch.mesh.spawn_tp``): over gloo
+with ``--device cpu``, over NCCL on N cards with ``cuda`` (a host with
+fewer cards is refused). Tensor parallelism runs the plain integer path
+(``--backend reference``; the kernels are single-device); with
+``--artifact`` it reshards the saved layout to N at load. Rank 0 prints
+and returns the run.
+
 The port runs on the card: ``--device`` defaults to ``cuda`` and raises on
 a host without CUDA unless ``--device cpu`` is passed; it never falls back
 on its own. ``--backend cuda`` (the default) runs the hand-written kernels,
-``reference`` the plain integer path. Flags of later slices are refused
-with an error naming what they wait for: ``--tenant``, ``--tp`` > 1 and
-``--replicas`` > 1 (device layout and fleet), ``--warmup`` (the engine's
-step under CUDA graphs, performance work after the first benchmark).
+``reference`` the plain integer path. ``--warmup`` is refused with an
+error naming what it waits for (the engine's step under CUDA graphs,
+performance work after the first benchmark).
 
 ``main(argv)`` returns what the run served (each request's tokens or
 encode result, the metrics summary), so a caller can compare two runs.
@@ -45,17 +59,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..serving import (EncodeRequest, GenerationRequest, QueueFullError,
-                       SamplingParams, ServingEngine)
+from ..serving import (EncodeRequest, GenerationRequest, MultiTenantEngine,
+                       QueueFullError, ReplicaSet, SamplingParams,
+                       ServingEngine)
 
 #: flags that wait for a later slice of the port: flag -> what they need
-LATER = {"--tenant": "multi-tenant serving (ROADMAP Queue 1 item 6, device "
-                     "layout and fleet)",
-         "--tp": "tensor parallelism (ROADMAP Queue 1 item 6, device layout "
-                 "and fleet)",
-         "--replicas": "data-parallel replicas (ROADMAP Queue 1 item 6, "
-                       "device layout and fleet)",
-         "--warmup": "the engine's step under CUDA graphs (ROADMAP Queue 4 "
+LATER = {"--warmup": "the engine's step under CUDA graphs (ROADMAP Queue 4 "
                      "item 1, performance work after the first benchmark)"}
 
 
@@ -75,7 +84,7 @@ def _build_encoder_model(args, dev):
     plan = ExecutionPlan.build(cfg, policy, backend=args.backend,
                                mode="encoder",
                                prefill_batch=max(args.prefill_batch, 1),
-                               act_bits=args.act_bits)
+                               act_bits=args.act_bits, tp=args.tp or 1)
     params = init_bert_classifier(cfg, 2, torch.Generator(device=dev).manual_seed(0),
                                   dev)
     rng = np.random.default_rng(0)
@@ -85,7 +94,7 @@ def _build_encoder_model(args, dev):
     return deploy(params, plan, calib, device=dev)
 
 
-def _build_model(args, dev):
+def _build_model(args, dev, say=print):
     """ExecutionPlan + in-process deployment (the non-artifact path)."""
     from ..configs import get_config, reduced
     from ..core.policy import QuantPolicy
@@ -99,7 +108,7 @@ def _build_model(args, dev):
     if args.policy_from:
         from ..core.autosearch import load_search_policy
         policy = load_search_policy(args.policy_from, n_units)
-        print(f"[serve] policy from {args.policy_from}: {policy.describe()}")
+        say(f"[serve] policy from {args.policy_from}: {policy.describe()}")
     else:
         k4 = args.int4_last_k if args.int4_last_k >= 0 else n_units // 2
         policy = QuantPolicy(num_layers=n_units, mode="int", last_k_int4=k4)
@@ -109,7 +118,7 @@ def _build_model(args, dev):
                                prefix_cache=int(args.prefix_cache_mb * (1 << 20)),
                                prefill_batch=args.prefill_batch,
                                act_bits=args.act_bits,
-                               kv_paging=args.kv_paging)
+                               kv_paging=args.kv_paging, tp=args.tp or 1)
     params = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     return deploy(params, plan, device=dev)
 
@@ -128,7 +137,9 @@ def parser() -> argparse.ArgumentParser:
                    choices=["classify", "embed", "score"],
                    help="what the --mode encoder burst asks for per request")
     p.add_argument("--tenant", action="append", default=None, metavar="NAME=DIR",
-                   help="refused: " + LATER["--tenant"])
+                   help="repeatable: host the artifact at DIR as tenant NAME "
+                        "in one MultiTenantEngine (deficit-round-robin fair "
+                        "share; encoder and decoder artifacts mix)")
     p.add_argument("--requests", type=int, default=16)
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-len", type=int, default=128)
@@ -176,9 +187,15 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--stream", action="store_true",
                    help="print every token as the engine emits it")
     p.add_argument("--tp", type=int, default=None, metavar="N",
-                   help="tensor-parallel degree; > 1 refused: " + LATER["--tp"])
+                   help="tensor-parallel degree: shard the deployed weights "
+                        "and KV heads over N ranks (gloo on --device cpu, "
+                        "NCCL over N cards); needs --backend reference; with "
+                        "--artifact, reshards the saved layout to N (default: "
+                        "the recorded layout, or 1 when building)")
     p.add_argument("--replicas", type=int, default=1, metavar="N",
-                   help="replica count; > 1 refused: " + LATER["--replicas"])
+                   help="data-parallel replica count: N engines over the one "
+                        "deployed model behind one admission queue "
+                        "(least-loaded dispatch, shared rid space)")
     p.add_argument("--warmup", action="store_true",
                    help="refused: " + LATER["--warmup"])
     p.add_argument("--artifact", default=None, metavar="DIR",
@@ -192,18 +209,11 @@ def parser() -> argparse.ArgumentParser:
 
 def _later_slice(p, args) -> None:
     """Refuse the flags a later slice of the port brings."""
-    used = {"--tenant": bool(args.tenant),
-            "--tp": args.tp is not None and args.tp > 1,
-            "--replicas": args.replicas > 1,
-            "--warmup": args.warmup}
-    for flag, on in used.items():
-        if on:
-            p.error(f"{flag} is a later slice of the port: {LATER[flag]}")
+    if args.warmup:
+        p.error(f"--warmup is a later slice of the port: {LATER['--warmup']}")
 
 
 def main(argv: Optional[list] = None) -> dict:
-    from ..deploy import DeployedModel
-
     p = parser()
     args = p.parse_args(argv)
     _later_slice(p, args)
@@ -224,39 +234,79 @@ def main(argv: Optional[list] = None) -> dict:
         p.error(f"--tp must be >= 1, got {args.tp}")
     if args.replicas < 1:
         p.error(f"--replicas must be >= 1, got {args.replicas}")
+    if args.tenant and (args.tp is not None or args.replicas > 1):
+        p.error("--tenant engines serve each artifact's own recorded "
+                "layout; --tp/--replicas apply to single-model serving")
+    if args.tenant:
+        if args.artifact or args.export:
+            p.error("--tenant hosts saved artifacts; it cannot be combined "
+                    "with --artifact/--export")
+        return _main_tenants(args, resolve_device(args.device))
     dev = resolve_device(args.device)
+    if args.tp is not None and args.tp > 1:
+        if not args.artifact and args.backend != "reference":
+            p.error(f"--tp {args.tp} runs the plain integer path (the "
+                    "hand-written kernels are single-device): pass --backend "
+                    "reference")
+        from .mesh import spawn_tp
+        return spawn_tp(_tp_rank, args.tp, args, device=dev)
+    return _serve(args, dev)
+
+
+def _tp_rank(args) -> dict:
+    """One rank of ``--tp N``: the whole run, on this rank's shard; only
+    rank 0 prints."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    dev = torch.device(args.device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank)
+    return _serve(args, dev, say=print if rank == 0 else (lambda *a: None))
+
+
+def _serve(args, dev, say=print) -> dict:
+    """Build or load the model, serve the burst, report (rank 0's view
+    under ``--tp``)."""
+    from ..deploy import DeployedModel
 
     if args.artifact:
-        model = DeployedModel.load(args.artifact, device=dev)
+        model = DeployedModel.load(args.artifact, tp=args.tp, device=dev)
         if args.act_bits is not None and args.act_bits != model.plan.act_bits:
             from ..deploy import retarget_act_bits
             model = retarget_act_bits(model, args.act_bits)
-            print(f"[serve] retargeted activations to "
-                  f"{'fp' if args.act_bits == 0 else f'{args.act_bits}-bit'}")
-        print(f"[serve] loaded artifact {args.artifact}: {model.plan.describe()}")
+            say(f"[serve] retargeted activations to "
+                f"{'fp' if args.act_bits == 0 else f'{args.act_bits}-bit'}")
+        say(f"[serve] loaded artifact {args.artifact}: {model.plan.describe()}")
     else:
         model = (_build_encoder_model(args, dev) if args.mode == "encoder"
-                 else _build_model(args, dev))
+                 else _build_model(args, dev, say))
         if args.export:
             path = model.save(args.export)
-            print(f"[serve] exported artifact to {path}")
+            say(f"[serve] exported artifact to {path}")
     if args.mode == "encoder" and model.plan.mode != "encoder":
-        p.error(f"--mode encoder needs a mode='encoder' artifact; "
-                f"{args.artifact or 'the built model'} is "
-                f"mode={model.plan.mode!r}")
+        parser().error(f"--mode encoder needs a mode='encoder' artifact; "
+                       f"{args.artifact or 'the built model'} is "
+                       f"mode={model.plan.mode!r}")
 
     cfg = model.plan.cfg
     kv_budget = (int(args.kv_budget_mb * (1 << 20))
                  if args.kv_budget_mb is not None else None)
-    eng = ServingEngine(model, slots=args.slots, max_len=args.max_len,
-                        max_queue=args.max_queue, kv_budget_bytes=kv_budget)
+    if args.replicas > 1:
+        eng = ReplicaSet(model, replicas=args.replicas, slots=args.slots,
+                         max_len=args.max_len, max_queue=args.max_queue,
+                         kv_budget_bytes=kv_budget)
+        say(f"[serve] replica set: {args.replicas} engines, "
+            f"{args.slots} slots each")
+    else:
+        eng = ServingEngine(model, slots=args.slots, max_len=args.max_len,
+                            max_queue=args.max_queue, kv_budget_bytes=kv_budget)
     if model.plan.mode == "encoder":
-        return _serve_encoder_burst(args, eng, cfg)
+        return _serve_encoder_burst(args, eng, cfg, say)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p, seed=args.seed, n=args.n)
     stop = (frozenset(int(t) for t in args.stop.split(","))
             if args.stop else frozenset())
-    on_token = ((lambda rid, tok: print(f"[stream] rid={rid} tok={tok}"))
+    on_token = ((lambda rid, tok: say(f"[stream] rid={rid} tok={tok}"))
                 if args.stream else None)
 
     rng = np.random.default_rng(0)
@@ -281,18 +331,80 @@ def main(argv: Optional[list] = None) -> dict:
     finished = sorted(eng.pop_done(), key=lambda r: r.rid)
     total_tokens = sum(len(r.out) for r in finished)
     stopped = sum(r.finish_reason == "stop" for r in finished)
-    print(f"[serve] {len(finished)} requests, {total_tokens} tokens, "
-          f"{steps} engine steps, {dt:.2f}s "
-          f"({total_tokens / max(dt, 1e-9):.1f} tok/s, "
-          f"{stopped} stop-token exits)")
-    print(f"[serve] {eng.metrics.report()}")
+    say(f"[serve] {len(finished)} requests, {total_tokens} tokens, "
+        f"{steps} engine steps, {dt:.2f}s "
+        f"({total_tokens / max(dt, 1e-9):.1f} tok/s, "
+        f"{stopped} stop-token exits)")
+    say(f"[serve] {eng.metrics.report()}")
     return {"plan": model.plan.describe(), "steps": steps, "seconds": dt,
             "streams": [[int(t) for t in r.out] for r in finished],
             "finish_reasons": [r.finish_reason for r in finished],
             "metrics": eng.metrics.summary()}
 
 
-def _serve_encoder_burst(args, eng, cfg) -> dict:
+def _main_tenants(args, dev) -> dict:
+    """--tenant NAME=DIR...: host every artifact in one MultiTenantEngine
+    and round-robin a synthetic burst across the tenants (encode traffic for
+    encoder artifacts, generation otherwise), as JAX's CLI does."""
+    from ..deploy import DeployedModel
+
+    pairs = []
+    for spec in args.tenant:
+        name, sep, path = spec.partition("=")
+        if not sep or not name or not path:
+            raise SystemExit(f"--tenant expects NAME=DIR, got {spec!r}")
+        pairs.append((name, path))
+
+    mt = MultiTenantEngine()
+    plans = {}
+    for name, path in pairs:
+        model = DeployedModel.load(path, device=dev)
+        mt.add_tenant(name, model, slots=args.slots, max_len=args.max_len,
+                      max_queue=args.max_queue)
+        plans[name] = model.plan.describe()
+        print(f"[serve] tenant {name!r}: {plans[name]}")
+
+    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p, seed=args.seed)
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    steps = 0
+    for i in range(args.requests):
+        name = pairs[i % len(pairs)][0]
+        t = mt.tenants[name]
+        vocab = t.engine.cfg.vocab_size
+        plen = int(rng.integers(4, 12))
+        toks = rng.integers(1, vocab, plen).astype(np.int32)
+        while True:
+            try:
+                if t.engine.mode == "encoder":
+                    mt.submit_encode(EncodeRequest(tokens=toks, task=args.task),
+                                     tenant=name)
+                else:
+                    mt.submit(GenerationRequest(prompt=toks, max_new_tokens=8,
+                                                sampling=sampling), tenant=name)
+                break
+            except QueueFullError:       # backpressure: drain a round, retry
+                mt.engine_step()
+                steps += 1
+    steps += mt.run_until_drained()
+    dt = time.time() - t0
+    finished = mt.pop_done()
+    print(f"[serve] multi-tenant burst: {len(finished)} requests over "
+          f"{len(pairs)} tenants, {steps} engine steps, {dt:.2f}s")
+    print(f"[serve] {mt.metrics.report()}")
+    names = {r.rid: pairs[i % len(pairs)][0] for i, r in
+             enumerate(sorted(finished, key=lambda r: r.rid))}
+    return {"plans": plans, "steps": steps, "seconds": dt,
+            "tenants": [names[r.rid] for r in finished],
+            "outputs": [np.asarray(r.result).tolist()
+                        if isinstance(r, EncodeRequest)
+                        else [int(x) for x in r.out] for r in finished],
+            "finish_reasons": [r.finish_reason for r in finished],
+            "metrics": mt.metrics.summary()}
+
+
+def _serve_encoder_burst(args, eng, cfg, say=print) -> dict:
     """Synthetic prefill-only burst: submit EncodeRequests, drain, report."""
     rng = np.random.default_rng(0)
     t0 = time.time()
@@ -313,10 +425,10 @@ def _serve_encoder_burst(args, eng, cfg) -> dict:
     finished = sorted(eng.pop_done(), key=lambda r: r.rid)
     done = sum(r.finish_reason == "done" for r in finished)
     total = sum(len(r.tokens) for r in finished)
-    print(f"[serve] encoder burst: {len(finished)} requests ({done} done), "
+    say(f"[serve] encoder burst: {len(finished)} requests ({done} done), "
           f"{total} input tokens, {steps} engine steps, {dt:.2f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s, task={args.task})")
-    print(f"[serve] {eng.metrics.report()}")
+    say(f"[serve] {eng.metrics.report()}")
     return {"plan": eng.plan.describe(), "steps": steps, "seconds": dt,
             "results": [np.asarray(r.result).tolist() for r in finished],
             "finish_reasons": [r.finish_reason for r in finished],

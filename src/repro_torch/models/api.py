@@ -54,15 +54,17 @@ def forward(params, plan, *, state: Optional[dict] = None, tokens,
 def decode_state(cfg: ModelConfig, batch: int, max_len: int,
                  dtype: torch.dtype = torch.bfloat16, *,
                  per_slot_len: bool = False, kv_bits: Optional[int] = None,
-                 device=None) -> dict:
+                 device=None, kv_heads: Optional[int] = None) -> dict:
     """The KV cache of ``batch`` rows of ``max_len`` positions on
     ``device``: fp rows in ``dtype`` at kv_bits 16, the packed quantized
     layout at 8/4 (``None`` follows ``cfg.kv_bits``). ``per_slot_len``
     gives a (batch,) cursor vector so a serving slot table refills slots
-    independently. Serving callers use ``plan.decode_state``, so cache,
-    prefill and decode share the plan's one decode dtype."""
+    independently. ``kv_heads`` is the number of KV heads held (a
+    tensor-parallel rank's share; default all). Serving callers use
+    ``plan.decode_state``, so cache, prefill and decode share the plan's
+    one decode dtype and head share."""
     _check_family(cfg)
     kv_bits = cfg.kv_bits if kv_bits is None else kv_bits
     return transformer.lm_caches(cfg, batch, max_len, dtype,
                                  per_slot_len=per_slot_len, kv_bits=kv_bits,
-                                 device=device)
+                                 device=device, kv_heads=kv_heads)

@@ -15,6 +15,14 @@ decode-attention kernel), or ``ops.decode_attention_paged`` over a paged
 block pool; every other quantized-cache step dequantizes and attends in
 PyTorch, and every other paged step first gathers the slots' blocks
 through their tables (``gather_kv_blocks``), as the JAX engine does.
+
+Under tensor parallelism (``spec.tp > 1``, the plain path only) a rank
+holds ``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads.
+``rank_attention`` widens its heads to the model's full head count with
+zeros before each plain attention and narrows the result: every
+contraction then runs at tp=1's shapes, so its per-head bits cannot depend
+on how many heads a rank holds (a batched contraction over heads may split
+its sums differently at another head count). tp=1 runs exactly as it did.
 """
 from __future__ import annotations
 
@@ -100,6 +108,28 @@ def cached_decode_attention(q, k_cache, v_cache, k_new, v_new, length):
             + torch.einsum("bhqk,bkhd->bqhd", p2, v_new))
 
 
+def _widen(x: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
+    """A rank's heads (axis 2 of a (B, S, h, dh) tensor) at their place
+    among all ``tp * h`` heads, zeros elsewhere: tp=1's shape and strides."""
+    B, S, h, dh = x.shape
+    out = x.new_zeros((B, S, h * tp, dh))
+    out[:, :, rank * h:(rank + 1) * h] = x
+    return out
+
+
+def rank_attention(attn, rank: int, tp: int, q, *args, **kwargs):
+    """``attn`` (a plain attention of this module) over rank ``rank``'s
+    heads of ``tp``: every positional (B, S, heads, dh) operand widened to
+    the model's full head count (``_widen``), the (B, Sq, H, dh) result
+    narrowed back to the rank's query heads. At tp=1 it is ``attn``."""
+    if tp == 1:
+        return attn(q, *args, **kwargs)
+    wide = [_widen(a, rank, tp) if isinstance(a, torch.Tensor) and a.dim() == 4
+            else a for a in (q, *args)]
+    h = q.shape[2]
+    return attn(*wide, **kwargs)[:, :, rank * h:(rank + 1) * h]
+
+
 def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                     hd: int, spec: QuantSpec, causal: bool = True,
                     rope: bool = False, rope_theta: float = 10000.0,
@@ -145,6 +175,11 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         k = apply_rope(k, cos, sin)
     groups = n_heads // n_kv
     new_kv = None
+    tp, rank = spec.tp, 0
+    if tp > 1:
+        import torch.distributed as dist
+        rank = dist.get_rank()
+    attend = lambda fn, *a, **kw: rank_attention(fn, rank, tp, *a, **kw)
     paged = cache is not None and "tables" in cache
     if paged and not ("k_q" in cache and spec.use_kernels and Sq == 1):
         # no kernel for this step: gather the dense layout the tables
@@ -173,22 +208,22 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                                             q.dtype), groups)
             vv_c = _repeat_kv(dequantize_kv(cache["v_q"], cache["v_scale"],
                                             q.dtype), groups)
-            out = cached_decode_attention(q, kk_c, vv_c, _repeat_kv(k, groups),
-                                          _repeat_kv(v, groups), cache["len"])
+            out = attend(cached_decode_attention, q, kk_c, vv_c,
+                         _repeat_kv(k, groups), _repeat_kv(v, groups), cache["len"])
         new_kv = (k, v)
     elif cache is not None:
-        out = cached_decode_attention(
-            q, _repeat_kv(cache["k"].to(q.dtype), groups),
-            _repeat_kv(cache["v"].to(q.dtype), groups),
-            _repeat_kv(k, groups), _repeat_kv(v, groups), cache["len"])
+        out = attend(cached_decode_attention,
+                     q, _repeat_kv(cache["k"].to(q.dtype), groups),
+                     _repeat_kv(cache["v"].to(q.dtype), groups),
+                     _repeat_kv(k, groups), _repeat_kv(v, groups), cache["len"])
         new_kv = (k, v)
     elif chunk and Sq > chunk and Sq % chunk == 0 and kv_len is None:
-        out = chunked_attention(q, k, v, causal=causal, chunk=chunk,
-                                use_kernel=spec.use_kernels)
+        out = attend(chunked_attention, q, k, v, causal=causal, chunk=chunk,
+                     use_kernel=spec.use_kernels)
     else:
-        out = full_attention(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
-                             causal=causal,
-                             kv_len=(None if kv_len is None
-                                     else kv_len.reshape(-1, 1, 1, 1)))
-    out = qlinear(out.reshape(B, Sq, n_heads * hd), p["wo"], spec)
+        out = attend(full_attention, q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+                     causal=causal,
+                     kv_len=(None if kv_len is None else kv_len.reshape(-1, 1, 1, 1)))
+    out = qlinear(out.reshape(B, Sq, n_heads * hd), p["wo"], spec,
+                  row_parallel=True)
     return (out, new_kv, taps) if want_taps else (out, new_kv)

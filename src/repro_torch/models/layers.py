@@ -14,7 +14,10 @@ never quantized.
                  dequant; weights arrive pre-quantized (packed int4 or int8)
                  via core.packing. ``use_kernels`` dispatches to the
                  hand-written kernels (``kernels.ops``); otherwise the plain
-                 integer path below runs.
+                 integer path below runs. Under tensor parallelism
+                 (``spec.tp > 1``) a row-parallel linear holds a slice of K
+                 and sums its int32 accumulator over the ranks before the
+                 dequantization, so the result is tp=1's to the bit.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ class QuantSpec:
     grad_mode: str = "mse"
     use_kernels: bool = False   # int mode: hand-written kernels vs plain int path
     fuse_epilogue: bool = False  # int4 kernels: fold bias+act into the matmul
+    tp: int = 1                 # tensor-parallel ranks a row-parallel sum spans
 
     @property
     def enabled(self) -> bool:
@@ -50,19 +54,22 @@ class QuantSpec:
 
 
 def qlinear(x: torch.Tensor, p: dict, spec: QuantSpec,
-            act: Optional[str] = None) -> torch.Tensor:
+            act: Optional[str] = None, row_parallel: bool = False) -> torch.Tensor:
     """Quantizable linear. p holds either fp or deployed-int parameters.
 
     fp params:  {'w': (K, N), 'b': (N,)?, 's_w': (1, N), 's_a': ()}
     int params: {'wq': packed, 's_w': (1, N), 's_a': (), 'b': (N,)?}
 
     ``act`` (fused-epilogue callers only): fold this activation into the
-    int4 kernel's epilogue together with dequant+bias.
+    int4 kernel's epilogue together with dequant+bias. ``row_parallel``
+    marks the linears whose K a tp plan shards (wo, w2): at ``spec.tp > 1``
+    their int32 partial sums are all-reduced over the ranks.
     """
     if calibration.active():
         calibration.record_input(x)
     if spec.mode == "int":
-        return _qlinear_int(x, p, spec, act=act)
+        return _qlinear_int(x, p, spec, act=act,
+                            reduce=row_parallel and spec.tp > 1)
     assert act is None, "fused act requires the deployed int4 kernel path"
     w = p["w"]
     if spec.mode == "fake" and spec.enabled:
@@ -77,13 +84,20 @@ def qlinear(x: torch.Tensor, p: dict, spec: QuantSpec,
 
 
 def _qlinear_int(x: torch.Tensor, p: dict, spec: QuantSpec,
-                 act: Optional[str] = None) -> torch.Tensor:
+                 act: Optional[str] = None, reduce: bool = False) -> torch.Tensor:
     """Deployed integer path. Activations quantized on the fly (per-tensor
     scale); ``a_bits == 0`` keeps them fp against dequantized weights, the
-    weight-only parity baseline (reference backend only)."""
+    weight-only parity baseline (reference backend only). ``reduce``: sum
+    the int32 accumulator over the tensor-parallel ranks, before the
+    dequantization and the replicated bias (the plain integer path only,
+    which is what a tp plan runs)."""
     s_a, s_w = p["s_a"], p["s_w"]
     a_bits = spec.a_bits
     b = p.get("b")
+    if reduce and (a_bits == 0 or spec.use_kernels):
+        raise ValueError("a tensor-parallel row-parallel linear sums int32 "
+                         "partials on the plain integer path only (backend "
+                         "'reference', integer activations)")
     if a_bits == 0:
         assert not spec.use_kernels and act is None, \
             "fp-activation fallback is reference-backend only"
@@ -121,6 +135,9 @@ def _qlinear_int(x: torch.Tensor, p: dict, spec: QuantSpec,
         if w8.shape[-2] != k:  # drop int4 pack padding row if any
             w8 = w8.narrow(-2, 0, k)
         acc = int_matmul_exact(x8, w8)
+        if reduce:
+            import torch.distributed as dist
+            dist.all_reduce(acc)        # int32: exact in any order
         out = (acc.to(torch.float32) * (s_a * s_w)).to(x.dtype)
     if b is not None:
         out = out + b.to(out.dtype)

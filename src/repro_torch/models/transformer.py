@@ -28,13 +28,13 @@ from .layers import QuantSpec, act_fn, layernorm, qlinear, rmsnorm
 
 def segments_from_policy(policy: QuantPolicy, use_kernels: bool = False,
                          fuse_epilogue: bool = False,
-                         act_bits: Optional[int] = None
+                         act_bits: Optional[int] = None, tp: int = 1
                          ) -> list[tuple[int, int, QuantSpec]]:
     """Contiguous (start, end, QuantSpec) runs of equal bit-width.
 
     ``act_bits`` is the plan-level activation override: applied to every
     quantized layer, so it can never merge or split the policy's segment
-    boundaries."""
+    boundaries. ``tp`` rides every spec (the row-parallel sums)."""
     segs: list[tuple[int, int, QuantSpec]] = []
     for l in range(policy.num_layers):
         wb, ab = policy.weight_bits(l) or 0, policy.act_bits(l) or 0
@@ -42,7 +42,7 @@ def segments_from_policy(policy: QuantPolicy, use_kernels: bool = False,
             ab = act_bits
         spec = QuantSpec(mode=policy.mode, w_bits=wb, a_bits=ab,
                          grad_mode=policy.grad_mode, use_kernels=use_kernels,
-                         fuse_epilogue=fuse_epilogue)
+                         fuse_epilogue=fuse_epilogue, tp=tp)
         if segs and segs[-1][2] == spec:
             segs[-1] = (segs[-1][0], l + 1, spec)
         else:
@@ -59,14 +59,14 @@ def ffn_apply(x, p, cfg: ModelConfig, spec: QuantSpec):
     if cfg.act == "swiglu":
         h = F.silu(qlinear(x, p["w1"], spec).to(torch.float32)).to(x.dtype)
         h = h * qlinear(x, p["w3"], spec)
-        return qlinear(h, p["w2"], spec)
+        return qlinear(h, p["w2"], spec, row_parallel=True)
     # non-gated FFN: the activation can ride the int4 kernel's fused
     # dequant+bias+GELU epilogue (one write of the output instead of three)
     fused = (spec.mode == "int" and spec.use_kernels and spec.fuse_epilogue
              and spec.w_bits == 4 and cfg.act in ("gelu", "relu"))
     h1 = qlinear(x, p["w1"], spec, act=cfg.act if fused else None)
     h = h1 if fused else act_fn(cfg.act)(h1)
-    return qlinear(h, p["w2"], spec)
+    return qlinear(h, p["w2"], spec, row_parallel=True)
 
 
 def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
@@ -83,10 +83,12 @@ def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
         raise NotImplementedError("MoE layers arrive with a later slice")
     pre = cfg.norm == "rms" or not cfg.learned_pos  # BERT uses post-LN
     chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk_threshold else 0
+    n_heads = p["attn"]["wq"]["s_w"].shape[-1] // cfg.hd
+    n_kv = p["attn"]["wk"]["s_w"].shape[-1] // cfg.hd
 
     def attn(h):
         return attention_block(
-            h, p["attn"], n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+            h, p["attn"], n_heads=n_heads, n_kv=n_kv,
             hd=cfg.hd, spec=spec, causal=cfg.causal, rope=cfg.rope,
             rope_theta=cfg.rope_theta, cache=cache, kv_len=kv_len,
             chunk=chunk, want_taps=True)
@@ -322,12 +324,15 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
 
 def lm_caches(cfg: ModelConfig, batch: int, max_len: int,
               dtype: torch.dtype = torch.bfloat16, *, per_slot_len: bool = False,
-              kv_bits: int = 16, device=None) -> dict:
+              kv_bits: int = 16, device=None,
+              kv_heads: Optional[int] = None) -> dict:
     """kv_bits 16: fp {'k','v','len'}. kv_bits 8/4: the packed quantized
     layout {'k_q','v_q','k_scale','v_scale','len'}: integer codes (int4
     nibble-packed along head_dim) plus per-(token, head) f32 scales. ``len``
-    is a 0-d cursor, or (batch,) with ``per_slot_len``."""
-    L, Hkv = cfg.num_layers, cfg.num_kv_heads
+    is a 0-d cursor, or (batch,) with ``per_slot_len``. ``kv_heads``: the
+    heads held here (a tensor-parallel rank's share; default all)."""
+    L = cfg.num_layers
+    Hkv = cfg.num_kv_heads if kv_heads is None else kv_heads
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
     length = z((batch,) if per_slot_len else (), torch.int32)
     if kv_bits in (8, 4):

@@ -87,12 +87,15 @@ class BlockPool:
     The buffers live on ``device`` (``None`` means the card; pass
     ``device='cpu'`` for the CPU). All mutation is host-side bookkeeping
     plus in-place writes into the device buffers; the pool is
-    single-threaded like the engine.
+    single-threaded like the engine. Under a tensor-parallel plan (``tp``
+    ranks) each rank's buffers hold ``num_kv_heads / tp`` heads, while
+    the budget, the block count and every table are those of the whole
+    model, so every rank admits, allocates and evicts as tp=1 does.
     """
 
     def __init__(self, cfg: ModelConfig, budget_bytes: int, *,
                  dtype: torch.dtype = torch.float32, kv_bits: int = 16,
-                 block: int = PREFIX_BLOCK, device=None):
+                 block: int = PREFIX_BLOCK, device=None, tp: int = 1):
         from ..device import resolve_device
         if budget_bytes <= 0:
             raise ValueError(f"budget_bytes must be > 0, got {budget_bytes}")
@@ -101,7 +104,7 @@ class BlockPool:
         self.kv_bits = int(kv_bits)
         self.dtype = dtype
         self.device = resolve_device(device)
-        L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+        L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads // tp, cfg.hd
         self.block_nbytes = self.block_bytes(cfg, self.kv_bits, dtype,
                                              self.block)
         self.num_blocks = int(budget_bytes) // self.block_nbytes

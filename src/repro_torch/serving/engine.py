@@ -45,9 +45,19 @@ pump; it returns the ``(rid, token)`` pairs it emitted.
   scheduler as generation traffic and resolve in the step that admits
   them, before that step's decode.
 
+* **tensor parallelism** (a ``tp > 1`` plan, DESIGN.md §16): one engine
+  per rank, each over its rank's shard of the weights and
+  ``num_kv_heads / tp`` heads of the KV state. Every rank is given the same
+  requests in the same order; the sampler's inputs (embedding, lm_head,
+  norms, residuals) are replicated and the row-parallel linears sum exact
+  int32 partials, so every rank runs the same schedule and samples the same
+  tokens as tp=1. Rank 0's streams are the ones a caller reports.
+
 Greedy streams are ``argmax``; sampled ones draw from a per-request
 generator seeded from (seed, token index), so a request's tokens depend on
-(prompt, seed) only. Left for a later slice: token-mode prefill.
+(prompt, seed) only. ``last_step_tokens`` (prompt, decode and encode tokens
+of the last ``engine_step``) is what the multi-tenant deficit round-robin
+pays with. Left for a later slice: token-mode prefill.
 """
 from __future__ import annotations
 
@@ -99,7 +109,10 @@ class ServingEngine:
     ``QueueFullError`` past it). ``kv_budget_bytes`` sizes the block pool
     of a ``kv_paging='paged'`` plan (default: the dense layout's bytes).
     ``metrics`` is the recorder the engine writes to (default: a fresh
-    :class:`ServeMetrics` on the engine's clock).
+    :class:`ServeMetrics` on the engine's clock); ``tenant`` labels every
+    event it records (the multi-tenant rollups). A ``tp > 1`` plan needs
+    this process to be one rank of a process group of ``tp`` ranks holding
+    that rank's shard (``deploy`` / ``DeployedModel.load`` place it).
     """
 
     def __init__(self, model, plan: Optional[ExecutionPlan] = None, *,
@@ -107,6 +120,7 @@ class ServingEngine:
                  max_queue: Optional[int] = None,
                  metrics: Optional[ServeMetrics] = None,
                  clock: Clock = SYSTEM_CLOCK,
+                 tenant: Optional[str] = None,
                  kv_budget_bytes: Optional[int] = None):
         if isinstance(model, DeployedModel):
             if plan is not None and plan != model.plan:
@@ -125,6 +139,16 @@ class ServingEngine:
         self.cfg = plan.cfg
         self.params = params
         self.device = params["embed"].device
+        # a tp plan: this process must be one of the plan's ranks, and the
+        # params this rank's shard (checked on one head-sharded leaf)
+        if plan.make_group(self.device) is not None:
+            wk = params["layers"][0]["attn"]["wk"]["s_w"].shape[-1]
+            if wk != plan.kv_heads * self.cfg.hd:
+                raise ValueError(
+                    f"tp={plan.tp}: the params hold {wk // self.cfg.hd} KV "
+                    f"heads a layer, a rank's shard holds {plan.kv_heads}; "
+                    "place them with deploy() or DeployedModel.load(tp=...)")
+        self.tenant = tenant                  # metrics label
         self.slots = slots
         self.max_len = max_len
         self.mode = plan.mode
@@ -139,8 +163,10 @@ class ServingEngine:
         self._streams: dict = {}              # rid -> TokenStream|EncodeHandle
         self._events: list[tuple[int, int]] = []
         self._next_fork = 0
-        # prompt tokens encoded in the last engine_step: the load
-        # generator's virtual-cost model reads it after each pump
+        # per-step work counters, reset by engine_step: the multi-tenant
+        # deficit accounting reads the first, the load generator's
+        # virtual-cost model the second
+        self.last_step_tokens = 0
         self.last_step_encode_tokens = 0
         # per-slot sampling state, set at admit; the step index is the
         # slot's generated-token count
@@ -176,7 +202,7 @@ class ServingEngine:
                                           plan.torch_dtype)
             self.pool = BlockPool(self.cfg, kv_budget_bytes,
                                   dtype=plan.torch_dtype, kv_bits=plan.kv_bits,
-                                  device=self.device)
+                                  device=self.device, tp=plan.tp)
             self.kv = PagedKVCache(self.pool, slots, max_len)
             # plan.prefix_cache > 0 switches prefix reuse on; the BYTE value
             # is absorbed by the pool budget (the registry shares the pool's
@@ -348,6 +374,7 @@ class ServingEngine:
         (decode mode) or one batched encode per group (encoder mode).
         Returns the ``(rid, token)`` pairs emitted this step."""
         self._events = []
+        self.last_step_tokens = 0
         self.last_step_encode_tokens = 0
         fits = None
         if self.paged:
@@ -388,14 +415,16 @@ class ServingEngine:
                 self._topk[s] = sp.top_k
                 self._topp[s] = sp.top_p
             if req.queue_wait_s is not None:
-                self.metrics.record_wait("queue_wait", req.queue_wait_s)
+                self.metrics.record_wait("queue_wait", req.queue_wait_s,
+                                         tenant=self.tenant)
         return placed
 
     def _emit(self, req: GenerationRequest, token: int) -> None:
         if req.first_token_t is None:
             req.first_token_t = self.clock()
             if req.ttft_s is not None:
-                self.metrics.record_wait("ttft", req.ttft_s)
+                self.metrics.record_wait("ttft", req.ttft_s,
+                                         tenant=self.tenant)
         stream = self._streams.get(req.rid)
         if stream is not None:
             stream._push(token)
@@ -548,7 +577,9 @@ class ServingEngine:
             else:
                 self.kv.reset_slot(s)
                 self.kv.insert_prefill(s, pstate, plen, bucket, row=i)
-        self.metrics.record("prefill", self.clock() - t0, total)
+        self.metrics.record("prefill", self.clock() - t0, total,
+                            tenant=self.tenant)
+        self.last_step_tokens += total
         self._emit_first_tokens(group, firsts)
 
     def _prefill_group_blocks(self, bucket: int, m: int, keys, group) -> None:
@@ -609,7 +640,9 @@ class ServingEngine:
                 self.kv.reset_slot(s)
                 self.kv.insert_rows(s, state, plen, copy, row=i)
                 self._publish_prefix(req, m, state, i)
-        self.metrics.record("prefill", self.clock() - t0, total)
+        self.metrics.record("prefill", self.clock() - t0, total,
+                            tenant=self.tenant)
+        self.last_step_tokens += total
         self._emit_first_tokens(group, firsts)
 
     def _publish_prefix(self, req, m: int, state: dict, row: int) -> None:
@@ -757,7 +790,9 @@ class ServingEngine:
         t0 = self.clock()
         next_tok = self.decode_forward(
             torch.as_tensor(toks, device=self.device)).cpu().numpy()
-        self.metrics.record("decode", self.clock() - t0, len(active))
+        self.metrics.record("decode", self.clock() - t0, len(active),
+                            tenant=self.tenant)
+        self.last_step_tokens += len(active)
         for s in active:
             req = self.scheduler.active[s]
             if req is None:    # freed mid-step by an on_token cancel()
@@ -828,12 +863,15 @@ class ServingEngine:
         t0 = self.clock()
         out = self.encode_batch(toks, lens)
         out = {task: v.cpu().numpy() for task, v in out.items()}
-        self.metrics.record("encode", self.clock() - t0, total)
+        self.metrics.record("encode", self.clock() - t0, total,
+                            tenant=self.tenant)
         self.last_step_encode_tokens += total
+        self.last_step_tokens += total
         for i, (s, req) in enumerate(group):
             if self.scheduler.active[s] is not req:
                 continue   # an earlier on_result callback cancelled it
             req.result = out[req.task][i]
             self._finalize_slotted(s, req, "done")
             if req.latency_s is not None:
-                self.metrics.record_wait("encode_latency", req.latency_s)
+                self.metrics.record_wait("encode_latency", req.latency_s,
+                                         tenant=self.tenant)

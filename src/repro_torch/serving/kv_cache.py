@@ -13,7 +13,10 @@ quantizer: the prefill cache stays fp (one forward at full precision) and
 decode appends quantize in ``models/transformer.write_new_kv``. The
 prefix-reuse prefill computes in the table's precision, and
 ``insert_rows`` copies its rows as they are. The buffers
-are updated in place on the device they were allocated on.
+are updated in place on the device they were allocated on. Under a
+tensor-parallel plan a rank holds ``num_kv_heads / tp`` heads of every
+buffer (``distributed.serving_state_specs``); the cursors are the same on
+every rank.
 """
 from __future__ import annotations
 
@@ -27,11 +30,13 @@ from ..models import api
 
 class SlotKVCache:
     """Slot table over the dense decoder KV cache, on ``device`` (``None``
-    means the card; pass ``device='cpu'`` for the CPU)."""
+    means the card; pass ``device='cpu'`` for the CPU). ``kv_heads``: the
+    KV heads held here (a tensor-parallel rank's share; default all)."""
 
     def __init__(self, cfg: ModelConfig, slots: int, max_len: int,
                  dtype: torch.dtype = torch.float32,
-                 kv_bits: int | None = None, device=None):
+                 kv_bits: int | None = None, device=None,
+                 kv_heads: int | None = None):
         from ..device import resolve_device
         self.cfg = cfg
         self.slots = slots
@@ -41,15 +46,17 @@ class SlotKVCache:
         self.device = resolve_device(device)
         self.state = api.decode_state(cfg, slots, max_len, dtype,
                                       per_slot_len=True, kv_bits=self.kv_bits,
-                                      device=self.device)
+                                      device=self.device, kv_heads=kv_heads)
 
     @classmethod
     def from_plan(cls, plan, slots: int, max_len: int,
                   device=None) -> "SlotKVCache":
-        """Slot table with the plan's decode dtype and KV precision, so the
-        cache can never disagree with the plan the steps run under."""
+        """Slot table with the plan's decode dtype, KV precision and head
+        share, so the cache can never disagree with the plan the steps run
+        under."""
         return cls(plan.cfg, slots, max_len, dtype=plan.torch_dtype,
-                   kv_bits=plan.kv_bits, device=device)
+                   kv_bits=plan.kv_bits, device=device,
+                   kv_heads=plan.kv_heads)
 
     @property
     def quantized(self) -> bool:

@@ -104,9 +104,8 @@ class Workload:
                         happens when the fraction is nonzero, so existing
                         workloads replay bit-identically.
     tenant              route every request of this workload to the named
-                        tenant of a multi-tenant engine (None: the plain
-                        single-engine submit surface; the port's
-                        multi-tenant engine arrives with a later slice).
+                        tenant of a ``MultiTenantEngine`` (None: the plain
+                        single-engine submit surface).
     """
 
     n_requests: int = 32

@@ -146,7 +146,7 @@ def test_plan_meta_round_trip(backend, act_bits):
     (dict(mode="decode", prefill_mode="token", prefix_cache=1024),
      "prefix_cache needs the chunked"),
     (dict(kv_paging="paged"), "pages the decode KV cache"),
-    (dict(tp=2), "tensor parallelism"),
+    (dict(tp=2, backend="cuda"), "single-device"),
     (dict(backend="pallas"), "backend"),
     (dict(act_bits=0, backend="cuda"), "reference-backend"),
     (dict(act_bits=3), "act_bits"),

@@ -61,7 +61,12 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
                  "src/repro_torch/launch/train.py",
                  "src/repro_torch/benchmarks/common.py",
                  "src/repro_torch/benchmarks/table1_glue.py",
-                 "src/repro_torch/benchmarks/table3_ablation.py"):
+                 "src/repro_torch/benchmarks/table3_ablation.py",
+                 "src/repro_torch/serving/replicas.py",
+                 "src/repro_torch/serving/tenants.py",
+                 "src/repro_torch/distributed/__init__.py",
+                 "src/repro_torch/distributed/sharding.py",
+                 "src/repro_torch/launch/mesh.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.core import qat\n"

@@ -9,8 +9,12 @@
   ``--policy-from`` and ``--act-bits`` (retargeting a loaded artifact) run
   through;
 * ``--mode encoder`` with each ``--task``, export -> artifact equal;
-* every flag of a later slice is refused with an error naming it, and so
-  are the flag combinations JAX's CLI refuses;
+* the fleet flags run: ``--replicas 2`` (streams byte-identical to one
+  engine), two ``--tenant``s (an encoder and a decoder artifact in one
+  multi-tenant engine) and ``--tp 2`` on two gloo ranks (streams
+  byte-identical to tp=1); ``--warmup`` is still refused with an error
+  naming what it waits for, and so are the flag combinations JAX's CLI
+  refuses;
 * ``--device`` defaults to the card and raises on a host without CUDA
   (never a silent CPU fallback).
 """
@@ -90,20 +94,44 @@ def test_encoder_mode(tmp_path, task):
     assert np.array(built["results"]).shape == ((5,) if width is None else (5, width))
 
 
-REFUSED = {"tenant": (["--tenant", "a=art_dir"], "item 6"),
-           "tp": (["--tp", "2"], "item 6"),
-           "replicas": (["--replicas", "2"], "item 6"),
-           "warmup": (["--warmup"], "Queue 4 item 1")}
-
-
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_later_slice_flags_are_refused(name, capsys):
-    argv, item = REFUSED[name]
-    with pytest.raises(SystemExit) as exc:
-        _run(*argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"--{name} is a later slice of the port" in err and item in err
+@pytest.mark.parametrize("name", ["tenant", "tp", "replicas", "warmup"])
+def test_later_slice_flags_are_refused(name, tmp_path, capsys):
+    """The flags that waited for a later slice: ``--tenant``, ``--tp`` and
+    ``--replicas`` arrived with the device-layout-and-fleet slice and now
+    run (each against what it must equal); ``--warmup`` still waits, and
+    its refusal names what for."""
+    if name == "warmup":
+        with pytest.raises(SystemExit) as exc:
+            _run("--warmup")
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert "--warmup is a later slice of the port" in err and "Queue 4 item 1" in err
+        return
+    if name == "replicas":
+        one = _run("--kv-bits", "8", "--requests", "3")
+        two = _run("--kv-bits", "8", "--requests", "3", "--replicas", "2")
+        assert "replica set: 2 engines" in capsys.readouterr().out
+        assert two["streams"] == one["streams"] and len(two["streams"]) == 3
+        return
+    if name == "tp":
+        base = ["--backend", "reference", "--kv-bits", "8", "--kv-paging", "paged",
+                "--requests", "3"]
+        one = _run(*base)
+        two = _run(*base, "--tp", "2")
+        assert "tp=2, " in two["plan"] and "tp=" not in one["plan"]
+        assert two["streams"] == one["streams"] and len(two["streams"]) == 3
+        return
+    enc, dec = str(tmp_path / "enc"), str(tmp_path / "dec")
+    _run("--mode", "encoder", "--export", enc, "--requests", "1")
+    _run("--kv-bits", "8", "--export", dec, "--requests", "1")
+    res = _run("--tenant", f"cls={enc}", "--tenant", f"gen={dec}")
+    out = capsys.readouterr().out
+    assert "tenant 'cls'" in out and "tenant 'gen'" in out and "multi-tenant burst" in out
+    assert res["tenants"] == ["cls", "gen", "cls", "gen", "cls"]
+    assert res["finish_reasons"] == ["done", "length", "done", "length", "done"]
+    assert [len(o) for o in res["outputs"]] == [2, 8, 2, 8, 2]
+    by = res["metrics"]["by_label"]
+    assert by["cls/encode"]["tokens"] > 0 and by["gen/decode"]["tokens"] > 0
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -112,7 +140,13 @@ def test_later_slice_flags_are_refused(name, capsys):
     (["--kv-budget-mb", "1"], "needs --kv-paging paged"),
     (["--n", "0"], "--n must be >= 1"),
     (["--tp", "0"], "--tp must be >= 1"),
-], ids=["artifact_export", "artifact_paged", "budget_dense", "n0", "tp0"])
+    (["--replicas", "0"], "--replicas must be >= 1"),
+    (["--tenant", "a=x", "--tp", "2"], "--tp/--replicas apply to single-model"),
+    (["--tenant", "a=x", "--replicas", "2"], "--tp/--replicas apply to single-model"),
+    (["--tenant", "a=x", "--export", "y"], "cannot be combined with --artifact/--export"),
+    (["--tp", "2"], "pass --backend reference"),
+], ids=["artifact_export", "artifact_paged", "budget_dense", "n0", "tp0", "replicas0",
+        "tenant_tp", "tenant_replicas", "tenant_export", "tp_kernels"])
 def test_refused_combinations(argv, match, capsys):
     with pytest.raises(SystemExit):
         _run(*argv)
