@@ -54,7 +54,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    x 128 tokens;
 5. ``decode_attention`` against its plain version on the card: kv_bits 8
    and 4, q in f32 and bf16, (H, Hkv, dh) in {(32, 32, 80) stablelm-3b,
-   (48, 8, 128) internlm2-20b}, S in {64, 512, 520} with one slot at each
+   (48, 8, 128) internlm2-20b, and the groups of phase 21}, S in {64, 512, 520} with one slot at each
    of the lengths 0, 1, 7, 33, S/2, S - 1, S, S + 37 (an idle slot) and the
    kernel's split edges C - 1, C, C + 1, 2C + 1 (C rows a split), then a
    long cache: B = 2, S = 4096, lengths 4000 and 4096. Within atol 1e-5
@@ -128,7 +128,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    released after draining;
 10. shared-prefix traffic at kv_bits 8 (13 requests: one sampled, n = 2,
    on a 200-token prompt; 8 sharing a 256-token system prompt followed by
-   8-72 distinct tokens; 4 unique prompts of 100-300 tokens) through (i) a
+   8-72 distinct tokens; 4 unique prompts of 100-300 tokens) on phase 6's
+   artifact cut to 16 layers (``PREFIX_LAYERS``: layers 0-7 of its W8A8
+   segment and 0-7 of its W4A4 one, as one W8A8 0-7 / W4A4 8-15 model;
+   the depth cut keeps the script within its time) through (i) a
    dense engine with a 256 MiB prefix cache, (ii) a paged engine with the
    prefix registry at the dense-equivalent budget, (iii) the paged engine
    at 60 % of that budget, served twice in a row. Every request finishes;
@@ -147,7 +150,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    Hkv, dh) in {(2, 256, 4, 2, 16), (1, 512, 8, 8, 64), (1, 4096, 32, 32,
    80) stablelm-3b, (1, 4096, 32, 8, 128) llava-next-mistral-7b}, and for
    the bf16 kernel's tiles S = 1, 200 and 4097 at dh 80 and 128 and GQA
-   groups 1, 2 and 4; causal and not, f32 (the SIMT kernel) and bf16 (the
+   groups 1, 2 and 4, then phase 21's groups 3, 5 and 8 at S = 1024 and
+   1000; causal and not, f32 (the SIMT kernel) and bf16 (the
    tensor-core kernel), the plain version at blocks (64, 64), (128, 64)
    and (1024, 1024) where they tile S, else at (S, S): f32 within |diff|
    <= 1e-5 + 1e-5 |plain|, bf16 within one bf16 ulp plus 1e-5; a causal
@@ -254,7 +258,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    Then ``benchmarks/table1_glue.run(quick=True)``, ``run_artifact(quick=
    True)`` (deployed on the cuda backend: scored through the integer
    kernels, no plain version on a CUDA tensor) and
-   ``table3_ablation.run(quick=True)``: their rows and the quality payload
+   ``table3_ablation.run(quick=True)``, the two tables on one trained fp
+   teacher and student (``teacher_and_student``): their rows and the quality payload
    printed, the payload written to ``chiprun_out/BENCH_quality.json`` and
    read by ``tools/check_quality.py``, which must pass: against itself,
    since the committed baseline is the JAX package's, so what it gates is
@@ -279,7 +284,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``replica_scale`` (``--quick``), the JSON in
    ``chiprun_out/BENCH_load_fleet.json``: the classify tenant's goodput
    1.0 beside the flood, two replicas at least 1.8x one engine's virtual
-   capacity with byte-identical streams.
+   capacity with byte-identical streams;
+21. the MoE family: (a) granite-moe-3b-a800m at full width and depth (32
+   layers, d 1536, 24 heads of 64 on 8 KV heads, 40 experts of d_ff 512,
+   top-8; W8A8 layers 0-15, W4A4 16-31, bf16 activations) from a seeded
+   generator on the card -> ``deploy`` with 4 calibration batches ->
+   ``save`` -> ``load``, serving 8 greedy requests (prompts of 5-256
+   tokens, 4-12 new tokens) and one sampled (n = 2) on 8 slots at kv8
+   dense, kv8 paged and kv4 dense: every request finishes with finite
+   logits, every decode step and prefill launches the integer GEMMs
+   ``moe_launches`` derives (one launch an expert at its capacity C, empty
+   slots included) and one attention kernel a layer, and no plain version
+   runs on a CUDA tensor; (b) the first layer of each bit-width segment,
+   ``cuda`` against ``reference`` backend on the card, at 8 and 1024
+   tokens (two groups), dense and sorted dispatch: routing and output
+   bit-equal, the first call of each expert / shared GEMM shape bit-equal
+   to its plain version; (c) one kv8 decode step captured in a CUDA graph
+   and replayed twice, byte-equal to the eager step, with eager and
+   graphed ms, the GEMM launches a step and the idle share; (d) one
+   cacheless forward of 4096 tokens (flash attention at GQA group 3, dh
+   64; the experts on wgmma at 1024 rows), layer 0's flash output within
+   phase 12's tolerances and the first GEMM of each shape bit-equal; (e)
+   qwen2-moe-a2.7b at full width (shared expert with its sigmoid gate, QKV
+   bias), its depth cut to 8 of 24 layers (``MOE_QWEN_LAYERS``), deployed
+   on the card (not saved), serving 4 requests at kv8 dense with (a)'s
+   checks and (b)'s layer check at its shapes. Phases 5, 8 and 12 also run
+   the attention kernels at GQA groups 3, 5 and 8 ((24, 8, 64), (40, 8,
+   128), (64, 8, 128): granite-moe-3b-a800m, qwen2.5-32b, qwen1.5-110b).
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -1224,9 +1255,10 @@ def decode_close(got, want, name: str = "decode_attention",
     return diff.max().item()
 
 
-#: head shapes of the decode-attention checks: stablelm-3b's and
-#: internlm2-20b's (GQA group 6, dh 128)
-DECODE_HEADS = ((32, 32, 80), (48, 8, 128))
+#: head shapes of the decode-attention checks: stablelm-3b's, internlm2-20b's
+#: (GQA group 6, dh 128), and GQA groups 3, 5 and 8: granite-moe-3b-a800m's
+#: (dh 64), qwen2.5-32b's and qwen1.5-110b's (dh 128)
+DECODE_HEADS = ((32, 32, 80), (48, 8, 128), (24, 8, 64), (40, 8, 128), (64, 8, 128))
 #: the long-cache case: (B, S, lengths)
 LONG_DECODE = (2, 4096, [4000, 4096])
 
@@ -1520,7 +1552,8 @@ def decode_end_to_end(dev) -> dict:
     for kv, plan in plans.items():
         model = DeployedModel(plan=plan, params=loaded.params)
         models[kv] = model
-        serve_decode(model)                         # warm-up
+        if kv == 8:
+            serve_decode(model)                     # warm-up (kv4 reuses it)
         torch.cuda.synchronize()
         record = {}
         build.reset_counts()
@@ -1923,12 +1956,15 @@ def check_decode_attention_paged(dev) -> tuple[float, int]:
 
 
 # ------------------------------------------------------------------ phase 9
-def paged_model(model, kv_paging: str = "paged", prefix_cache: int = 0):
-    """``model``'s artifact under the same plan with another KV layout."""
+def paged_model(model, kv_paging: str = "paged", prefix_cache: int = 0,
+                kv_bits=None):
+    """``model``'s artifact under the same plan with another KV layout (or
+    another KV precision)."""
     from repro_torch.deploy import DeployedModel, ExecutionPlan
     p = model.plan
     plan = ExecutionPlan.build(p.cfg, p.policy, backend=p.backend, mode=p.mode,
-                               kv_bits=p.kv_bits, prefill_batch=p.prefill_batch,
+                               kv_bits=kv_bits or p.kv_bits,
+                               prefill_batch=p.prefill_batch,
                                kv_paging=kv_paging, prefix_cache=prefix_cache)
     return DeployedModel(plan=plan, params=model.params)
 
@@ -2145,14 +2181,51 @@ def compare_prefix(ref, run) -> dict:
             "parted_at_near_ties": parted}
 
 
+#: phase 10's depth: the first PREFIX_LAYERS / 2 layers of each of phase
+#: 6's two bit-width segments
+PREFIX_LAYERS = 16
+
+
+def depth_cut(model, layers: int):
+    """``model`` cut to ``layers`` layers: the first ``layers / 2`` of each
+    of its two bit-width segments (views of its tensors, nothing copied),
+    under the same policy shape (W8A8, then W4A4) at that depth."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.tree import tree_map
+    from repro_torch.deploy import DeployedModel, ExecutionPlan
+    p, half = model.plan, layers // 2
+    if len(p.segments) != 2:
+        raise ValueError(f"depth_cut takes a two-segment plan, got {p.describe()}")
+    cfg = p.cfg.replace(num_layers=layers)
+    policy = QuantPolicy(num_layers=layers, mode="int", last_k_int4=half)
+    plan = ExecutionPlan.build(cfg, policy, backend=p.backend, mode=p.mode,
+                               kv_bits=p.kv_bits, prefill_batch=p.prefill_batch)
+    params = {**model.params, "layers": [tree_map(lambda a: a[:half], seg)
+                                         for seg in model.params["layers"]]}
+    return DeployedModel(plan=plan, params=params)
+
+
+def step_launches(cfg, paged: bool) -> dict:
+    """The launches of one decode step (8 slots) of ``cfg`` under the serve
+    CLI's policy: ``gemm_launches`` of its linears and one attention kernel
+    a layer, dense or paged (``PER_DECODE_STEP``'s keys)."""
+    out = {**gemm_launches(decoder_linears(cfg), DECODE_SLOTS),
+           "decode_attention": 0, "decode_attention_paged": 0}
+    out["decode_attention_paged" if paged else "decode_attention"] = cfg.num_layers
+    return {k: out[k] for k in (PAGED_DECODE_STEP if paged else PER_DECODE_STEP)}
+
+
 def prefix_end_to_end(models: dict) -> dict:
-    """The shared-prefix traffic at kv_bits 8 through (i) a dense engine
-    with a 256 MiB prefix cache, (ii) a paged engine with the prefix
-    registry at the dense-equivalent budget, (iii) the same paged engine
-    at 60 % of that budget, served twice in a row."""
+    """The shared-prefix traffic at kv_bits 8, on phase 6's artifact cut to
+    ``PREFIX_LAYERS`` layers, through (i) a dense engine with a 256 MiB
+    prefix cache, (ii) a paged engine with the prefix registry at the
+    dense-equivalent budget, (iii) the same paged engine at 60 % of that
+    budget, served twice in a row."""
     from repro_torch.kernels import build
-    model = models[8]
+    model = depth_cut(models[8], PREFIX_LAYERS)
     linears = decoder_linears(model.plan.cfg)
+    dense_step = step_launches(model.plan.cfg, paged=False)
+    paged_step = step_launches(model.plan.cfg, paged=True)
     dense = paged_model(model, "dense", 256 << 20)
     paged = paged_model(model, "paged", 256 << 20)
     out = {}
@@ -2162,14 +2235,14 @@ def prefix_end_to_end(models: dict) -> dict:
     out["dense_prefix"] = {"seconds": time.perf_counter() - t0,
                            "launches": dict(build.LAUNCHES)}
     out["dense_prefix"]["act_quant_planned"] = check_launches(
-        "prefix dense", ref["record"], PER_DECODE_STEP, linears)
+        "prefix dense", ref["record"], dense_step, linears)
     build.reset_counts()
     t0 = time.perf_counter()
     (full,) = serve_prefix(paged, ref_rows=ref["rows"])
     out["paged_prefix"] = {"seconds": time.perf_counter() - t0,
                            "launches": dict(build.LAUNCHES)}
     out["paged_prefix"]["act_quant_planned"] = check_launches(
-        "prefix paged", full["record"], PAGED_DECODE_STEP, linears)
+        "prefix paged", full["record"], paged_step, linears)
     if full["tokens"] != ref["tokens"]:
         bad = [i for i, (a, b) in enumerate(zip(full["tokens"], ref["tokens"])) if a != b]
         raise AssertionError(f"paged prefix streams differ from the dense prefix "
@@ -2189,7 +2262,7 @@ def prefix_end_to_end(models: dict) -> dict:
     hits_before, planned = 0, 0
     for r, rnd in enumerate(tight):
         planned += check_launches(f"prefix paged 60% round {r + 1}", rnd["record"],
-                                  PAGED_DECODE_STEP, linears)
+                                  paged_step, linears)
         rnd["hits_this_round"] = rnd["stats"]["hits"] - hits_before
         hits_before = rnd["stats"]["hits"]
     out["paged_prefix_60pct"]["act_quant_planned"] = planned
@@ -2206,6 +2279,7 @@ def prefix_end_to_end(models: dict) -> dict:
                 "prefill_forwards": len(run["record"]["prefill"]),
                 "chunk_forwards": len(run["record"]["chunk"]),
                 "decode_p50_ms": run["decode_p50_ms"]}
+    out["layers"] = PREFIX_LAYERS
     out["dense_prefix"].update(summary(ref))
     out["paged_prefix"].update(summary(full), streams_equal_to_dense_prefix=len(ref["tokens"]))
     out["paged_prefix_60pct"]["rounds"] = [
@@ -2347,11 +2421,13 @@ def time_paged_kernel(dev) -> list[dict]:
 #: shapes, stablelm-3b's and llava-next-mistral-7b's heads at S = 4096, then
 #: the bf16 kernel's tiles (128 query rows, 128 keys at dh <= 80 and 64 at
 #: dh = 128): S = 1, S = 200 and 4097 (ragged), dh 80 and 128 at GQA groups
-#: 1, 2 and 4
+#: 1, 2 and 4; then GQA groups 3 (granite-moe-3b-a800m, dh 64), 5
+#: (qwen2.5-32b) and 8 (qwen1.5-110b) at their full head counts
 FLASH_CASES = ((2, 256, 4, 2, 16), (1, 512, 8, 8, 64), (1, 4096, 32, 32, 80),
                (1, 4096, 32, 8, 128), (1, 1, 4, 2, 80), (1, 1, 4, 1, 128),
                (1, 200, 8, 2, 80), (1, 200, 8, 4, 128), (1, 4097, 8, 4, 80),
-               (1, 4097, 8, 8, 128))
+               (1, 4097, 8, 8, 128), (1, 1024, 24, 8, 64), (1, 1000, 40, 8, 128),
+               (1, 1024, 64, 8, 128))
 FLASH_PLAIN_BLOCKS = ((64, 64), (128, 64), (1024, 1024))
 
 
@@ -2528,7 +2604,7 @@ def check_kept_calls(kept: dict, tag: str) -> list:
 
 
 def long_forward(model, inputs: dict, *, flash_layers: int = 0,
-                 gemms: bool = False) -> dict:
+                 gemms: bool = False, expected=None) -> dict:
     """One cacheless forward under the model's kernel plan with every count
     at 0 just before it. Spies: ``full_attention`` must never be called;
     each ``ops.flash_attention`` call is timed between CUDA events and the
@@ -2537,7 +2613,9 @@ def long_forward(model, inputs: dict, *, flash_layers: int = 0,
     shape keeps clones of its inputs and output. Returns the logits, the
     launches, the plain versions on CUDA tensors, eager ms, the flash
     kernels' device ms, the device memory allocated just before it (after
-    a garbage collection) and the peak (the kept tensors included)."""
+    a garbage collection) and the peak (the kept tensors included).
+    ``expected``: the launches the forward must make (default
+    ``PER_LONG_FORWARD``, checked against the dense plan's linears)."""
     from repro_torch.kernels import build, ops
     from repro_torch.models import api, attention
 
@@ -2582,12 +2660,14 @@ def long_forward(model, inputs: dict, *, flash_layers: int = 0,
             spies.__exit__(None, None, None)
     S = int(inputs["tokens"].shape[1])
     tag = f"{model.plan.cfg.name} S={S}"
-    planned = gemm_launches(decoder_linears(model.plan.cfg), S)
-    if {k: PER_LONG_FORWARD[k] for k in planned} != planned:
-        raise AssertionError(f"{tag}: PER_LONG_FORWARD {PER_LONG_FORWARD} != the "
-                             f"plan's {planned}")
-    if launches != PER_LONG_FORWARD:
-        raise AssertionError(f"{tag}: launched {launches}, expected {PER_LONG_FORWARD}")
+    if expected is None:
+        expected = PER_LONG_FORWARD
+        planned = gemm_launches(decoder_linears(model.plan.cfg), S)
+        if {k: PER_LONG_FORWARD[k] for k in planned} != planned:
+            raise AssertionError(f"{tag}: PER_LONG_FORWARD {PER_LONG_FORWARD} != the "
+                                 f"plan's {planned}")
+    if launches != expected:
+        raise AssertionError(f"{tag}: launched {launches}, expected {expected}")
     if any(plain.values()):
         raise AssertionError(f"{tag}: plain versions ran on CUDA tensors: {plain}")
     if calls["full_attention"]:
@@ -3550,8 +3630,11 @@ def train_cli_phase(dev) -> dict:
     resume = {"leaves_bit_equal": len(a), "checkpoints": CheckpointManager(
         str(work / "resumed")).all_steps()}
 
+    # the fp teacher and student that Table 1 and Table 3 both start from,
+    # trained once for the two (each run would train the same pair)
     t0 = time.perf_counter()
-    table1 = table1_glue.run(quick=True, device=dev)
+    trained = table1_glue.teacher_and_student(table1_glue.QUICK_STEPS, 0, dev)
+    table1 = table1_glue.run(quick=True, device=dev, trained=trained)
     table1_s = time.perf_counter() - t0
     build.reset_counts()
     t0 = time.perf_counter()
@@ -3562,7 +3645,7 @@ def train_cli_phase(dev) -> dict:
     if any(plain.values()):
         raise AssertionError(f"quality bench: plain versions on CUDA {plain}")
     t0 = time.perf_counter()
-    table3 = table3_ablation.run(quick=True, device=dev)
+    table3 = table3_ablation.run(quick=True, device=dev, trained=trained)
     table3_s = time.perf_counter() - t0
     out = ROOT / "chiprun_out" / "BENCH_quality.json"
     out.parent.mkdir(exist_ok=True)
@@ -3880,6 +3963,350 @@ def fleet_phase(dev, dense_streams: list, single: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 21
+MOE_SLOTS, MOE_MAX_LEN = 8, 512
+#: qwen2-moe-a2.7b's depth on the card: 8 of its 24 layers (5.2 B fp
+#: params, 20.9 GB in f32; the full 14.3 B would not share the card with
+#: its codes and calibration); granite-moe-3b-a800m runs at full depth
+MOE_QWEN_LAYERS = 8
+#: the layer checks' token counts: a decode step, and a prefill in two
+#: groups of moe_group_size 512
+MOE_LAYER_TOKENS = (8, 1024)
+MOE_LONG = 4096                # the cacheless granite forward, past the chunk threshold
+MOE_KERNELS = ("int8_matmul", "int4_matmul", "decode_attention")
+MOE_PAGED_KERNELS = ("int8_matmul", "int4_matmul", "decode_attention_paged")
+
+
+def moe_traffic(vocab: int):
+    """Phase 6's kind of traffic, shorter: 8 greedy requests (prompts of
+    5-256 tokens, 4-12 new tokens) and one sampled request with n = 2."""
+    from repro_torch.serving import GenerationRequest, SamplingParams
+    rng = np.random.default_rng(21)
+    plens = [5, 17, 33, 64, 100, 128, 200, 256]
+    news = [6, 12, 8, 12, 4, 8, 12, 6]
+    reqs = [GenerationRequest(prompt=rng.integers(1, vocab, n).astype(np.int32),
+                              max_new_tokens=m) for n, m in zip(plens, news)]
+    reqs.append(GenerationRequest(
+        prompt=rng.integers(1, vocab, 40).astype(np.int32), max_new_tokens=6,
+        sampling=SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=7, n=2)))
+    return reqs
+
+
+def moe_launches(cfg, T: int) -> dict:
+    """The integer kernels' launches of one forward of ``T`` token rows of a
+    MoE decoder under the serve CLI's policy (W8A8 in the first half of the
+    layers, W4A4 in the rest): q, k, v, o and the shared expert's three
+    linears at T rows; each expert's w1, w3 and w2 at its G * C slot rows
+    (one launch an expert, empty slots included), by ``gemm_launches``."""
+    from repro_torch.models.transformer import capacity
+    d, q, kv = cfg.d_model, cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    G = max(1, T // cfg.moe_group_size)
+    rows = G * capacity(T // G, cfg)
+    dense, experts = {}, {}
+    for bits in (8, 4):
+        n = cfg.num_layers // 2
+        shapes = [(d, q), (d, kv), (d, kv), (q, d)]
+        if cfg.shared_expert_d_ff:
+            sf = cfg.shared_expert_d_ff
+            shapes += [(d, sf), (d, sf), (sf, d)]
+        for K, N in shapes:
+            key = (K, N, bits, False)
+            dense[key] = dense.get(key, 0) + n
+        for K, N in ((d, cfg.expert_d_ff), (d, cfg.expert_d_ff), (cfg.expert_d_ff, d)):
+            key = (K, N, bits, False)
+            experts[key] = experts.get(key, 0) + n * cfg.num_experts
+    a, b = gemm_launches(dense, T), gemm_launches(experts, rows)
+    return {k: a[k] + b[k] for k in a}
+
+
+def moe_model(name: str, dev, layers=None, art=None) -> tuple:
+    """``name`` at full width (``layers`` cuts the depth), W8A8 in the first
+    half of the layers and W4A4 in the rest, bf16 activations: fp params
+    from a seeded generator on the card, deployed with 4 calibration
+    batches of (4, 32) tokens; with ``art``, saved there and loaded back."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy import DeployedModel, ExecutionPlan, deploy
+    from repro_torch.models import api
+
+    cfg = get_config(name)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    n = cfg.num_layers
+    policy = QuantPolicy(num_layers=n, mode="int", last_k_int4=n // 2)
+    plan = ExecutionPlan.build(cfg, policy, backend="cuda", mode="decode",
+                               kv_bits=8, prefill_batch=4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fp = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    fp_params = sum(int(t.numel()) for t in _leaves(fp))
+    rng = np.random.default_rng(0)
+    calib = [{"tokens": rng.integers(1, cfg.vocab_size, (4, 32)).astype(np.int32)}
+             for _ in range(4)]
+    model = deploy(fp, plan, calib, device=dev)
+    torch.cuda.synchronize()
+    info = {"model": name, "layers": n, "fp_params": fp_params,
+            "deploy_s": time.perf_counter() - t0, "policy": policy.describe()}
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    if art is not None:
+        t0 = time.perf_counter()
+        model.save(str(art))
+        del model
+        model = DeployedModel.load(str(art), device=dev)
+        torch.cuda.synchronize()
+        if model.plan != plan:
+            raise AssertionError(f"{name}: plan did not round-trip through the artifact")
+        info.update(save_load_s=time.perf_counter() - t0,
+                    artifact_bytes=sum(f.stat().st_size for f in art.iterdir()))
+    info["deployed_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in _leaves(model.params))
+    return model, info
+
+
+def serve_moe(model, reqs) -> dict:
+    """Serve ``reqs`` on a fresh 8-slot engine with every count at 0 just
+    before: every request finishes, every prefill and decode logits row is
+    finite, every decode step launches ``moe_launches`` at 8 rows plus one
+    attention kernel a layer and each prefill forward ``moe_launches`` at
+    its rows, and no plain version runs on a CUDA tensor."""
+    import copy
+
+    from repro_torch.kernels import build
+    from repro_torch.serving import ServingEngine
+
+    plan = model.plan
+    cfg, V = plan.cfg, plan.cfg.vocab_size
+    eng = ServingEngine(model, slots=MOE_SLOTS, max_len=MOE_MAX_LEN)
+    finite = []
+    orig_prefill, orig_decode = eng.prefill_forward, eng.decode_forward
+
+    def prefill(tokens):
+        logits, st = orig_prefill(tokens)
+        finite.append(torch.isfinite(logits[..., :V]).all())
+        return logits, st
+    eng.prefill_forward = prefill
+    import repro_torch.serving.engine as engine_mod
+    orig_sample = engine_mod.sample_batch
+
+    def sample(logits, *a):
+        finite.append(torch.isfinite(logits[..., :V]).all())
+        return orig_sample(logits, *a)
+    record = {}
+    record_forwards(eng, record)
+    streams = []
+    for req in reqs:
+        out = eng.submit(copy.deepcopy(req))
+        streams += out if isinstance(out, list) else [out]
+    engine_mod.sample_batch = sample
+    build.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        eng.run_until_drained()
+    finally:
+        engine_mod.sample_batch = orig_sample
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+    tag = plan.describe()
+    results = [st.result() for st in streams]
+    for r in results:
+        if r.finish_reason not in ("length", "stop"):
+            raise AssertionError(f"{tag}: request {r.rid} finished {r.finish_reason!r}")
+    if not all(bool(f) for f in finite):
+        raise AssertionError(f"{tag}: non-finite logits")
+    attn = "decode_attention_paged" if plan.kv_paging == "paged" else "decode_attention"
+    per_step = {**moe_launches(cfg, MOE_SLOTS), attn: cfg.num_layers}
+    for step in record["decode"]:
+        if {k: step[k] for k in per_step} != per_step:
+            raise AssertionError(f"{tag}: a decode step launched {step}, expected {per_step}")
+    for fwd in record["prefill"]:
+        want = moe_launches(cfg, fwd["rows"])
+        if (fwd["decode_attention"] or fwd["decode_attention_paged"]
+                or any(fwd[k] != want[k] for k in want)):
+            raise AssertionError(f"{tag}: a prefill of {fwd['rows']} rows launched "
+                                 f"{fwd}, expected {want}")
+    if any(plain.values()):
+        raise AssertionError(f"{tag}: plain versions ran on CUDA tensors: {plain}")
+    summary = eng.metrics.summary()
+    tokens = int(sum(len(r.tokens) for r in results))
+    return {"plan": tag, "requests": len(results), "tokens": tokens,
+            "decode_steps": len(record["decode"]),
+            "prefill_forwards": len(record["prefill"]),
+            "prefill_rows": [f["rows"] for f in record["prefill"]],
+            "gemm_launches_per_decode_step": per_step, "launches": launches,
+            "plain_on_cuda": plain, "serve_s": serve_s,
+            "tokens_per_s": tokens / serve_s,
+            "decode_p50_ms": summary.get("decode_p50_ms"),
+            "prefill_p50_ms": summary.get("prefill_p50_ms"),
+            "streams": [list(map(int, r.tokens)) for r in results]}
+
+
+def moe_layer_check(model, dev) -> dict:
+    """One full-width MoE layer of each bit-width segment (its first layer),
+    backend against backend on the card: the same bf16 input x (N(0, 1),
+    a normed hidden state's scale) through ``moe_apply`` under the
+    segment's kernel spec and its reference spec, at a decode step's 8
+    tokens and a prefill's 1024 (two groups), dense and sorted dispatch.
+    The routing (each ``route`` call's experts) and the output must be
+    bit-equal, and the first call of each (kernel, shapes) the expert and
+    shared GEMMs make bit-equal to its plain version (``GemmSpies``)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.models import transformer as tt
+
+    plan, cfg = model.plan, model.plan.cfg
+    ref = ExecutionPlan.build(cfg, plan.policy, backend="reference", mode="decode",
+                              kv_bits=plan.kv_bits)
+    routes = []
+    orig_route = tt.route
+
+    def route(*a):
+        out = orig_route(*a)
+        routes.append(out[2])
+        return out
+    g = torch.Generator(device=dev).manual_seed(21)
+    out, kept = [], {}
+    tt.route = route
+    try:
+        for si, (start, end, spec) in enumerate(plan.segments):
+            p = tree_map(lambda a: a[0], model.params["layers"][si])["moe"]
+            for T in MOE_LAYER_TOKENS:
+                x = torch.randn((1, T, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+                for impl in ("dense", "sorted"):
+                    c = cfg.replace(moe_impl=impl)
+                    routes.clear()
+                    with torch.no_grad(), GemmSpies() as spies:
+                        y, aux = tt.moe_apply(x, p, c, spec)
+                    kept.update(spies.kept)
+                    with torch.no_grad():
+                        y_ref, aux_ref = tt.moe_apply(x, p, c, ref.segments[si][2])
+                    tag = f"{cfg.name} layer {start} T={T} {impl}"
+                    if not torch.equal(routes[0], routes[1]):
+                        raise AssertionError(f"{tag}: routing differs between backends")
+                    if not torch.equal(y, y_ref) or not torch.equal(aux, aux_ref):
+                        diff = (y.float() - y_ref.float()).abs().max().item()
+                        raise AssertionError(f"{tag}: cuda != reference backend "
+                                             f"(max |diff| {diff})")
+                    if not bool(torch.isfinite(y).all()):
+                        raise AssertionError(f"{tag}: non-finite output")
+                    out.append({"layer": start, "w_bits": spec.w_bits, "T": T,
+                                "impl": impl, "bit_equal": True,
+                                "out_abs_max": y.float().abs().max().item()})
+    finally:
+        tt.route = orig_route
+    shapes = check_kept_calls(kept, f"{cfg.name} MoE layer")
+    return {"cases": out, "gemm_calls_bit_equal": shapes}
+
+
+def moe_graph_step(model, dev) -> dict:
+    """One kv8 decode step (8 active slots at cache length 448) eager, then
+    captured in a CUDA graph and replayed twice: both replays byte-equal to
+    the eager step's logits. Eager ms, graphed device ms, the idle share,
+    the GEMM launches of one eager step, and the bound of reading the
+    layers' weights once."""
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+
+    st = decode_state_at(model, dev, DECODE_LEN)
+    toks = torch.randint(1, model.plan.cfg.vocab_size, (DECODE_SLOTS, 1), device=dev)
+
+    def step():
+        with torch.no_grad():
+            return api.forward(model.params, model.plan, state=st, tokens=toks)[0]
+    build.reset_counts()
+    eager = step()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = step()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(captured.clone())
+    for i, r in enumerate(replays):
+        if not torch.equal(r, eager):
+            raise AssertionError(f"{model.plan.describe()}: graph replay {i} != the "
+                                 "eager step")
+    del graph, captured, replays
+    eager_ms = cuda_ms(step, samples=5, reps=1, warmup=1, graph=False)
+    device_ms = cuda_ms(step, samples=5, reps=1, warmup=1)
+    gemms = launches["int8_matmul"] + launches["int4_matmul"]
+    # the least time of the step's GEMMs: each layer's weight codes and
+    # scales read once (the embedding and head excluded)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(model.params["layers"]))
+    bound_ms, bound_by = bound(nbytes, 0.0, 1.0)
+    return {"slots": DECODE_SLOTS, "cache_len": DECODE_LEN,
+            "layer_weight_bytes": nbytes, "weights_bound_ms": bound_ms,
+            "weights_bound_by": bound_by,
+            "replays_byte_equal": 2, "launches": launches,
+            "gemm_launches_per_step": gemms, "eager_ms": eager_ms,
+            "device_ms": device_ms, "device_idle_share_eager": 1.0 - device_ms / eager_ms,
+            "device_us_per_gemm_launch_upper": device_ms * 1e3 / gemms}
+
+
+def moe_long_forward(model, dev) -> dict:
+    """One cacheless granite forward of 4096 tokens (flash attention at GQA
+    group 3, dh 64; each expert's GEMMs on wgmma at G * C = 1024 rows behind
+    act_quant), launching exactly ``moe_launches`` and 32 flash kernels;
+    layer 0's flash output within phase 12's tolerances of the plain
+    version, the first call of each GEMM shape bit-equal to its plain
+    version."""
+    cfg = model.plan.cfg
+    inputs = prefill_inputs(cfg, MOE_LONG, dev)
+    expected = {**dict.fromkeys(SOURCES, 0), **moe_launches(cfg, MOE_LONG),
+                "flash_attention": cfg.num_layers}
+    t0 = time.perf_counter()
+    run = long_forward(model, inputs, flash_layers=1, gemms=True, expected=expected)
+    tag = f"{cfg.name} S={MOE_LONG}"
+    err = check_layers(run.pop("taken"), tag)
+    shapes = check_gemms(run.pop("kept"), tag)
+    run.pop("logits")
+    return {**run, "layer0_max_abs_err_vs_plain": err, "gemm_shapes_bit_equal": shapes,
+            "seconds": time.perf_counter() - t0}
+
+
+def moe_phase(dev) -> dict:
+    """Phase 21: the MoE family on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    granite, out["granite_deploy"] = moe_model(
+        "granite-moe-3b-a800m", dev, art=ROOT / "build" / "chip_smoke_moe_artifact")
+    reqs = moe_traffic(granite.plan.cfg.vocab_size)
+    serve = {}
+    for tag, kv, paging in (("kv8_dense", 8, "dense"), ("kv8_paged", 8, "paged"),
+                            ("kv4_dense", 4, "dense")):
+        serve[tag] = serve_moe(paged_model(granite, paging, kv_bits=kv), reqs)
+    out["granite_serve"] = {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+                            for k, v in serve.items()}
+    out["granite_kv8_paged_streams_equal_dense"] = sum(
+        a == b for a, b in zip(serve["kv8_paged"]["streams"], serve["kv8_dense"]["streams"]))
+    out["granite_layer"] = moe_layer_check(granite, dev)
+    out["granite_graph_step"] = moe_graph_step(granite, dev)
+    out["granite_long_forward"] = moe_long_forward(granite, dev)
+    out["granite_s"] = time.perf_counter() - t0
+    del granite
+    t1 = time.perf_counter()
+    qwen, out["qwen_deploy"] = moe_model("qwen2-moe-a2.7b", dev, layers=MOE_QWEN_LAYERS)
+    q = serve_moe(qwen, moe_traffic(qwen.plan.cfg.vocab_size)[:4])
+    out["qwen_serve_kv8_dense"] = {k: v for k, v in q.items() if k != "streams"}
+    out["qwen_layer"] = moe_layer_check(qwen, dev)
+    out["qwen_s"] = time.perf_counter() - t1
+    del qwen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4091,10 +4518,20 @@ def main() -> int:
     fleet = fleet_phase(dev, dense_streams[8], dec["per_kv"][8])
     seconds["fleet"] = time.perf_counter() - t0
     emit({"phase": "fleet", **fleet, "seconds_total": seconds["fleet"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe = moe_phase(dev)
+    seconds["moe"] = time.perf_counter() - t0
+    emit({"phase": "moe", **{k: v for k, v in moe.items() if k not in (
+        "granite_layer", "qwen_layer")}, "seconds": seconds["moe"]})
+    for key in ("granite_layer", "qwen_layer"):
+        emit({"phase": f"moe_{key}", **moe[key]})
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
         *(run["layers_max_abs_err_vs_plain"] for run in prefill.values()),
-        *(run["layer0_max_abs_err_vs_plain"] for run in long_times.values()))
+        *(run["layer0_max_abs_err_vs_plain"] for run in long_times.values()),
+        moe["granite_long_forward"]["layer0_max_abs_err_vs_plain"])
 
     launches_by_path = {"encoder": e2e["launches"],
                         **{f"decode_kv{kv}": v["launches"]
@@ -4119,7 +4556,12 @@ def main() -> int:
                         "fleet_replicas_paged": fleet["replicas"]["paged"]["launches"],
                         "fleet_tenants": fleet["tenants"]["launches"],
                         "serve_cli_replicas": fleet["cli"]["replicas"]["launches"],
-                        "serve_cli_tenants": fleet["cli"]["tenants"]["launches"]}
+                        "serve_cli_tenants": fleet["cli"]["tenants"]["launches"],
+                        **{f"moe_granite_{tag}": run["launches"]
+                           for tag, run in moe["granite_serve"].items()},
+                        f"moe_granite_prefill_{MOE_LONG}":
+                            moe["granite_long_forward"]["launches"],
+                        "moe_qwen_kv8_dense": moe["qwen_serve_kv8_dense"]["launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
     planned = {"encoder": e2e["expected_launches"]["act_quant"],
@@ -4162,7 +4604,12 @@ def main() -> int:
                                           "int4_matmul_fused", "decode_attention")),
                        ("serve_cli_replicas", cli_decode),
                        ("serve_cli_tenants", ("int8_matmul", "int4_matmul",
-                                              "int4_matmul_fused", "decode_attention"))):
+                                              "int4_matmul_fused", "decode_attention")),
+                       ("moe_granite_kv8_dense", MOE_KERNELS),
+                       ("moe_granite_kv8_paged", MOE_PAGED_KERNELS),
+                       ("moe_granite_kv4_dense", MOE_KERNELS),
+                       (f"moe_granite_prefill_{MOE_LONG}", PREFILL_KERNELS),
+                       ("moe_qwen_kv8_dense", MOE_KERNELS)):
         idle = [k for k in need if not launches_by_path[path][k]
                 and (k != "act_quant" or planned.get(path, 1))]
         if idle:
@@ -4197,7 +4644,7 @@ def main() -> int:
                                   "table2": table2, "serve_cli": cli,
                                   "score_end_to_end": score, "load": load,
                                   "qat_end_to_end": qat, "train_cli": trained,
-                                  "fleet": fleet, "seconds": seconds},
+                                  "fleet": fleet, "moe": moe, "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})
     print(card_line(), flush=True)

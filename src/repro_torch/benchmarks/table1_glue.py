@@ -48,9 +48,25 @@ def _init(cfg, seed: int, dev):
                                 torch.Generator(device=dev).manual_seed(seed), dev)
 
 
-def teacher_and_student(cfg, tcfg, data, steps: int, seed: int, dev):
-    """The deeper fp teacher and the fp student, each the best of the
-    paper's lr sweep at ``2 * steps``; the student from ``seed + 1``."""
+#: the QAT steps of a table's row at ``quick`` size
+QUICK_STEPS = 80
+
+
+def tables_task(seed: int):
+    """The tables' student and teacher configs and their synthetic task."""
+    cfg, tcfg = common.student_config(), common.teacher_config()
+    data = SyntheticClassification(cfg.vocab_size, 24, 64,
+                                   num_classes=common.NUM_CLASSES, seed=seed)
+    return cfg, tcfg, data
+
+
+def teacher_and_student(steps: int, seed: int, device=None):
+    """The deeper fp teacher and the fp student on ``tables_task(seed)``,
+    each the best of the paper's lr sweep at ``2 * steps``; the student
+    from ``seed + 1``. Table 1 and Table 3 train the same pair: a caller
+    running both may train it once and hand it to each ``run``."""
+    dev = resolve_device(device)
+    cfg, tcfg, data = tables_task(seed)
     tplan, fplan = common.plan_for(tcfg), common.plan_for(cfg)
     teacher = common.train_best(lambda: _init(tcfg, seed, dev), tplan, data,
                                 steps=2 * steps, lrs=(2e-3, 1e-3, 5e-4))
@@ -59,18 +75,18 @@ def teacher_and_student(cfg, tcfg, data, steps: int, seed: int, dev):
     return teacher, fp_student
 
 
-def run(steps=150, seed=0, rows=(1, 2, 3, 4), quick=False, device=None):
+def run(steps=150, seed=0, rows=(1, 2, 3, 4), quick=False, device=None,
+        trained=None):
     """[(name, algo, accuracy), ...]: the teacher and fp student rows, then
-    MKQ and KDLSQ at each int4-layer count of ``rows``."""
+    MKQ and KDLSQ at each int4-layer count of ``rows``. ``trained``: the
+    (teacher, fp student) of ``teacher_and_student`` at the same steps and
+    seed, or None to train them here."""
     if quick:
-        steps, rows = 80, (2, 4)
+        steps, rows = QUICK_STEPS, (2, 4)
     dev = resolve_device(device)
-    cfg = common.student_config()
-    tcfg = common.teacher_config()
-    data = SyntheticClassification(cfg.vocab_size, 24, 64,
-                                   num_classes=common.NUM_CLASSES, seed=seed)
+    cfg, tcfg, data = tables_task(seed)
     tplan = common.plan_for(tcfg)
-    teacher, fp_student = teacher_and_student(cfg, tcfg, data, steps, seed, dev)
+    teacher, fp_student = trained or teacher_and_student(steps, seed, dev)
     t_acc = common.evaluate(teacher, tplan, data)
     fp_acc = common.evaluate(fp_student, common.plan_for(cfg), data)
     results = [("teacher_fp32", "-", t_acc), ("student_fp32", "-", fp_acc)]

@@ -16,10 +16,9 @@ import argparse
 import time
 
 from ..core.policy import QuantPolicy
-from ..data import SyntheticClassification
 from ..device import resolve_device
 from . import common
-from .table1_glue import teacher_and_student
+from .table1_glue import QUICK_STEPS, tables_task, teacher_and_student
 
 VARIANTS = {
     "full_mkq": dict(use_mini_kd=True, use_output_kd=True, freeze_scales=False),
@@ -29,16 +28,15 @@ VARIANTS = {
 }
 
 
-def run(steps=150, seed=0, quick=False, device=None):
-    """[(variant, accuracy), ...] in ``VARIANTS`` order."""
+def run(steps=150, seed=0, quick=False, device=None, trained=None):
+    """[(variant, accuracy), ...] in ``VARIANTS`` order. ``trained``: the
+    (teacher, fp student) of ``table1_glue.teacher_and_student`` at the same
+    steps and seed (Table 1's), or None to train them here."""
     if quick:
-        steps = 80
+        steps = QUICK_STEPS
     dev = resolve_device(device)
-    cfg = common.student_config()
-    tcfg = common.teacher_config()
-    data = SyntheticClassification(cfg.vocab_size, 24, 64,
-                                   num_classes=common.NUM_CLASSES, seed=seed)
-    teacher, fp_student = teacher_and_student(cfg, tcfg, data, steps, seed, dev)
+    cfg, tcfg, data = tables_task(seed)
+    teacher, fp_student = trained or teacher_and_student(steps, seed, dev)
     pol = QuantPolicy(num_layers=cfg.num_layers, mode="fake", last_k_int4=2,
                       grad_mode="mse")
     plan = common.plan_for(cfg, pol)

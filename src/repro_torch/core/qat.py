@@ -57,7 +57,9 @@ def calibrate_weight_scales(params, bits_for_leaf: Callable[[tuple], np.ndarray]
 
 
 def default_bits_fn(cfg: ModelConfig, policy: QuantPolicy):
-    """Per-leaf bits resolver honoring stacked layer leading dims."""
+    """Per-leaf bits resolver honoring stacked layer leading dims: a leaf
+    stacked over the layers gets each layer's bits, broadcast over any
+    further leading dims (an MoE leaf's experts, (L, E, ...))."""
     n_units = policy.num_layers
     bits_vec = np.array([policy.weight_bits(l) or 32 for l in range(n_units)],
                         np.float32)
@@ -79,10 +81,19 @@ SITE_ORDERS = {
     "attn": ["attn/wq", "attn/wk", "attn/wv", "attn/wo"],
     "ffn_swiglu": ["ffn/w1", "ffn/w3", "ffn/w2"],
     "ffn_gelu": ["ffn/w1", "ffn/w2"],
+    "moe": ["moe/w1", "moe/w3", "moe/w2"],
 }
 
 
 def site_order(cfg: ModelConfig) -> list[str]:
+    """The quantized-matmul sites of one layer in the order the forward
+    records them: attention, then the FFN, or the experts and the shared
+    expert for MoE (whose expert sites record one value per expert)."""
+    if cfg.family == "moe":
+        sites = SITE_ORDERS["attn"] + SITE_ORDERS["moe"]
+        if cfg.shared_expert_d_ff:
+            sites = sites + ["moe/shared/w1", "moe/shared/w3", "moe/shared/w2"]
+        return sites
     ffn = SITE_ORDERS["ffn_swiglu"] if cfg.act == "swiglu" else SITE_ORDERS["ffn_gelu"]
     return SITE_ORDERS["attn"] + ffn
 
@@ -90,7 +101,9 @@ def site_order(cfg: ModelConfig) -> list[str]:
 def calibrate_act_scales(params, cfg: ModelConfig, policy: QuantPolicy,
                          forward_fn: Callable, batches: list[dict],
                          percentile: float = 99.99):
-    """Per-site activation calibration for the stacked-layer families."""
+    """Per-site activation calibration for the stacked-layer families. An
+    MoE expert site records (E,) per call, which lands in ``s_a`` of shape
+    (L, E, 1, 1)."""
     sites = site_order(cfg)
     K = len(sites)
     L = cfg.num_layers
@@ -161,7 +174,9 @@ def calibrate_act_scales_global(params, cfg: ModelConfig, policy: QuantPolicy,
 
 
 def _quantize_stack(tree, w_bits: int):
-    """Replace every linear's 'w' with packed codes 'wq' (segment-sliced)."""
+    """Replace every linear's 'w' with packed codes 'wq' (segment-sliced;
+    int4 packs along K, so an expert stack (L, E, K, N) packs each expert's
+    own K rows)."""
     def walk(node):
         if _is_linear(node):
             new = {k: v for k, v in node.items() if k != "w"}

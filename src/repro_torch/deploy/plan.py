@@ -14,15 +14,16 @@ loads as ``"cuda"`` and writes back as ``"pallas"``, so an artifact moves
 between the two packages unchanged.
 
 Two modes are served: ``"encoder"`` (the bert family, prefill-only) and
-``"decode"`` (the dense decoder and vlm families over a dense slot KV cache
-or a paged block pool, ``kv_paging``, at kv_bits 16, 8 or 4, chunked
+``"decode"`` (the dense decoder, vlm and moe families over a dense slot KV
+cache or a paged block pool, ``kv_paging``, at kv_bits 16, 8 or 4, chunked
 prefill, with the shared-prefix cache when ``prefix_cache > 0``). A
 ``tp > 1`` plan shards the deployed integer weights and the KV heads over
 ``tp`` ranks (``_validate_tp``: JAX's rules, in JAX's order) and runs the
 plain integer path, whose row-parallel int32 sums keep every stream
 byte-identical to tp=1; ``make_group`` checks the ranks when a model is
-placed, not at build. What later slices add raises ``ValueError`` naming
-that slice: token-mode prefill and the other model families.
+placed, not at build; MoE plans are refused at ``tp > 1`` (expert
+sharding is a later slice). What later slices add raises ``ValueError``
+naming that slice: token-mode prefill and the other model families.
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ __all__ = ["ExecutionPlan", "resolve_segments", "plan_to_meta",
 BACKENDS = ("reference", "cuda")
 MODES = ("decode", "encoder")
 #: families whose decode plans the port builds (the vlm is served on tokens,
-#: as the JAX engine serves it)
-DECODE_FAMILIES = ("dense", "vlm")
+#: as the JAX engine serves it; MoE keeps the transformer's KV slot cache)
+DECODE_FAMILIES = ("dense", "vlm", "moe")
 
 #: families whose decode state is not a KV slot cache (JAX's list): no
 #: sharding rules exist for their fp recurrent state
@@ -77,7 +78,8 @@ def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
                  act_bits: Optional[int], segments, tp: int) -> None:
     """Structural checks of a tensor-parallel plan, the JAX package's
     ``_validate_tp``: the same conditions in the same order, each naming
-    the knob that caused it."""
+    the knob that caused it, and one of the port's own: MoE is refused
+    (JAX shards its experts; the port does not yet)."""
     if backend != "reference":
         raise ValueError(
             f"tp={tp}: the hand-written kernels are single-device; shard on "
@@ -86,6 +88,11 @@ def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
         raise ValueError(
             f"tp={tp}: no sharding rules for family {cfg.family!r}'s fp "
             "recurrent decode state; transformer-cache families only")
+    if cfg.family == "moe":
+        raise ValueError(
+            f"tp={tp}: MoE under tensor parallelism (sharded experts, the "
+            "experts' w2 summed row-parallel in int32) is a later slice of "
+            "the port (ROADMAP Queue 1); serve MoE at tp=1")
     if policy is None or policy.mode != "int":
         raise ValueError(
             f"tp={tp} shards DEPLOYED integer weights (row-parallel partial "

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.quantizer import qrange
+from ..core.packing import unpack_int4
+from ..core.quantizer import qrange, quantize_to_int
 from . import build
 from .gemm_plan import PATH_SPLITK, GemmPlan, code_pitch, gemm_plan
 
@@ -39,9 +40,27 @@ def check_out_dtype(out_dtype: torch.dtype) -> int:
 
 
 def int_matmul_exact(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
-    """(..., K) int8 @ (K, N) int8 -> int32, exact on any device: every
+    """(..., K) int8 @ (..., K, N) int8 -> int32 (batched over the leading
+    dims as ``torch.matmul`` broadcasts), exact on any device: every
     product and partial sum is an integer below 127^2 * K << 2^53."""
     return (x8.to(torch.float64) @ w8.to(torch.float64)).to(torch.int32)
+
+
+def expert_matmul_exact(x: torch.Tensor, wq: torch.Tensor, s_a: torch.Tensor,
+                        s_w: torch.Tensor, w_bits: int, a_bits: int) -> torch.Tensor:
+    """The deployed integer product over experts, all at once: x (E, C, K)
+    float, wq (E, K, N) int8 codes or (E, K/2, N) packed nibbles, s_a (E, 1,
+    1), s_w (E, 1, N). Each expert's activations are quantized with its own
+    scale, the int32 accumulator is exact (:func:`int_matmul_exact`, batched)
+    and the epilogue is ``(acc.f32 * (s_a * s_w)).to(x.dtype)``, the JAX
+    package's ``_expert_matmul`` in its order. The plain integer path of
+    every backend on the CPU and of the reference backend on the card."""
+    w8 = unpack_int4(wq, axis=-2) if w_bits == 4 else wq
+    K = x.shape[-1]
+    if w8.shape[-2] != K:          # int4 packing padded K to even
+        w8 = w8.narrow(-2, 0, K)
+    acc = int_matmul_exact(quantize_to_int(x, s_a, a_bits), w8)
+    return (acc.to(torch.float32) * (s_a * s_w)).to(x.dtype)
 
 
 def int8_matmul_plain(x8: torch.Tensor, w8: torch.Tensor, s_a: torch.Tensor,

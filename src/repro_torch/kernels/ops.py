@@ -1,6 +1,7 @@
 """Dispatch layer for the kernels (shapes, padding, device choice).
 
-``qlinear`` lands here when its ``QuantSpec.use_kernels`` is set, the
+``qlinear`` lands here when its ``QuantSpec.use_kernels`` is set, and so
+do the MoE experts' integer products (:func:`expert_matmul`), the
 quantized-cache branch of ``attention_block`` for one-token decode steps,
 and ``chunked_attention`` (the cacheless branch of long forwards). A
 tensor on the card goes to the hand-written CUDA kernel, a tensor on the CPU
@@ -30,7 +31,8 @@ from .flash_attention import (TILE, flash_attention_cuda,
 from .gemm_plan import code_pitch, gemm_plan, quantizes_in_gemm
 from .int4_matmul import (int4_matmul_cuda, int4_matmul_fused_cuda,
                           int4_matmul_fused_plain, int4_matmul_plain)
-from .int8_matmul import int8_matmul_cuda, int8_matmul_plain
+from .int8_matmul import (expert_matmul_exact, int8_matmul_cuda,
+                          int8_matmul_plain)
 
 
 def act_quant(x: torch.Tensor, s: torch.Tensor, bits: int = 8) -> torch.Tensor:
@@ -95,6 +97,35 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor, s_a: torch.Tensor,
     if act is not None:
         return int4_matmul_fused_plain(x8, wp, s_a, s_w, b, act, out_dtype=x.dtype)
     return int4_matmul_plain(x8, wp, s_a, s_w, out_dtype=x.dtype)
+
+
+def expert_matmul(x_ecd: torch.Tensor, p: dict, spec) -> torch.Tensor:
+    """The deployed integer product over MoE experts: x (E, C, K) float @
+    each expert's weight codes ``p['wq']`` ((E, K, N) int8, or (E, K/2, N)
+    packed nibbles at ``spec.w_bits`` 4), with its own activation scale
+    ``p['s_a'][e]`` ((E, 1, 1)) and weight scales ``p['s_w'][e]`` ((E, 1,
+    N)); returns (E, C, N) in x's dtype.
+
+    On the card, one :func:`int8_matmul` / :func:`int4_matmul` call per
+    expert, each at the full capacity C (empty slots included: skipping an
+    expert would need a host read of the counts, and the decode step stays
+    capturable in a CUDA graph), each handed that expert's scalar scale, so
+    a split-K GEMM quantizes inside with it. On the CPU, the exact batched
+    product (``expert_matmul_exact``): the same bits."""
+    if not spec.a_bits:
+        raise ValueError("expert_matmul: the integer kernels take activation "
+                         "codes; a_bits=0 (fp activations) is the reference "
+                         "backend's path")
+    if not x_ecd.is_cuda:
+        return expert_matmul_exact(x_ecd, p["wq"], p["s_a"], p["s_w"],
+                                   spec.w_bits, spec.a_bits)
+    E = x_ecd.shape[0]
+    x_ecd = x_ecd.contiguous()
+    s_a = p["s_a"].reshape(E)                  # views: expert e's scalar ...
+    s_w = p["s_w"]                             # ... and its (1, N) row
+    gemm = int4_matmul if spec.w_bits == 4 else int8_matmul
+    return torch.stack([gemm(x_ecd[e], p["wq"][e], s_a[e], s_w[e], a_bits=spec.a_bits)
+                        for e in range(E)])
 
 
 def decode_attention(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,

@@ -2,12 +2,12 @@
 
 ``forward(params, plan, state=..., tokens=..., patch_embeds=...,
 patch_mask=...) -> (logits, new_state)`` for the transformer families the
-port serves (dense decoders, the vlm with its patch-embedding stub, and the
-bert stack as an LM); ``want_taps=True`` adds the last layer's q/k/v taps
-as a third element. The JAX package's ``forward`` always returns taps and
-an aux loss; the aux loss belongs to the MoE slice (0 for these families).
-Families without a KV slot cache (xlstm, hybrid, encdec) and MoE raise a
-``ValueError`` that names the slice they arrive with.
+port serves (dense decoders, MoE decoders, the vlm with its
+patch-embedding stub, and the bert stack as an LM); ``want_taps=True``
+adds the last layer's q/k/v taps and ``want_aux=True`` then the MoE
+load-balance loss (0 for the other families), the JAX package's ``forward``
+returning both always. Families without a KV slot cache (xlstm, hybrid,
+encdec) raise a ``ValueError`` that names the slice they arrive with.
 """
 from __future__ import annotations
 
@@ -19,15 +19,15 @@ from ..configs.base import ModelConfig
 from . import transformer
 
 #: families whose forward and decode state this slice of the port serves
-FAMILIES = ("dense", "bert", "vlm")
+FAMILIES = ("dense", "bert", "vlm", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(
             f"family {cfg.family!r}: the port serves {FAMILIES} so far; "
-            "moe and the token-mode families (xlstm, hybrid, encdec) "
-            "arrive with the other-families slice")
+            "the token-mode families (xlstm, hybrid, encdec) arrive with "
+            "a later slice")
 
 
 def init_model(cfg: ModelConfig, g: torch.Generator, device) -> dict:
@@ -38,17 +38,19 @@ def init_model(cfg: ModelConfig, g: torch.Generator, device) -> dict:
 
 
 def forward(params, plan, *, state: Optional[dict] = None, tokens,
-            patch_embeds=None, patch_mask=None, want_taps: bool = False):
+            patch_embeds=None, patch_mask=None, want_taps: bool = False,
+            want_aux: bool = False):
     """One forward under ``plan`` (an ``ExecutionPlan``): logits (B, S,
     padded_vocab) and the decode state advanced by S tokens (updated in
     place; None without a state). vlm inputs: ``patch_embeds`` (B, P, d)
     placed at the True positions of ``patch_mask`` (B, S). ``want_taps``
-    adds a third element, the last layer's q/k/v for distillation."""
+    adds the last layer's q/k/v for distillation, ``want_aux`` then the
+    summed MoE load-balance loss (a 0-d f32 tensor)."""
     _check_family(plan.cfg)
     return transformer.lm_forward(params, plan.cfg, plan.segments,
                                   tokens=tokens, patch_embeds=patch_embeds,
                                   patch_mask=patch_mask, caches=state,
-                                  want_taps=want_taps)
+                                  want_taps=want_taps, want_aux=want_aux)
 
 
 def decode_state(cfg: ModelConfig, batch: int, max_len: int,

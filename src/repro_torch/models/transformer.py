@@ -1,16 +1,23 @@
-"""The decoder-only LM (dense and vlm families) and the BERT subset of the
-shared transformer stack.
+"""The decoder-only LM (dense, vlm and MoE families) and the BERT subset of
+the shared transformer stack.
 
 Layer parameters are stacked (leading dim = layers), as in the JAX package.
 The MKQ mixed-precision policy (int4 from the last layer backwards, int8
 elsewhere) yields CONTIGUOUS bit-segments, and the stack runs as one Python
 loop per segment with a static ``QuantSpec``.
 
+MoE layers route each token to its top-k experts under a capacity of C
+slots an expert: the grouped one-hot dispatch (``moe_apply``, GShard
+style) or the gather / scatter one (``moe_apply_sorted``,
+``moe_impl="sorted"``), the JAX package's two. Expert weights are
+quantized per expert (``_expert_matmul``); on the kernel backend each
+expert's product is one integer GEMM launch (``kernels.ops.expert_matmul``).
+
 KV caches are updated in place (the JAX package returns new arrays and
 lets XLA alias them): ``lm_forward`` writes each layer's new rows into the
 cache buffers and returns the same buffers with the advanced cursor. The
-decode forward makes no host synchronisation, so one decode step can be
-captured in a CUDA graph.
+decode forward makes no host synchronisation, MoE routing included, so one
+decode step can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -19,9 +26,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+import dataclasses
+
 from ..configs.base import ModelConfig
+from ..core import calibration
+from ..core.packing import unpack_int4
 from ..core.policy import QuantPolicy
+from ..core.quantizer import fake_quant
 from ..core.tree import slice_stack, tree_map
+from ..kernels.int8_matmul import expert_matmul_exact
 from .attention import attention_block
 from .layers import QuantSpec, act_fn, layernorm, qlinear, rmsnorm
 
@@ -69,22 +82,218 @@ def ffn_apply(x, p, cfg: ModelConfig, spec: QuantSpec):
     return qlinear(h, p["w2"], spec, row_parallel=True)
 
 
+# ------------------------------------------------------------------ MoE
+def _expert_matmul(x_ecd: torch.Tensor, p: dict, spec: QuantSpec) -> torch.Tensor:
+    """x (E, C, K) @ w (E, K, N) with per-expert quantization: expert e's
+    activations on its own scale ``s_a[e]`` ((E, 1, 1)), its weight on its
+    own per-channel ``s_w[e]`` ((E, 1, N)). Under calibration the input's
+    |x| percentile is recorded per expert (empty slots' zero rows
+    included, as in the JAX package)."""
+    if calibration.active():
+        calibration.record_input(x_ecd, per_axis0=True)
+    if spec.mode == "int":
+        if spec.a_bits and spec.use_kernels:
+            from ..kernels import ops as kops
+            return kops.expert_matmul(x_ecd, p, spec)
+        if spec.a_bits:
+            return expert_matmul_exact(x_ecd, p["wq"], p["s_a"], p["s_w"],
+                                       spec.w_bits, spec.a_bits)
+        assert not spec.use_kernels, \
+            "fp-activation fallback is reference-backend only"
+        w8 = unpack_int4(p["wq"], axis=-2) if spec.w_bits == 4 else p["wq"]
+        k = x_ecd.shape[-1]
+        if w8.shape[-2] != k:
+            w8 = w8.narrow(-2, 0, k)
+        w = (w8.to(torch.float32) * p["s_w"]).to(x_ecd.dtype)
+        return torch.matmul(x_ecd, w)
+    w = p["w"]
+    if spec.mode == "fake" and spec.enabled:
+        w = fake_quant(w, p["s_w"], spec.w_bits, spec.grad_mode)
+        if spec.a_bits:
+            x_ecd = fake_quant(x_ecd, p["s_a"], spec.a_bits, spec.grad_mode)
+    return torch.matmul(x_ecd, w.to(x_ecd.dtype))
+
+
+def top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest gates and their experts along the last axis, the
+    lower index first among equal gates (``jax.lax.top_k``'s order;
+    ``torch.topk`` promises none): a stable descending sort, cut to k."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """f32 router logits -> softmax gates, the top-k experts and their gates
+    renormalised to sum to 1: (gates, top_vals, top_idx)."""
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    gates = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = top_k(gates, k)
+    top_vals = top_vals / torch.clamp_min(top_vals.sum(-1, keepdim=True), 1e-9)
+    return gates, top_vals, top_idx
+
+
+def _experts(xe: torch.Tensor, p: dict, spec: QuantSpec, dtype) -> torch.Tensor:
+    """The gated SwiGLU experts on their (E, rows, d) slots."""
+    h1 = _expert_matmul(xe, p["w1"], spec)
+    h3 = _expert_matmul(xe, p["w3"], spec)
+    h = F.silu(h1.to(torch.float32)).to(dtype) * h3
+    return _expert_matmul(h, p["w2"], spec)
+
+
+def _shared_expert(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                   spec: QuantSpec) -> torch.Tensor:
+    """The always-on shared expert behind its sigmoid gate (qwen2-moe)."""
+    gate = torch.sigmoid(x.to(torch.float32) @ p["shared_gate"]).to(x.dtype)
+    sub = dataclasses.replace(cfg, d_ff=cfg.shared_expert_d_ff)
+    return gate * ffn_apply(x, p["shared"], sub, spec)
+
+
+def _aux_loss(gates: torch.Tensor, first: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balance loss: ``coef * E * sum(frac * prob)``, frac
+    the share of tokens whose first choice is each expert, prob the mean
+    gate; means over every axis but the experts'."""
+    E = cfg.num_experts
+    lead = tuple(range(gates.dim() - 1))
+    frac = torch.mean(F.one_hot(first, E).to(torch.float32), dim=lead)
+    prob = torch.mean(gates, dim=lead)
+    return cfg.router_aux_coef * E * torch.sum(frac * prob)
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots an expert has for ``tokens`` routed tokens (JAX's formula)."""
+    return max(1, int(tokens * cfg.top_k * cfg.capacity_factor / cfg.num_experts))
+
+
+def dense_dispatch(top_vals: torch.Tensor, top_idx: torch.Tensor, E: int, C: int,
+                   dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The grouped one-hot dispatch of (G, Sg, K) choices onto E experts of
+    C slots: ``dispatch`` (G, Sg, E, C) in ``dtype``, 1 where a token's
+    choice sits, and ``combine``, the same places holding that choice's
+    gate, in f32. Slots fill in token order, choice by choice (all first
+    choices, then the second ...); a choice past its expert's C slots is
+    dropped."""
+    G, Sg, K = top_idx.shape
+    f32, dev = torch.float32, top_idx.device
+    counts = torch.zeros((G, 1, E), dtype=f32, device=dev)
+    dispatch = torch.zeros((G, Sg, E, C), dtype=dtype, device=dev)
+    combine = torch.zeros((G, Sg, E, C), dtype=f32, device=dev)
+    slots = torch.arange(C, device=dev)
+    for j in range(K):       # K is small (4 / 8); unrolled
+        m_j = F.one_hot(top_idx[..., j], E).to(f32)                 # (G,Sg,E)
+        pos = torch.cumsum(m_j, dim=1) - 1.0 + counts
+        keep = (pos < C).to(f32) * m_j
+        counts = counts + m_j.sum(dim=1, keepdim=True)
+        # one_hot(pos, C): an out-of-range position is a row of zeros
+        oh = (pos.to(torch.int32)[..., None] == slots).to(f32)
+        d_j = keep[..., None] * oh                                  # (G,Sg,E,C)
+        dispatch = dispatch + d_j.to(dtype)
+        combine = combine + d_j * top_vals[..., j, None, None]
+    return dispatch, combine
+
+
+def moe_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, spec: QuantSpec):
+    """Grouped dense one-hot dispatch: x (B, S, d) -> (out, aux_loss).
+
+    The B*S tokens form G = max(1, B*S // moe_group_size) groups (G must
+    divide B*S: raised, never padded); each group gives every expert C
+    slots, filled in token order, choice by choice (all first choices, then
+    the second ...); a token past its expert's capacity is dropped for that
+    choice (:func:`dense_dispatch`). Dispatch runs in x's dtype, the combine
+    weights are built in f32 and cast to it, as in the JAX package."""
+    if cfg.moe_impl == "sorted":
+        return moe_apply_sorted(x, p, cfg, spec)
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    T = B * S
+    G = max(1, T // cfg.moe_group_size)
+    if T % G:
+        raise ValueError(f"moe_apply: {T} tokens do not split into {G} groups "
+                         f"of moe_group_size={cfg.moe_group_size}")
+    xg = x.reshape(G, T // G, d)
+    Sg = xg.shape[1]
+    C = capacity(Sg, cfg)
+    gates, top_vals, top_idx = route(xg, p["router"], K)
+
+    dispatch, combine = dense_dispatch(top_vals, top_idx, E, C, x.dtype)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)               # (G,E,C,d)
+    xe = xe.permute(1, 0, 2, 3).reshape(E, G * C, d)
+    ye = _experts(xe, p, spec, x.dtype)
+    ye = ye.reshape(E, G, C, d).permute(1, 0, 2, 3)                  # (G,E,C,d)
+    out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
+    if "shared" in p:
+        out = (out.reshape(B, S, d) + _shared_expert(x, p, cfg, spec)).reshape(G, Sg, d)
+    return out.reshape(B, S, d), _aux_loss(gates, top_idx[..., 0], cfg)
+
+
+def moe_apply_sorted(x: torch.Tensor, p: dict, cfg: ModelConfig, spec: QuantSpec):
+    """Sort-based dispatch: the (token, choice) pairs sorted by expert
+    (stably), each expert's first C kept, gathered into (E, C, d) slots, the
+    experts run, and each token's kept rows, weighted by their gates, summed
+    back. Equal to :func:`moe_apply` wherever no expert overflows; under
+    overflow the two drop different tokens (the priority orders differ).
+
+    JAX scatter-adds the rows back (``.at[tok].add``); ``index_add_`` on the
+    card sums with atomics, whose order moves from run to run. Each token
+    has exactly K rows, so they are summed here in a fixed order instead:
+    by ascending expert, the order of the sorted pairs, so two calls and a
+    CUDA-graph replay are bit-equal."""
+    B, S, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    T = B * S
+    xf = x.reshape(T, d)
+    C = capacity(T, cfg)
+    dev = x.device
+    gates, top_vals, top_idx = route(xf, p["router"], K)
+
+    e_flat = top_idx.reshape(-1)                                    # (T*K,)
+    g_flat = top_vals.reshape(-1)
+    order = torch.sort(e_flat, stable=True).indices
+    e_sorted = e_flat[order]
+    tok_sorted = order // K
+    seg_start = torch.searchsorted(e_sorted, torch.arange(E, device=dev))
+    pos_in_e = torch.arange(T * K, device=dev) - seg_start[e_sorted]
+    keep = pos_in_e < C
+    slot = torch.where(keep, e_sorted * C + pos_in_e, E * C)        # drop -> pad
+
+    # gather the tokens into expert slots (one extra pad row takes the drops)
+    src = torch.zeros(E * C + 1, dtype=torch.int64, device=dev)
+    src.scatter_(0, slot, tok_sorted + 1)
+    src = src[:E * C]
+    xe = torch.where((src > 0)[:, None], xf[torch.clamp_min(src - 1, 0)], 0.0)
+    ye = _experts(xe.reshape(E, C, d), p, spec, x.dtype).reshape(E * C, d)
+
+    y_rows = torch.where(keep[:, None],
+                         ye[torch.clamp_max(slot, E * C - 1)]
+                         * g_flat[order][:, None].to(ye.dtype), 0.0)
+    y_tok = torch.empty_like(y_rows)
+    y_tok[order] = y_rows                  # row t*K + j: token t's choice j
+    y_tok = y_tok.reshape(T, K, d)
+    by_expert = torch.sort(top_idx, dim=-1, stable=True).indices
+    y_tok = torch.gather(y_tok, 1, by_expert[..., None].expand(T, K, d))
+    out = y_tok[:, 0]
+    for j in range(1, K):
+        out = out + y_tok[:, j]
+    if "shared" in p:
+        out = out + _shared_expert(xf, p, cfg, spec)
+    return out.reshape(B, S, d).to(x.dtype), _aux_loss(gates, top_idx[:, 0], cfg)
+
+
 def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
                 cache: Optional[dict] = None, kv_len=None,
-                want_taps: bool = False):
+                want_taps: bool = False, want_aux: bool = False):
     """One block. Pre-LN (decoders): x += attn(LN(x)); x += ffn(LN(x)).
-    Post-LN (BERT): x = LN(x + attn(x)); x = LN(x + ffn(x)). Returns
-    ``(x, new_kv)``, or ``(x, new_kv, taps)`` with ``want_taps`` (the
-    attention's q/k/v taps); ``new_kv`` is the new tokens' (k, v) when
-    ``cache`` is given, else None. Forwards longer than
-    ``cfg.attn_chunk_threshold`` offer attention the chunk
+    Post-LN (BERT): x = LN(x + attn(x)); x = LN(x + ffn(x)). A MoE block
+    runs ``moe_apply`` where the others run the FFN. Returns ``(x,
+    new_kv)``, then the attention's q/k/v taps with ``want_taps`` and the
+    block's load-balance loss (0 outside MoE) with ``want_aux``; ``new_kv``
+    is the new tokens' (k, v) when ``cache`` is given, else None. Forwards
+    longer than ``cfg.attn_chunk_threshold`` offer attention the chunk
     ``cfg.attn_chunk``."""
-    if cfg.family == "moe":
-        raise NotImplementedError("MoE layers arrive with a later slice")
     pre = cfg.norm == "rms" or not cfg.learned_pos  # BERT uses post-LN
     chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk_threshold else 0
     n_heads = p["attn"]["wq"]["s_w"].shape[-1] // cfg.hd
     n_kv = p["attn"]["wk"]["s_w"].shape[-1] // cfg.hd
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def attn(h):
         return attention_block(
@@ -93,16 +302,22 @@ def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
             rope_theta=cfg.rope_theta, cache=cache, kv_len=kv_len,
             chunk=chunk, want_taps=True)
 
+    def ffn(h):
+        nonlocal aux
+        if cfg.family == "moe":
+            out, aux = moe_apply(h, p["moe"], cfg, spec)
+            return out
+        return ffn_apply(h, p["ffn"], cfg, spec)
+
     if pre:
         a, new_kv, taps = attn(_norm(x, p["ln1"], cfg.norm))
         x = x + a
-        x = x + ffn_apply(_norm(x, p["ln2"], cfg.norm), p["ffn"], cfg, spec)
+        x = x + ffn(_norm(x, p["ln2"], cfg.norm))
     else:
         a, new_kv, taps = attn(x)
         x = _norm(x + a, p["ln1"], cfg.norm)
-        f = ffn_apply(x, p["ffn"], cfg, spec)
-        x = _norm(x + f, p["ln2"], cfg.norm)
-    return (x, new_kv, taps) if want_taps else (x, new_kv)
+        x = _norm(x + ffn(x), p["ln2"], cfg.norm)
+    return (x, new_kv) + ((taps,) if want_taps else ()) + ((aux,) if want_aux else ())
 
 
 # ------------------------------------------------------------------ init
@@ -132,6 +347,34 @@ def init_norm(d: int, stacked: Optional[int], device, kind: str = "ln") -> dict:
     return p
 
 
+def init_expert_linear(g, e: int, k: int, n: int, stacked: Optional[int],
+                       device) -> dict:
+    """``e`` experts' fp (K, N) weights with per-expert unit scales: s_w (e,
+    1, n), s_a (e, 1, 1); a leading layer dim of ``stacked`` unless None."""
+    lead = () if stacked is None else (stacked,)
+    return {"w": _normal(g, lead + (e, k, n), device),
+            "s_w": torch.ones(lead + (e, 1, n), device=device),
+            "s_a": torch.ones(lead + (e, 1, 1), device=device)}
+
+
+def init_moe(g, cfg: ModelConfig, stacked: Optional[int], device) -> dict:
+    """The JAX ``init_moe`` tree: the f32 router (d, E), the experts' w1 /
+    w3 (d -> expert_d_ff) and w2, and, with a shared expert, its SwiGLU FFN
+    and its (d, 1) sigmoid gate."""
+    d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
+    lead = () if stacked is None else (stacked,)
+    p = {"router": _normal(g, lead + (d, e), device),
+         "w1": init_expert_linear(g, e, d, f, stacked, device),
+         "w3": init_expert_linear(g, e, d, f, stacked, device),
+         "w2": init_expert_linear(g, e, f, d, stacked, device)}
+    if cfg.shared_expert_d_ff:
+        sf = cfg.shared_expert_d_ff
+        lin = lambda k, n: init_linear(g, k, n, False, stacked, device)
+        p["shared"] = {"w1": lin(d, sf), "w3": lin(d, sf), "w2": lin(sf, d)}
+        p["shared_gate"] = _normal(g, lead + (d, 1), device)
+    return p
+
+
 def init_block(g: torch.Generator, cfg: ModelConfig, stacked: Optional[int],
                device) -> dict:
     """One transformer block's fp params (``stacked`` of them along a
@@ -140,7 +383,7 @@ def init_block(g: torch.Generator, cfg: ModelConfig, stacked: Optional[int],
     N(0, 0.02), biases 0, norms 1 / 0, quant scales 1). Values come from
     ``g``; ``jax.random``'s cannot be reproduced, so parity tests carry
     JAX's arrays across instead."""
-    if cfg.family not in ("bert", "dense", "vlm") or cfg.fused_proj:
+    if cfg.family not in ("bert", "dense", "vlm", "moe") or cfg.fused_proj:
         raise ValueError(f"init_block: family {cfg.family!r} (fused_proj="
                          f"{cfg.fused_proj}) arrives with a later slice of "
                          "the port")
@@ -151,7 +394,9 @@ def init_block(g: torch.Generator, cfg: ModelConfig, stacked: Optional[int],
          "attn": {"wq": lin(d, hq, cfg.qkv_bias), "wk": lin(d, hkv, cfg.qkv_bias),
                   "wv": lin(d, hkv, cfg.qkv_bias), "wo": lin(hq, d, cfg.out_bias)},
          "ln2": init_norm(d, stacked, device, cfg.norm)}
-    if cfg.act == "swiglu":
+    if cfg.family == "moe":
+        p["moe"] = init_moe(g, cfg, stacked, device)
+    elif cfg.act == "swiglu":
         p["ffn"] = {"w1": lin(d, f, False), "w3": lin(d, f, False),
                     "w2": lin(f, d, False)}
     else:
@@ -160,11 +405,11 @@ def init_block(g: torch.Generator, cfg: ModelConfig, stacked: Optional[int],
 
 
 def init_lm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
-    """The JAX ``init_lm`` tree (same keys and shapes) for the bert, dense
-    and vlm families. Values come from ``g``, so they differ from
+    """The JAX ``init_lm`` tree (same keys and shapes) for the bert, dense,
+    vlm and moe families. Values come from ``g``, so they differ from
     ``jax.random``'s; parity tests carry JAX's arrays across instead
     (``deploy.params_from_numpy``)."""
-    if cfg.family not in ("bert", "dense", "vlm"):
+    if cfg.family not in ("bert", "dense", "vlm", "moe"):
         raise ValueError(f"init_lm: family {cfg.family!r} arrives with a "
                          "later slice of the port")
     d, V = cfg.d_model, cfg.padded_vocab
@@ -271,11 +516,13 @@ def write_new_kv(cs: dict, idx: int, new_kv) -> None:
 
 def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
                patch_embeds=None, patch_mask=None,
-               caches: Optional[dict] = None, want_taps: bool = False):
-    """Returns ``(logits, new_caches)``, or ``(logits, new_caches, taps)``
-    with ``want_taps`` (the last layer's q/k/v, as the JAX package taps
-    only the last layer); logits (B, S, padded_vocab) in the activation
-    dtype, padded-vocab entries at -1e9.
+               caches: Optional[dict] = None, want_taps: bool = False,
+               want_aux: bool = False):
+    """Returns ``(logits, new_caches)``, then ``taps`` with ``want_taps``
+    (the last layer's q/k/v, as the JAX package taps only the last layer)
+    and ``aux`` with ``want_aux`` (the MoE layers' summed load-balance
+    loss, a 0-d f32 tensor; 0 for the other families); logits (B, S,
+    padded_vocab) in the activation dtype, padded-vocab entries at -1e9.
 
     patch_embeds / patch_mask (vlm): (B, P, d) patch embeddings placed, in
     order, at the True positions of the (B, S) bool mask.
@@ -296,19 +543,27 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
     # weights cannot live in one stacked array across bit-width segments)
     presliced = isinstance(layers, (list, tuple))
     taps = None
+    moe = cfg.family == "moe"
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     last = segments[-1][1] - 1
     for si, (start, end, spec) in enumerate(segments):
         seg = layers[si] if presliced else slice_stack(layers, start, end)
+        auxs = []
         for i in range(end - start):
             lp = tree_map(lambda a: a[i], seg)
             cache_l = None if caches is None else layer_cache(caches, start + i)
             tap = want_taps and start + i == last
-            out = block_apply(x, lp, cfg, spec, cache=cache_l, want_taps=tap)
+            out = block_apply(x, lp, cfg, spec, cache=cache_l, want_taps=tap,
+                              want_aux=moe)
             x, new_kv = out[0], out[1]
             if tap:
                 taps = out[2]
+            if moe:
+                auxs.append(out[-1])
             if caches is not None:
                 write_new_kv(caches, start + i, new_kv)
+        if auxs:         # JAX sums a segment's layers, then the segments
+            aux_total = aux_total + torch.sum(torch.stack(auxs))
     new_caches = None
     if caches is not None:
         new_caches = {**caches, "len": caches["len"] + x.shape[1]}
@@ -319,7 +574,8 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
     else:
         logits = x @ head.to(x.dtype)
     logits = mask_padded_vocab(logits, cfg)
-    return (logits, new_caches, taps) if want_taps else (logits, new_caches)
+    return ((logits, new_caches) + ((taps,) if want_taps else ())
+            + ((aux_total,) if want_aux else ()))
 
 
 def lm_caches(cfg: ModelConfig, batch: int, max_len: int,

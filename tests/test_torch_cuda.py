@@ -378,7 +378,10 @@ def _assert_decode_close(got, want):
                                       # the kernel's narrower copies: 4-byte
                                       # units and byte loads (dh 20, 6), 8- and
                                       # 4-byte units at G = 1 (dh 24)
-                                      (4, 2, 20), (2, 2, 6), (6, 6, 24)])
+                                      (4, 2, 20), (2, 2, 6), (6, 6, 24),
+                                      # GQA groups 3, 5 and 8: granite-moe,
+                                      # qwen2.5-32b and qwen1.5-110b
+                                      (24, 8, 64), (40, 8, 128), (64, 8, 128)])
 def test_decode_attention_kernel_matches_plain(dev, H, Hkv, dh, bits, dtype):
     """Lengths across the kernel's tiles (32 rows) and splits (C rows): the
     plain version's bound, two calls bit-equal, rows past the length inert."""
@@ -414,7 +417,8 @@ def test_decode_attention_long_cache_matches_plain(dev, H, Hkv, dh, bits, dtype)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 80), (48, 8, 128), (4, 2, 16),
-                                      (4, 2, 20), (2, 2, 6), (6, 6, 24)])
+                                      (4, 2, 20), (2, 2, 6), (6, 6, 24),
+                                      (24, 8, 64), (40, 8, 128), (64, 8, 128)])
 def test_decode_attention_paged_kernel_matches_plain_and_dense(dev, H, Hkv, dh,
                                                                bits, dtype):
     """A pool of 40 blocks; tables (8 slots x 9 entries, S = 72) that
@@ -531,7 +535,11 @@ def _flash_inputs(dev, B, S, H, Hkv, dh, dtype, seed=0):
                                          (1, 1, 4, 2, 80), (1, 1, 4, 1, 128),
                                          (1, 200, 8, 8, 80), (1, 200, 8, 2, 128),
                                          (1, 384, 8, 4, 80), (1, 384, 8, 8, 128),
-                                         (1, 4097, 4, 1, 80), (1, 4097, 4, 2, 128)])
+                                         (1, 4097, 4, 1, 80), (1, 4097, 4, 2, 128),
+                                         # GQA groups 3, 5 and 8 (granite-moe,
+                                         # qwen2.5-32b, qwen1.5-110b)
+                                         (1, 384, 24, 8, 64), (1, 256, 40, 8, 128),
+                                         (1, 256, 64, 8, 128)])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, Hkv, dh, causal, dtype):
     """Within atol 1e-5 and rtol 1e-5 (f32), one bf16 ulp plus 1e-5 (bf16)
     of the plain version at its (64, 64) and (128, 64) blocks (at (S, S)
@@ -566,3 +574,37 @@ def test_flash_attention_ragged_length_and_ops_count(dev):
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="dh"):
         flash_attention_cuda(*_flash_inputs(dev, 1, 64, 2, 2, 24, torch.float32))
+
+
+@pytest.mark.parametrize("a_bits", [8, 4])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("E,C,K,N", [(40, 2, 1536, 512), (40, 2, 512, 1536),
+                                     (60, 1, 2048, 1408), (4, 256, 1536, 512)])
+def test_expert_matmul_route_matches_plain(dev, E, C, K, N, bits, a_bits):
+    """``ops.expert_matmul`` (one GEMM launch an expert, each with its own
+    scales; split-K at the decode's C, wgmma at C = 256) bit-equal to the
+    exact batched product of the reference backend and to each expert's
+    plain GEMM, on bf16 activations; E launches, no plain version."""
+    from repro_torch.kernels.int8_matmul import expert_matmul_exact
+    from repro_torch.models.layers import QuantSpec
+    g = torch.Generator(device=dev).manual_seed(E + C + K)
+    x = torch.randn((E, C, K), generator=g, device=dev).to(torch.bfloat16)
+    codes = torch.randint(-7, 9, (E, K, N), generator=g, device=dev, dtype=torch.int32)
+    wq = (codes.to(torch.int8) if bits == 8 else
+          pack_int4(codes.to(torch.int8), axis=1))
+    p = {"wq": wq, "s_a": torch.rand((E, 1, 1), generator=g, device=dev) * 0.5 + 0.01,
+         "s_w": torch.rand((E, 1, N), generator=g, device=dev) * 0.01 + 1e-4}
+    build.reset_counts()
+    got = ops.expert_matmul(x, p, QuantSpec(mode="int", w_bits=bits, a_bits=a_bits,
+                                            use_kernels=True))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[f"int{bits}_matmul"] == E
+    assert not any(build.PLAIN_ON_CUDA.values())
+    want = expert_matmul_exact(x, wq, p["s_a"], p["s_w"], bits, a_bits)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    plain = int8_matmul_plain if bits == 8 else int4_matmul_plain
+    for e in (0, E - 1):
+        s_a = p["s_a"][e].reshape(())
+        x8 = act_quant_plain(x[e], s_a, a_bits)
+        assert torch.equal(got[e], plain(x8, wq[e], s_a, p["s_w"][e],
+                                         out_dtype=torch.bfloat16))

@@ -144,6 +144,33 @@ def test_lm_forward_prefill_and_decode_match_jax(jax_deployed, variant, kv_bits,
             np.testing.assert_allclose(val.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "qwen1.5-110b"])
+def test_dense_archs_lm_forward_match_jax(arch, tmp_path):
+    """The registry's last two dense archs (QKV bias, GQA; reduced: 4
+    query on 4 KV heads), deployed by JAX and loaded from its artifact: a
+    prefill and 2 teacher-forced decode steps at kv8 through the port's
+    kernel backend against JAX's reference path, logits within rtol = atol
+    = 1e-4."""
+    cfg, jcfg = reduced(get_config(arch)), jreduced(jget_config(arch))
+    assert cfg == dataclasses.replace(cfg, **{
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    assert cfg.qkv_bias and get_config(arch).num_kv_heads == 8
+    jplan = JExecutionPlan.build(jcfg, _policy(JQuantPolicy), backend="pallas", kv_bits=8)
+    jparams = jdeploy(jax.tree.map(jnp.asarray, fp_params(cfg)), jplan, CALIB).params
+    JDeployedModel(plan=jplan, params=jparams).save(str(tmp_path / "art"))
+    model = DeployedModel.load(str(tmp_path / "art"), device="cpu")
+    jref = JExecutionPlan.build(jcfg, _policy(JQuantPolicy), kv_bits=8)
+    jfwd = jax.jit(lambda p, st, t: japi.forward(p, jref, state=st, tokens=t)[:2])
+    toks = np.random.default_rng(1).integers(1, 256, (2, 8)).astype(np.int32)
+    jstate, state = jref.decode_state(2, 16), model.plan.decode_state(2, 16, device="cpu")
+    for _ in range(3):
+        jl, jstate = jfwd(jparams, jstate, jnp.asarray(toks))
+        tl, state = api.forward(model.params, model.plan, state=state,
+                                tokens=torch.as_tensor(toks))
+        _logits_close(tl, jl)
+        toks = np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(np.int32)[:, None]
+
+
 # ---------------------------------------------------------------- engines
 def _serve(eng, prompts, max_new=6, sampling=None, submit=GenerationRequest):
     streams = [eng.submit(submit(prompt=p.copy(), max_new_tokens=max_new,

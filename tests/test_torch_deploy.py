@@ -8,6 +8,8 @@ and PyTorch). An artifact saved by either package loads in the other: the
 plan round-trips, and logits agree within the whole-model tolerance
 (rtol = atol = 1e-4, the same argmax).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from repro.models.bert import bert_classify_logits as jbert_classify_logits
 from repro.models.bert import tinybert_config as jtinybert_config
 from repro_torch.checkpoint import manager
 from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.deploy import (DeployedModel, ExecutionPlan, deploy,
                                 params_from_numpy)
@@ -180,8 +183,27 @@ def test_decode_plan_builds_for_the_vlm_as_in_jax():
     assert plan_from_meta(jplan_to_meta(jplan)) == plan
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-3b-a800m"])
+def test_moe_decode_plan_matches_jax(arch):
+    """A MoE decode plan builds (the family the port refused before) and
+    equals JAX's: segments, prefill_mode, kv and the meta both ways."""
+    cfg, jcfg = reduced(get_config(arch)), jreduced(jget_config(arch))
+    assert cfg == ModelConfig.from_dict(dataclasses.asdict(jcfg))
+    kw = dict(kv_bits=8, prefill_batch=2, kv_paging="paged")
+    plan = ExecutionPlan.build(cfg, QuantPolicy(num_layers=4, mode="int", last_k_int4=2),
+                               backend="cuda", **kw)
+    jplan = JExecutionPlan.build(jcfg, JQuantPolicy(num_layers=4, mode="int",
+                                                    last_k_int4=2),
+                                 backend="pallas", **kw)
+    assert plan.mode == "decode" and plan.prefill_mode == jplan.prefill_mode == "chunked"
+    assert [(s, e, sp.w_bits, sp.a_bits) for s, e, sp in plan.segments] == \
+        [(s, e, sp.w_bits, sp.a_bits) for s, e, sp in jplan.segments]
+    assert plan_from_meta(plan_to_meta(plan)) == plan
+    assert plan_from_meta(jplan_to_meta(jplan)) == plan
+    assert plan_to_meta(plan) == jplan_to_meta(jplan)
+
+
 @pytest.mark.parametrize("family,extra", [
-    ("moe", dict(num_experts=4, top_k=2, expert_d_ff=32)),
     ("xlstm", dict(slstm_every=2)),
     ("hybrid", dict(attn_every=2, ssm_state=8)),
     ("encdec", dict(enc_layers=1, dec_layers=1)),

@@ -97,12 +97,16 @@ def _close(got: torch.Tensor, want, dtype, atol, rtol=1e-5):
 
 # ------------------------------------------------------------- kernel module
 # (B, S, H, Hkv, dh, bq, bk, causal): the four of tests/test_kernels.py
-# (GQA, causal and not, bq != bk) and the stablelm-3b head width
+# (GQA, causal and not, bq != bk), the stablelm-3b head width, and GQA
+# groups 3 (granite-moe), 5 (qwen2.5-32b) and 8 (qwen1.5-110b)
 PALLAS_CASES = [(2, 64, 4, 2, 16, 16, 16, True),
                 (1, 128, 8, 8, 32, 32, 16, True),
                 (2, 64, 4, 4, 16, 32, 16, False),
                 (1, 256, 4, 1, 64, 64, 64, True),
-                (1, 128, 4, 2, 80, 64, 32, True)]
+                (1, 128, 4, 2, 80, 64, 32, True),
+                (1, 64, 6, 2, 64, 32, 32, True),
+                (1, 64, 10, 2, 32, 32, 16, False),
+                (1, 64, 16, 2, 32, 32, 32, True)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -98,7 +98,11 @@ def _decode_case(seed, B, S, H, Hkv, dh, bits, lengths):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("B,S,H,Hkv,dh", [(4, 64, 8, 4, 16), (4, 40, 4, 2, 20)])
+@pytest.mark.parametrize("B,S,H,Hkv,dh", [(4, 64, 8, 4, 16), (4, 40, 4, 2, 20),
+                                          # GQA groups 3 (granite-moe), 5
+                                          # (qwen2.5-32b) and 8 (qwen1.5-110b)
+                                          (4, 40, 6, 2, 16), (4, 40, 10, 2, 16),
+                                          (4, 40, 16, 2, 16)])
 def test_decode_attention_plain_matches_pallas(bits, B, S, H, Hkv, dh):
     lengths = [0, 5, S, S + 3]
     arrays = _decode_case(bits + dh, B, S, H, Hkv, dh, bits, lengths)

@@ -49,6 +49,18 @@ def test_export_then_artifact_streams_are_byte_identical(tmp_path, paging, capsy
         assert "kv" in built["metrics"]
 
 
+@pytest.mark.parametrize("paging", ["dense", "paged"])
+def test_moe_arch_serves(tmp_path, paging):
+    """``--arch granite-moe-3b-a800m --reduced``: built in process, exported
+    and served from the artifact with byte-identical streams."""
+    art = str(tmp_path / "art")
+    built = _run("--arch", "granite-moe-3b-a800m", "--kv-bits", "8",
+                 "--kv-paging", paging, "--export", art)
+    assert "granite-moe-3b-a800m" in built["plan"] and "[2:4) w4/a4" in built["plan"]
+    assert len(built["streams"]) == 5 and all(len(s) == 8 for s in built["streams"])
+    assert _run("--artifact", art)["streams"] == built["streams"]
+
+
 def test_generation_flags(capsys):
     res = _run("--kv-bits", "4", "--temperature", "0.8", "--top-k", "20",
                "--top-p", "0.9", "--seed", "3", "--n", "2", "--stream",

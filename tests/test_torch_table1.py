@@ -85,6 +85,10 @@ def test_table1_and_table3_rows_at_three_steps():
     res = table3_ablation.run(steps=3, device="cpu")
     assert [n for n, _ in res] == ["full_mkq", "wo_mini_kd", "wo_output_kd", "wo_lsq"]
     assert all(0.0 <= acc <= 1.0 for _, acc in res)
+    # one trained fp teacher and student handed to both tables: the same rows
+    trained = table1_glue.teacher_and_student(3, 0, "cpu")
+    assert table1_glue.run(steps=3, rows=(2,), device="cpu", trained=trained) == rows
+    assert table3_ablation.run(steps=3, device="cpu", trained=trained) == res
 
 
 # ----------------------------------------------------------------- search
