@@ -310,7 +310,57 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    on the card (not saved), serving 4 requests at kv8 dense with (a)'s
    checks and (b)'s layer check at its shapes. Phases 5, 8 and 12 also run
    the attention kernels at GQA groups 3, 5 and 8 ((24, 8, 64), (40, 8,
-   128), (64, 8, 128): granite-moe-3b-a800m, qwen2.5-32b, qwen1.5-110b).
+   128), (64, 8, 128): granite-moe-3b-a800m, qwen2.5-32b, qwen1.5-110b);
+22. zamba2-2.7b (the Mamba2 hybrid) at full width and depth (54 Mamba2
+   layers, d 2560, 80 SSM heads of 64, state 64, in 9 groups of 6, each
+   group followed by the one shared attention + SwiGLU block, 32 heads of
+   80; vocab 32000; bf16 activations) under the serve CLI's policy: W8A8
+   groups 0-4, W4A4 groups 5-8, the shared block at the last segment's 4
+   bits. fp params from a seeded generator on the card -> ``deploy`` with 2
+   calibration batches of 256 tokens (a multiple of the SSD chunk) ->
+   ``save`` under ``build/`` -> ``load`` -> a token-mode ``ServingEngine``
+   (4 slots, max_len 512) serving 8 greedy requests (prompts of 16-48
+   tokens, 16 new tokens each; freed slots refilled): every request
+   finishes, every step's logits finite, every token step launches the
+   integer GEMMs ``hybrid_linears`` derives at 4 rows (all split-K: no
+   act_quant, no attention kernel; token mode runs no prefill forward), no
+   plain version on a CUDA tensor; the streams equal the same artifact's
+   under the reference backend on the card (a difference is reported with
+   its first diverging step, and fails). The first call of each integer
+   GEMM shape of a token step (in_bc N = 128, in_dt N = 80, out_proj K =
+   5120, the shared block's) bit-equal to its plain version. One cacheless
+   forward of 4096 tokens (the shared block on the causal flash kernel,
+   ``ssd_chunked`` over 16 chunks; every GEMM behind act_quant), launching
+   exactly what ``hybrid_linears`` and 9 flash calls make, the first flash
+   call within phase 12's tolerances of the plain version, the first call
+   of each GEMM shape bit-equal, the logits bit-equal to the reference
+   plan's with its attention on the flash kernel too (every other part is
+   exact) and within ``ZAMBA_VS_REFERENCE`` of the plain reference's. Step
+   ms, launches per step, peak memory and the artifact's bytes;
+23. seamless-m4t-medium (the encoder-decoder) at full width and depth (12
+   encoder + 12 decoder layers, d 1024, 16 heads of 64, GELU FFN 4096,
+   LayerNorm, vocab 256206; bf16 activations): W8A8 decoder layers 0-5,
+   W4A4 6-11 (GELU FFN-up on the fused int4 epilogue), the encoder at the
+   first segment's W8A8; deployed on the card with 2 calibration batches
+   carrying (2, 256) source frames, not saved. The engine refuses the plan
+   (the JAX engine cannot serve an encoder-decoder either). The encoder over
+   2 rows of 4096 frames: each layer's self-attention on the flash kernel
+   NOT causal (12 calls, each within phase 12's tolerances of the plain
+   version on its own q, k, v), every GEMM behind act_quant and each new
+   shape bit-equal, the launches exact, no full attention; the whole output
+   bit-equal to the reference plan's with its attention on the flash
+   kernel too, and within ``SEAMLESS_VS_REFERENCE`` of the plain
+   reference's. Then 16 greedy
+   tokens through ``api.forward`` over ``decode_state`` and
+   ``decode_extra_inputs``: every step launches exactly what
+   ``seamless_step_launches`` derives (the cross-attention's k and v over
+   the 8192 encoder rows every step, as in the JAX package) and no attention
+   kernel; the same decode with the unfused kernel plan and with the
+   reference backend over the kernels' encoder output bit-equal; the
+   greedy tokens' agreement with the reference backend over its own encoder
+   output reported. Then the non-causal flash kernel alone at the encoder's
+   shape beside its plain version, SDPA (``is_causal=False``) and its
+   bound.
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -4307,6 +4357,590 @@ def moe_phase(dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 22
+ZAMBA_SLOTS, ZAMBA_MAX_LEN, ZAMBA_NEW = 4, 512, 16
+#: the cacheless forward past the chunk threshold: the shared block on the
+#: flash kernel (causal), ssd_chunked over 4096 / 256 = 16 chunks
+ZAMBA_LONG = 4096
+#: calibration batches: (batches, rows, tokens), the length a multiple of
+#: the SSD chunk (256), as a cacheless forward needs
+ZAMBA_CALIB = (2, 1, 256)
+HYBRID_KERNELS = ("int8_matmul", "int4_matmul")
+
+
+def hybrid_linears(cfg, segments) -> dict:
+    """The quantized linears of one forward of a hybrid under ``segments``
+    (group granularity): each Mamba2 layer's in_z, in_x, in_bc (N = 2 x
+    ssm_state), in_dt (N = heads) and out_proj (K = ssm_expand x d) at its
+    group's bits, and the shared block's q, k, v, o and SwiGLU at the last
+    segment's bits, once per group. (K, N, bits, fused) -> calls."""
+    d, di = cfg.d_model, cfg.ssm_expand * cfg.d_model
+    heads, per = di // cfg.ssm_head_dim, cfg.attn_every
+    q, kv = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    out: dict = {}
+
+    def add(K, N, bits, n):
+        out[(K, N, bits, False)] = out.get((K, N, bits, False), 0) + n
+    for s, e, spec in segments:
+        for K, N in ((d, di), (d, di), (d, 2 * cfg.ssm_state), (d, heads), (di, d)):
+            add(K, N, spec.w_bits, (e - s) * per)
+    for K, N in ((d, q), (d, kv), (d, kv), (q, d), (d, cfg.d_ff), (d, cfg.d_ff),
+                 (cfg.d_ff, d)):
+        add(K, N, segments[-1][2].w_bits, cfg.num_layers // per)
+    return out
+
+
+def zamba_traffic(vocab: int):
+    """8 greedy requests, prompts of 16-48 tokens, 16 new tokens each."""
+    from repro_torch.serving import GenerationRequest
+    rng = np.random.default_rng(22)
+    return [GenerationRequest(prompt=rng.integers(1, vocab, n).astype(np.int32),
+                              max_new_tokens=ZAMBA_NEW)
+            for n in (16, 48, 24, 40, 32, 20, 44, 28)]
+
+
+def zamba_model(dev, art) -> tuple:
+    """zamba2-2.7b at full width and depth under the serve CLI's policy
+    (W8A8 groups 0-4, W4A4 groups 5-8, the shared block at 4 bits), bf16
+    activations: fp params from a seeded generator on the card, deployed
+    with ``ZAMBA_CALIB`` calibration batches, saved under ``art`` and
+    loaded back."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy import DeployedModel, ExecutionPlan, deploy
+    from repro_torch.models import api
+
+    cfg = get_config("zamba2-2.7b")
+    n = cfg.num_layers
+    policy = QuantPolicy(num_layers=n, mode="int", last_k_int4=n // 2)
+    plan = ExecutionPlan.build(cfg, policy, backend="cuda")
+    # at full depth W8A8 groups 0-4 and W4A4 groups 5-8 (each group takes
+    # its first layer's bits)
+    if plan.prefill_mode != "token" or [sp.w_bits for _, _, sp in plan.segments] != [8, 4]:
+        raise AssertionError(f"zamba2 plan: {plan.describe()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fp = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    fp_params = sum(int(t.numel()) for t in _leaves(fp))
+    nb, rows, S = ZAMBA_CALIB
+    rng = np.random.default_rng(0)
+    calib = [{"tokens": rng.integers(1, cfg.vocab_size, (rows, S)).astype(np.int32)}
+             for _ in range(nb)]
+    model = deploy(fp, plan, calib, device=dev)
+    torch.cuda.synchronize()
+    info = {"model": cfg.name, "layers": n, "groups": n // cfg.attn_every,
+            "fp_params": fp_params, "deploy_s": time.perf_counter() - t0,
+            "policy": policy.describe(), "plan": plan.describe()}
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model.save(str(art))
+    del model
+    model = DeployedModel.load(str(art), device=dev)
+    torch.cuda.synchronize()
+    if model.plan != plan:
+        raise AssertionError("zamba2: plan did not round-trip through the artifact")
+    info.update(save_load_s=time.perf_counter() - t0,
+                artifact_bytes=sum(f.stat().st_size for f in art.iterdir()),
+                deployed_bytes=sum(t.numel() * t.element_size()
+                                   for t in _leaves(model.params)))
+    return model, info
+
+
+def serve_token_mode(model, reqs, per_step=None) -> dict:
+    """Serve ``reqs`` on a fresh token-mode engine (``ZAMBA_SLOTS`` slots,
+    ``ZAMBA_MAX_LEN``) with every count at 0 just before: every request
+    finishes, every step's logits are finite, and with ``per_step`` every
+    step launches exactly that (no prefill forward runs in token mode);
+    no plain version on a CUDA tensor."""
+    import copy
+
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.kernels import build
+    from repro_torch.serving import ServingEngine
+
+    plan = model.plan
+    V = plan.cfg.vocab_size
+    eng = ServingEngine(model, slots=ZAMBA_SLOTS, max_len=ZAMBA_MAX_LEN)
+    if not eng.token_mode:
+        raise AssertionError(f"{plan.describe()}: the engine is not in token mode")
+    record, finite = {}, []
+    record_forwards(eng, record)
+    orig_sample = engine_mod.sample_batch
+
+    def sample(logits, *a):
+        finite.append(torch.isfinite(logits[..., :V]).all())
+        return orig_sample(logits, *a)
+    streams = [eng.submit(copy.deepcopy(r)) for r in reqs]
+    engine_mod.sample_batch = sample
+    build.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        steps = eng.run_until_drained()
+    finally:
+        engine_mod.sample_batch = orig_sample
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+    tag = plan.describe()
+    results = [st.result() for st in streams]
+    for r, req in zip(results, reqs):
+        if r.finish_reason != "length" or len(r.tokens) != req.max_new_tokens:
+            raise AssertionError(f"{tag}: request {r.rid} finished {r.finish_reason!r}")
+    if not all(bool(f) for f in finite):
+        raise AssertionError(f"{tag}: non-finite logits")
+    if record["prefill"]:
+        raise AssertionError(f"{tag}: token mode ran {len(record['prefill'])} prefill forwards")
+    if per_step is not None:
+        for step in record["decode"]:
+            if {k: step[k] for k in per_step} != per_step:
+                raise AssertionError(f"{tag}: a token step launched {step}, "
+                                     f"expected {per_step}")
+    if any(plain.values()):
+        raise AssertionError(f"{tag}: plain versions ran on CUDA tensors: {plain}")
+    summary = eng.metrics.summary()
+    tokens = int(sum(len(r.tokens) for r in results))
+    return {"plan": tag, "requests": len(results), "tokens": tokens,
+            "engine_steps": steps, "token_steps": len(record["decode"]),
+            "launches_per_step": per_step, "launches": launches,
+            "plain_on_cuda": plain, "serve_s": serve_s,
+            "step_ms_mean": serve_s * 1e3 / max(len(record["decode"]), 1),
+            "decode_p50_ms": summary.get("decode_p50_ms"),
+            "tokens_per_s": tokens / serve_s,
+            "streams": [list(map(int, r.tokens)) for r in results]}
+
+
+def first_divergence(a: list, b: list) -> list:
+    """Per request: None where two streams are equal, else the first token
+    index (a decode step of that request) where they part."""
+    out = []
+    for x, y in zip(a, b):
+        out.append(None if x == y else next(
+            (i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y))))
+    return out
+
+
+def reference_twin(model):
+    """The same deployed params under the plain reference backend."""
+    from repro_torch.deploy import DeployedModel, ExecutionPlan
+    plan = model.plan
+    ref = ExecutionPlan.build(plan.cfg, plan.policy, backend="reference",
+                              prefill_mode=plan.prefill_mode,
+                              decode_dtype=plan.decode_dtype)
+    return DeployedModel(plan=ref, params=model.params)
+
+
+def one_step_calls(model, state, tokens, **inputs) -> dict:
+    """One forward under ``GemmSpies`` on ``state``: each integer kernel
+    call of a new shape held against its plain version."""
+    from repro_torch.models import api
+    with torch.no_grad(), GemmSpies() as spies:
+        api.forward(model.params, model.plan, state=state, tokens=tokens, **inputs)
+    torch.cuda.synchronize()
+    return spies.kept
+
+
+@contextlib.contextmanager
+def kernel_attention():
+    """Every chunked attention on the flash kernel, whatever the plan's
+    backend: a reference plan then differs from the kernel plan only in its
+    integer GEMMs' path, which is exact, so the two forwards must agree to
+    the bit."""
+    from repro_torch.models import attention
+    orig = attention.chunked_attention
+
+    def kern(q, k, v, *, causal, chunk, use_kernel):
+        return orig(q, k, v, causal=causal, chunk=chunk, use_kernel=True)
+    attention.chunked_attention = kern
+    try:
+        yield
+    finally:
+        attention.chunked_attention = orig
+
+
+#: the kernel plan's long-forward logits against the reference plan's (the
+#: plain flash version in bf16 blocks of 1024): one bf16 ulp in attention
+#: moves activation codes, which the random-weight stack amplifies; the
+#: bound catches a broken layer, not noise
+ZAMBA_VS_REFERENCE = {"logits_max_diff": 1.0, "argmax_equal_share": 0.98}
+
+
+def vs_reference_forward(model, inputs: dict, kern_logits) -> dict:
+    """The kernel forward's logits against the reference plan's on the card:
+    bit-equal when the reference plan's attention runs the flash kernel too,
+    and within ``ZAMBA_VS_REFERENCE`` of the plain reference."""
+    from repro_torch.models import api
+    cfg = model.plan.cfg
+    ref = reference_twin(model)
+    with torch.no_grad():
+        with kernel_attention():
+            same = api.forward(model.params, ref.plan, **inputs)[0]
+        r = api.forward(model.params, ref.plan, **inputs)[0]
+    if not torch.equal(same, kern_logits):
+        diff = (same.float() - kern_logits.float()).abs().max().item()
+        raise AssertionError(f"{cfg.name}: the reference plan on the flash kernel != the "
+                             f"kernel plan (max |diff| {diff}): a GEMM path is not exact")
+    cmp = compare_logits(kern_logits, r, cfg.vocab_size)
+    del r, same
+    torch.cuda.empty_cache()
+    lim = ZAMBA_VS_REFERENCE
+    if (cmp["logits_max_diff"] > lim["logits_max_diff"]
+            or cmp["argmax_equal_share"] < lim["argmax_equal_share"]):
+        raise AssertionError(f"{cfg.name}: kernel vs reference plan {cmp} outside {lim}")
+    return {"reference_on_flash_kernel_bit_equal": True, "vs_reference_plan": cmp,
+            "vs_reference_plan_limit": lim}
+
+
+def zamba_phase(dev) -> dict:
+    """Phase 22: zamba2-2.7b through the token-mode engine (see the module
+    docstring)."""
+    from repro_torch.models import api
+
+    t0 = time.perf_counter()
+    out = {}
+    model, out["deploy"] = zamba_model(dev, ROOT / "build" / "chip_smoke_zamba2_artifact")
+    cfg = model.plan.cfg
+    linears = hybrid_linears(cfg, model.plan.segments)
+    per_step = {**dict.fromkeys(SOURCES, 0), **gemm_launches(linears, ZAMBA_SLOTS)}
+    reqs = zamba_traffic(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    serve = serve_token_mode(model, reqs, per_step)
+    serve["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    ref = serve_token_mode(reference_twin(model), reqs)
+    parted = first_divergence(serve["streams"], ref["streams"])
+    if any(p is not None for p in parted):
+        raise AssertionError(f"zamba2: kernel streams part from the reference "
+                             f"backend's at steps {parted}")
+    out["serve"] = {k: v for k, v in serve.items() if k != "streams"}
+    out["reference_serve_s"] = ref["serve_s"]
+    out["streams_equal_reference"] = len(parted)
+    # each GEMM shape of a token step (M = 4 slots: in_bc N = 128, in_dt
+    # N = 80, out_proj K = 5120) bit-equal to its plain version
+    st = model.plan.decode_state(ZAMBA_SLOTS, 8, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (ZAMBA_SLOTS, 1), device=dev)
+    out["token_step_calls_bit_equal"] = check_kept_calls(
+        one_step_calls(model, st, toks), "zamba2 token step")
+    del st
+    # one cacheless forward at S = 4096
+    inputs = prefill_inputs(cfg, ZAMBA_LONG, dev)
+    expected = {**dict.fromkeys(SOURCES, 0), **gemm_launches(linears, ZAMBA_LONG),
+                "flash_attention": cfg.num_layers // cfg.attn_every}
+    run = long_forward(model, inputs, flash_layers=1, gemms=True, expected=expected)
+    tag = f"zamba2 S={ZAMBA_LONG}"
+    err = check_layers(run.pop("taken"), tag)
+    shapes = check_gemms(run.pop("kept"), tag)
+    logits = run.pop("logits")
+    out["long_forward"] = {**run, **vs_reference_forward(model, inputs, logits),
+                           "layer0_max_abs_err_vs_plain": err,
+                           "gemm_shapes_bit_equal": shapes}
+    del logits
+    out["seconds"] = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- phase 23
+SEAMLESS_ROWS, SEAMLESS_SRC, SEAMLESS_NEW = 2, 4096, 16
+SEAMLESS_ENC_KERNELS = ("act_quant", "int8_matmul", "flash_attention")
+#: the encoder output (LayerNorm'd, |x| about 0.8 on average) against the
+#: reference plan's: one bf16 ulp in attention moves W8A8 activation codes;
+#: the bound catches a broken layer, not noise
+SEAMLESS_VS_REFERENCE = {"max_abs_diff": 2.0, "mean_abs_diff": 0.05}
+SEAMLESS_DEC_KERNELS = ("act_quant", "int8_matmul", "int4_matmul", "int4_matmul_fused")
+
+
+def seamless_step_launches(cfg, segments) -> dict:
+    """The launches of one decode step of ``SEAMLESS_ROWS`` rows: per decoder
+    layer, self-attention's q, k, v, o, cross-attention's q and o and the
+    GELU FFN at those rows (w1 on the fused int4 epilogue in W4A4 layers),
+    cross-attention's k and v over the ``SEAMLESS_ROWS x SEAMLESS_SRC``
+    encoder rows (recomputed every step, as the JAX package does); no
+    attention kernel (the fp cache and the cross-attention are plain)."""
+    d, q = cfg.d_model, cfg.num_heads * cfg.hd
+    rows, src = {}, {}
+    add = lambda tbl, key, n: tbl.__setitem__(key, tbl.get(key, 0) + n)
+    for s, e, spec in segments:
+        b, n = spec.w_bits, e - s
+        fused = b == 4 and spec.fuse_epilogue
+        for K, N in ((d, q), (d, q), (d, q), (q, d), (d, q), (q, d), (cfg.d_ff, d)):
+            add(rows, (K, N, b, False), n)
+        add(rows, (d, cfg.d_ff, b, fused), n)
+        add(src, (d, q, b, False), 2 * n)
+    a = gemm_launches(rows, SEAMLESS_ROWS)
+    c = gemm_launches(src, SEAMLESS_ROWS * SEAMLESS_SRC)
+    return {**dict.fromkeys(SOURCES, 0), **{k: a[k] + c[k] for k in a}}
+
+
+def seamless_model(dev) -> tuple:
+    """seamless-m4t-medium at full width and depth (12 + 12 layers, d 1024,
+    vocab 256206), W8A8 decoder layers 0-5 and W4A4 6-11, the encoder at the
+    first segment's W8A8: fp params from a seeded generator on the card,
+    deployed with 2 calibration batches of (2, 32) tokens over (2, 256)
+    source frames; not saved."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy import ExecutionPlan, deploy
+    from repro_torch.models import api
+
+    cfg = get_config("seamless-m4t-medium")
+    n = cfg.dec_layers
+    policy = QuantPolicy(num_layers=n, mode="int", last_k_int4=n // 2)
+    plan = ExecutionPlan.build(cfg, policy, backend="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fp = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    fp_params = sum(int(t.numel()) for t in _leaves(fp))
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    calib = [{"tokens": rng.integers(1, cfg.vocab_size, (2, 32)).astype(np.int32),
+              "src_embeds": torch.randn((2, 256, cfg.d_model), generator=g, device=dev)}
+             for _ in range(2)]
+    model = deploy(fp, plan, calib, device=dev)
+    torch.cuda.synchronize()
+    info = {"model": cfg.name, "enc_layers": cfg.enc_layers, "dec_layers": n,
+            "fp_params": fp_params, "deploy_s": time.perf_counter() - t0,
+            "policy": policy.describe(), "plan": plan.describe(),
+            "deployed_bytes": sum(t.numel() * t.element_size()
+                                  for t in _leaves(model.params))}
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model, info
+
+
+def seamless_encode(model, src):
+    """The encoder over ``src`` with every count at 0 just before: each
+    flash call's q, k, v, output and CUDA events kept, each integer kernel
+    call of a new shape kept (``GemmSpies``), ``full_attention`` refused.
+    Returns (enc_out, launches, plain, kept calls, flash calls, eager
+    ms)."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import attention, encdec
+
+    taken, full = [], []
+    orig_flash, orig_full = ops.flash_attention, attention.full_attention
+
+    def flash(q, k, v, *, causal):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        o = orig_flash(q, k, v, causal=causal)
+        e1.record()
+        taken.append((q, k, v, o, causal, e0, e1))
+        return o
+
+    def no_full(*a, **kw):
+        full.append(1)
+        return orig_full(*a, **kw)
+    ops.flash_attention, attention.full_attention = flash, no_full
+    spies = GemmSpies()
+    try:
+        torch.cuda.synchronize()
+        with spies, torch.no_grad():
+            build.reset_counts()
+            t0 = time.perf_counter()
+            enc = encdec.encode(model.params, model.plan.cfg, model.plan.segments, src)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches, plain = dict(build.LAUNCHES), dict(build.PLAIN_ON_CUDA)
+    finally:
+        ops.flash_attention, attention.full_attention = orig_flash, orig_full
+    if full:
+        raise AssertionError(f"seamless encoder: full_attention ran {len(full)} times")
+    return enc, launches, plain, spies.kept, taken, ms
+
+
+def seamless_decode(model, enc_out, steps: int) -> dict:
+    """Greedy decode of ``steps`` tokens from token 1 through
+    ``api.forward`` over ``api.decode_state`` and ``decode_extra_inputs``
+    holding ``enc_out``: the tokens, each step's launches and logits."""
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+
+    plan, cfg = model.plan, model.plan.cfg
+    dev = enc_out.device
+    B = enc_out.shape[0]
+    st = plan.decode_state(B, steps, device=dev)
+    extra = api.decode_extra_inputs(cfg, B, enc_out.shape[1], enc_out.dtype, device=dev)
+    extra["enc_out"].copy_(enc_out)
+    tok = torch.ones((B, 1), dtype=torch.long, device=dev)
+    toks, logits, launches = [], [], []
+    build.reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(steps):
+            before = dict(build.LAUNCHES)
+            lg, st = api.forward(model.params, plan, state=st, tokens=tok, **extra)
+            launches.append({k: build.LAUNCHES[k] - before[k] for k in before})
+            logits.append(lg[:, -1, :cfg.vocab_size])
+            tok = logits[-1].argmax(-1, keepdim=True)
+            toks.append(tok)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return {"tokens": torch.cat(toks, 1).cpu().tolist(), "logits": torch.stack(logits),
+            "launches": launches, "plain": dict(build.PLAIN_ON_CUDA), "step_ms": ms}
+
+
+def time_noncausal_flash(dev, calls: int) -> dict:
+    """``flash_attention`` alone at the seamless encoder's heads, bf16, not
+    causal: against its plain version, timed beside it, SDPA with
+    ``is_causal=False`` (timed only) and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, dh = SEAMLESS_ROWS, SEAMLESS_SRC, 16, 64
+    q, k, v = flash_inputs(dev, torch.Generator(device=dev).manual_seed(23),
+                           B, S, H, H, dh, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kern = lambda: fa.flash_attention_cuda(q, k, v, causal=False)
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=False, bq=1024, bk=1024)
+    err = decode_close(kern(), plain(), f"flash_attention {(B, S, H, H, dh)} bf16 "
+                       "non-causal", rtol=1e-5)
+    timer = lambda fn: cuda_ms(fn, samples=10, reps=3)
+    b_ms, b_by = bound(fa.bound_bytes(B, S, H, H, dh, 2), fa.bound_flops(B, S, H, dh, False),
+                       BF16_OPS_PER_S)
+    row = {"kernel": "flash_attention", "model": "seamless-m4t-medium", "M": S,
+           "shape": [B, S, H, H, dh], "causal": False, "kv_bits": None, "calls": 0,
+           "calls_per_encoder_forward": calls,
+           "per": "seamless-m4t-medium encoder layer, 2 x 4096 frames (bf16, not causal)",
+           "ms": timer(kern), "eager_ms": cuda_ms(kern, samples=10, reps=3, graph=False),
+           "max_abs_err": err, "plain_ms": timer(plain),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=False)),
+           "library_note": "scaled_dot_product_attention(is_causal=False) on the same "
+                           "bf16 tensors",
+           "bound_ms": b_ms, "bound_by": b_by}
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    return row
+
+
+def seamless_phase(dev) -> dict:
+    """Phase 23: seamless-m4t-medium's encoder on the non-causal flash
+    kernel and its decoder through ``api.forward`` (see the module
+    docstring)."""
+    from repro_torch.deploy import DeployedModel, ExecutionPlan
+    from repro_torch.models import api, encdec
+    from repro_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    out = {}
+    model, out["deploy"] = seamless_model(dev)
+    cfg = model.plan.cfg
+    try:
+        ServingEngine(model, slots=2, max_len=64)
+        raise AssertionError("seamless: the engine served an encoder-decoder plan")
+    except ValueError as e:
+        if "cannot serve an encoder-decoder plan" not in str(e):
+            raise
+        out["engine_refusal"] = str(e)
+    src = (torch.randn((SEAMLESS_ROWS, SEAMLESS_SRC, cfg.d_model),
+                       generator=torch.Generator(device=dev).manual_seed(23), device=dev)
+           ).to(torch.bfloat16)
+    enc, launches, plain, kept, taken, ms = seamless_encode(model, src)
+    d, q = cfg.d_model, cfg.num_heads * cfg.hd
+    enc_linears: dict = {}    # q, k, v, o and the GELU FFN, W8A8, each layer
+    for K, N in ((d, q), (d, q), (d, q), (q, d), (d, cfg.d_ff), (cfg.d_ff, d)):
+        enc_linears[(K, N, 8, False)] = enc_linears.get((K, N, 8, False), 0) + cfg.enc_layers
+    expected = {**dict.fromkeys(SOURCES, 0),
+                **gemm_launches(enc_linears, SEAMLESS_ROWS * SEAMLESS_SRC),
+                "flash_attention": cfg.enc_layers}
+    if launches != expected:
+        raise AssertionError(f"seamless encoder launched {launches}, expected {expected}")
+    if any(plain.values()):
+        raise AssertionError(f"seamless encoder: plain versions on CUDA tensors: {plain}")
+    flash_err, flash_ms = 0.0, 0.0
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    for i, (qq, kk, vv, o, causal, e0, e1) in enumerate(taken):
+        if causal:
+            raise AssertionError(f"seamless encoder layer {i}: flash ran causal")
+        want = flash_attention_plain(qq, kk, vv, causal=False, bq=1024, bk=1024)
+        flash_err = max(flash_err, decode_close(o, want, f"seamless encoder layer {i}: "
+                                                "flash_attention (non-causal)", rtol=1e-5))
+        flash_ms += e0.elapsed_time(e1)
+    del taken
+    enc_calls = check_kept_calls(kept, "seamless encoder")
+    if any(c[0] != "act_quant" and c[2] != "torch.int8" for c in enc_calls):
+        raise AssertionError(f"seamless encoder: a GEMM quantized inside: {enc_calls}")
+    # the whole encoder against the reference plan on the card: bit-equal
+    # with the reference's attention on the flash kernel too, and within
+    # SEAMLESS_VS_REFERENCE of the plain reference
+    ref = reference_twin(model)
+    with torch.no_grad():
+        with kernel_attention():
+            enc_same = encdec.encode(model.params, cfg, ref.plan.segments, src)
+        enc_ref = encdec.encode(model.params, cfg, ref.plan.segments, src)
+    if not torch.equal(enc_same, enc):
+        diff = (enc_same.float() - enc.float()).abs().max().item()
+        raise AssertionError(f"seamless encoder: the reference plan on the flash kernel != "
+                             f"the kernel plan (max |diff| {diff})")
+    del enc_same
+    d_abs = (enc.float() - enc_ref.float()).abs()
+    enc_cmp = {"max_abs_diff": d_abs.max().item(), "mean_abs_diff": d_abs.mean().item(),
+               "ref_abs_mean": enc_ref.float().abs().mean().item()}
+    del d_abs
+    enc_limit = SEAMLESS_VS_REFERENCE
+    if any(enc_cmp[k] > enc_limit[k] for k in enc_limit) or not bool(torch.isfinite(enc).all()):
+        raise AssertionError(f"seamless encoder: kernel vs reference plan {enc_cmp} outside "
+                             f"{enc_limit}")
+    out["encoder"] = {"S_src": SEAMLESS_SRC, "rows": SEAMLESS_ROWS, "eager_ms": ms,
+                      "launches": launches, "plain_on_cuda": plain,
+                      "flash_calls": cfg.enc_layers, "flash_device_ms": flash_ms,
+                      "flash_max_abs_err_vs_plain": flash_err,
+                      "gemm_shapes_bit_equal": enc_calls,
+                      "reference_on_flash_kernel_bit_equal": True,
+                      "vs_reference_plan": enc_cmp, "vs_reference_plan_limit": enc_limit}
+    # decode: the served (fused) plan over its own encoder output, and the
+    # reference backend over its own; then the kernels without the fused
+    # epilogue and the reference backend over the SAME encoder output, which
+    # must agree to the bit (integer GEMMs exact, attention plain on both)
+    kern = seamless_decode(model, enc, SEAMLESS_NEW)
+    refd = seamless_decode(ref, enc_ref, SEAMLESS_NEW)
+    unfused = DeployedModel(plan=ExecutionPlan.build(
+        cfg, model.plan.policy, backend="cuda", fuse_epilogue=False), params=model.params)
+    kern_nf = seamless_decode(unfused, enc, SEAMLESS_NEW)
+    ref_same = seamless_decode(ref, enc, SEAMLESS_NEW)
+    if not torch.equal(kern_nf["logits"], ref_same["logits"]):
+        diff = (kern_nf["logits"].float() - ref_same["logits"].float()).abs().max().item()
+        raise AssertionError(f"seamless decode: unfused kernels != reference backend on "
+                             f"the same encoder output (max |diff| {diff})")
+    V = cfg.vocab_size
+    if not bool(torch.isfinite(kern["logits"]).all()):
+        raise AssertionError("seamless decode: non-finite logits")
+    per_step = seamless_step_launches(cfg, model.plan.segments)
+    for step in kern["launches"]:
+        if step != per_step:
+            raise AssertionError(f"seamless decode step launched {step}, expected {per_step}")
+    if any(kern["plain"].values()):
+        raise AssertionError(f"seamless decode: plain versions on CUDA tensors: {kern['plain']}")
+    st = model.plan.decode_state(SEAMLESS_ROWS, 4, device=dev)
+    extra = api.decode_extra_inputs(cfg, SEAMLESS_ROWS, SEAMLESS_SRC, enc.dtype, device=dev)
+    extra["enc_out"].copy_(enc)
+    dec_calls = check_kept_calls(one_step_calls(
+        model, st, torch.ones((SEAMLESS_ROWS, 1), dtype=torch.long, device=dev), **extra),
+        "seamless decode step")
+    agree = sum(a == b for ra, rb in zip(kern["tokens"], refd["tokens"])
+                for a, b in zip(ra, rb))
+    out["decode"] = {"steps": SEAMLESS_NEW, "rows": SEAMLESS_ROWS,
+                     "step_ms": kern["step_ms"], "reference_step_ms": refd["step_ms"],
+                     "launches_per_step": kern["launches"][-1],
+                     "launches": {k: sum(s[k] for s in kern["launches"])
+                                  for k in kern["launches"][0]},
+                     "tokens": kern["tokens"], "reference_tokens": refd["tokens"],
+                     "greedy_agreement_with_reference": agree / (SEAMLESS_NEW * SEAMLESS_ROWS),
+                     "unfused_equals_reference_on_same_encoder_output": True,
+                     "gemm_calls_bit_equal": dec_calls}
+    out["noncausal_flash_row"] = time_noncausal_flash(dev, cfg.enc_layers)
+    out["seconds"] = time.perf_counter() - t0
+    del model, enc, enc_ref, kern, refd, kern_nf, ref_same
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4527,11 +5161,25 @@ def main() -> int:
         "granite_layer", "qwen_layer")}, "seconds": seconds["moe"]})
     for key in ("granite_layer", "qwen_layer"):
         emit({"phase": f"moe_{key}", **moe[key]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zamba = zamba_phase(dev)
+    seconds["zamba2"] = time.perf_counter() - t0
+    emit({"phase": "zamba2", **zamba})
+    t0 = time.perf_counter()
+    seamless = seamless_phase(dev)
+    seconds["seamless"] = time.perf_counter() - t0
+    emit({"phase": "seamless", **seamless})
+    dec_rows.append(seamless["noncausal_flash_row"])
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
         *(run["layers_max_abs_err_vs_plain"] for run in prefill.values()),
         *(run["layer0_max_abs_err_vs_plain"] for run in long_times.values()),
-        moe["granite_long_forward"]["layer0_max_abs_err_vs_plain"])
+        moe["granite_long_forward"]["layer0_max_abs_err_vs_plain"],
+        zamba["long_forward"]["layer0_max_abs_err_vs_plain"],
+        seamless["encoder"]["flash_max_abs_err_vs_plain"],
+        seamless["noncausal_flash_row"]["max_abs_err"])
 
     launches_by_path = {"encoder": e2e["launches"],
                         **{f"decode_kv{kv}": v["launches"]
@@ -4561,7 +5209,11 @@ def main() -> int:
                            for tag, run in moe["granite_serve"].items()},
                         f"moe_granite_prefill_{MOE_LONG}":
                             moe["granite_long_forward"]["launches"],
-                        "moe_qwen_kv8_dense": moe["qwen_serve_kv8_dense"]["launches"]}
+                        "moe_qwen_kv8_dense": moe["qwen_serve_kv8_dense"]["launches"],
+                        "zamba2_token": zamba["serve"]["launches"],
+                        f"zamba2_prefill_{ZAMBA_LONG}": zamba["long_forward"]["launches"],
+                        "seamless_encoder": seamless["encoder"]["launches"],
+                        "seamless_decode": seamless["decode"]["launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
     planned = {"encoder": e2e["expected_launches"]["act_quant"],
@@ -4609,7 +5261,11 @@ def main() -> int:
                        ("moe_granite_kv8_paged", MOE_PAGED_KERNELS),
                        ("moe_granite_kv4_dense", MOE_KERNELS),
                        (f"moe_granite_prefill_{MOE_LONG}", PREFILL_KERNELS),
-                       ("moe_qwen_kv8_dense", MOE_KERNELS)):
+                       ("moe_qwen_kv8_dense", MOE_KERNELS),
+                       ("zamba2_token", HYBRID_KERNELS),
+                       (f"zamba2_prefill_{ZAMBA_LONG}", PREFILL_KERNELS),
+                       ("seamless_encoder", SEAMLESS_ENC_KERNELS),
+                       ("seamless_decode", SEAMLESS_DEC_KERNELS)):
         idle = [k for k in need if not launches_by_path[path][k]
                 and (k != "act_quant" or planned.get(path, 1))]
         if idle:
@@ -4644,7 +5300,8 @@ def main() -> int:
                                   "table2": table2, "serve_cli": cli,
                                   "score_end_to_end": score, "load": load,
                                   "qat_end_to_end": qat, "train_cli": trained,
-                                  "fleet": fleet, "moe": moe, "seconds": seconds},
+                                  "fleet": fleet, "moe": moe, "zamba2": zamba,
+                                  "seamless": seamless, "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})
     print(card_line(), flush=True)

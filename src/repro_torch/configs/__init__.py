@@ -1,5 +1,6 @@
-"""Architecture registry of the port (bert, dense decoder, vlm and moe
-families) plus ``reduced``, the CPU-sized variant of a config."""
+"""Architecture registry of the port (bert, dense decoder, vlm, moe,
+encdec and hybrid families) plus ``reduced``, the CPU-sized variant of a
+config."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +18,7 @@ def get_config(name: str) -> ModelConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant: same family and wiring, tiny dims (the JAX
     package's ``configs.reduced`` for the families the port serves)."""
-    if cfg.family not in ("dense", "bert", "vlm", "moe"):
+    if cfg.family not in ("dense", "bert", "vlm", "moe", "hybrid", "encdec"):
         raise ValueError(f"reduced(): family {cfg.family!r} is not served by "
                          "the port yet")
     kw = dict(
@@ -31,6 +32,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "moe":
         kw.update(num_experts=8, top_k=min(cfg.top_k, 4), expert_d_ff=32,
                   shared_expert_d_ff=64 if cfg.shared_expert_d_ff else 0)
+    if cfg.family == "hybrid":
+        kw.update(num_layers=4, attn_every=2, ssm_state=8, ssm_head_dim=16,
+                  ssm_expand=2, num_kv_heads=4)
+    if cfg.family == "encdec":
+        kw.update(enc_layers=2, dec_layers=2, num_layers=2)
     if cfg.family == "vlm":
         kw.update(num_patches=8)
     return dataclasses.replace(cfg, **kw)

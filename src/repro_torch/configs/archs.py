@@ -1,8 +1,8 @@
 """Architectures the port serves: the paper's own BERT configurations, the
 dense decoders of the decode serving path, the vlm of the long-context
-prefill path and the MoE decoders (copied from the JAX package's registry,
-same fields and values). The token-mode families (xlstm, hybrid, encdec)
-are not here yet."""
+prefill path, the MoE decoders, the encoder-decoder and the Mamba2 hybrid
+(copied from the JAX package's registry, same fields and values). The
+xlstm family is not here yet."""
 from __future__ import annotations
 
 from .base import ModelConfig
@@ -80,3 +80,21 @@ _reg(ModelConfig(
     num_heads=24, num_kv_heads=8, d_ff=512, vocab_size=49155,
     num_experts=40, top_k=8, expert_d_ff=512, shared_expert_d_ff=0,
     act="swiglu"))
+
+
+# --- audio enc-dec ---------------------------------------------------------
+# enc-dec, multimodal [arXiv:2308.11596; hf]; frontend stubbed (frame embeds).
+_reg(ModelConfig(
+    name="seamless-m4t-medium", family="encdec", num_layers=24,
+    enc_layers=12, dec_layers=12, d_model=1024, num_heads=16,
+    num_kv_heads=16, d_ff=4096, vocab_size=256206, act="gelu", norm="ln",
+    input_kind="embeds"))
+
+
+# --- hybrid ----------------------------------------------------------------
+# Mamba2 + shared attn blocks [arXiv:2411.15242; hf]
+_reg(ModelConfig(
+    name="zamba2-2.7b", family="hybrid", num_layers=54, d_model=2560,
+    num_heads=32, num_kv_heads=32, d_ff=10240, vocab_size=32000,
+    ssm_state=64, ssm_head_dim=64, ssm_expand=2, ssm_chunk=256,
+    attn_every=6))

@@ -59,8 +59,12 @@ def calibrate_weight_scales(params, bits_for_leaf: Callable[[tuple], np.ndarray]
 def default_bits_fn(cfg: ModelConfig, policy: QuantPolicy):
     """Per-leaf bits resolver honoring stacked layer leading dims: a leaf
     stacked over the layers gets each layer's bits, broadcast over any
-    further leading dims (an MoE leaf's experts, (L, E, ...))."""
+    further leading dims (an MoE leaf's experts, (L, E, ...)). A hybrid's
+    group-stacked leaf, (G, per, ...), gets each group's bits (its first
+    layer's); an unstacked leaf (the hybrid's shared block) the policy's
+    default bits, as in the JAX package."""
     n_units = policy.num_layers
+    per = {"xlstm": cfg.slstm_every, "hybrid": cfg.attn_every}.get(cfg.family)
     bits_vec = np.array([policy.weight_bits(l) or 32 for l in range(n_units)],
                         np.float32)
 
@@ -68,7 +72,12 @@ def default_bits_fn(cfg: ModelConfig, policy: QuantPolicy):
         if len(shape_prefix) == 0:
             return np.float32(policy.default_bits)
         L = shape_prefix[0]
-        if L == n_units:
+        if per is not None:  # group-stacked (G, ...) or (G, per, ...)
+            G = n_units // per
+            out = (np.array([policy.weight_bits(g * per) or 32 for g in range(G)],
+                            np.float32) if L == G
+                   else np.full(L, policy.default_bits, np.float32))
+        elif L == n_units:
             out = bits_vec
         else:  # any other stacked dim: default bits
             out = np.full(L, policy.default_bits, np.float32)
@@ -103,7 +112,11 @@ def calibrate_act_scales(params, cfg: ModelConfig, policy: QuantPolicy,
                          percentile: float = 99.99):
     """Per-site activation calibration for the stacked-layer families. An
     MoE expert site records (E,) per call, which lands in ``s_a`` of shape
-    (L, E, 1, 1)."""
+    (L, E, 1, 1). The token-mode families (xlstm, hybrid, encdec) take
+    :func:`calibrate_act_scales_global`, as in the JAX package."""
+    if cfg.family in ("xlstm", "hybrid", "encdec"):
+        return calibrate_act_scales_global(params, cfg, policy, forward_fn,
+                                           batches, percentile)
     sites = site_order(cfg)
     K = len(sites)
     L = cfg.num_layers
@@ -188,13 +201,31 @@ def _quantize_stack(tree, w_bits: int):
     return walk(tree)
 
 
+def _segment_stacks(tree, segments) -> list:
+    return [_quantize_stack(slice_stack(tree, s, e), spec.w_bits)
+            if spec.enabled else slice_stack(tree, s, e)
+            for (s, e, spec) in segments]
+
+
 def deploy_params(params, cfg: ModelConfig, segments) -> dict:
-    """QAT params -> deployed int params: ``params['layers']`` becomes a
-    LIST of per-segment stacks (packed weights cannot share one stacked
-    array across bit-width segments)."""
+    """QAT params -> deployed int params: a LIST of per-segment stacks
+    (packed weights cannot share one stacked array across bit-width
+    segments) of ``params['layers']``, of a hybrid's group-stacked
+    ``params['mamba']`` (its shared block quantized once, at the last
+    segment's bits) or of an encoder-decoder's ``params['dec']`` (its
+    encoder stack quantized at the first segment's bits)."""
     out = dict(params)
-    out["layers"] = [
-        _quantize_stack(slice_stack(params["layers"], s, e), spec.w_bits)
-        if spec.enabled else slice_stack(params["layers"], s, e)
-        for (s, e, spec) in segments]
+    if cfg.family == "hybrid":
+        out["mamba"] = _segment_stacks(params["mamba"], segments)
+        last = segments[-1][2]
+        out["shared"] = (_quantize_stack(params["shared"], last.w_bits)
+                         if last.enabled else params["shared"])
+        return out
+    if cfg.family == "encdec":
+        first = segments[0][2]
+        out["enc"] = (_quantize_stack(params["enc"], first.w_bits)
+                      if first.enabled else params["enc"])
+        out["dec"] = _segment_stacks(params["dec"], segments)
+        return out
+    out["layers"] = _segment_stacks(params["layers"], segments)
     return out

@@ -101,7 +101,9 @@ def deploy(params, plan: ExecutionPlan, calib_batches: Optional[list] = None,
                                           kv_bits=16,
                                           prefill_mode=plan.prefill_mode,
                                           decode_dtype=plan.decode_dtype)
-            fwd = lambda p, b: api.forward(p, fp_plan, tokens=b["tokens"])[0]
+            # an encoder-decoder's batches carry the encoder's input too
+            fwd = lambda p, b: api.forward(p, fp_plan, tokens=b["tokens"],
+                                           src_embeds=b.get("src_embeds"))[0]
         with torch.no_grad():
             params = qat.calibrate_act_scales(params, cfg, plan.policy, fwd,
                                               calib_batches)
@@ -110,7 +112,7 @@ def deploy(params, plan: ExecutionPlan, calib_batches: Optional[list] = None,
         # calibration learned s_a on the POLICY grid; the plan override
         # retargets the stored scales onto its grid
         params_int = _rescale_act_scales(
-            params_int, _act_scale_factors(plan, None, plan.act_bits))
+            params_int, cfg, _act_scale_factors(plan, None, plan.act_bits))
     return DeployedModel(plan=plan, params=_place(params_int, plan, dev))
 
 
@@ -149,8 +151,9 @@ def _act_scale_factors(plan: ExecutionPlan, old_act_bits, new_act_bits
     return factors
 
 
-def _rescale_act_scales(params_int, factors: list[float]):
-    """Multiply every linear's ``s_a`` by its segment's factor."""
+def _rescale_act_scales(params_int, cfg, factors: list[float]):
+    """Multiply every linear's ``s_a`` by its segment's factor, in the
+    per-family layout of ``qat.deploy_params``."""
     def scale_tree(tree, f):
         if f == 1.0:
             return tree
@@ -167,6 +170,16 @@ def _rescale_act_scales(params_int, factors: list[float]):
         return walk(tree)
 
     out = dict(params_int)
+    if cfg.family == "hybrid":
+        out["mamba"] = [scale_tree(t, f)
+                        for t, f in zip(params_int["mamba"], factors)]
+        out["shared"] = scale_tree(params_int["shared"], factors[-1])
+        return out
+    if cfg.family == "encdec":
+        out["enc"] = scale_tree(params_int["enc"], factors[0])
+        out["dec"] = [scale_tree(t, f)
+                      for t, f in zip(params_int["dec"], factors)]
+        return out
     out["layers"] = [scale_tree(t, f)
                      for t, f in zip(params_int["layers"], factors)]
     return out
@@ -191,7 +204,7 @@ def retarget_act_bits(model: "DeployedModel", act_bits) -> "DeployedModel":
         kw["fuse_epilogue"] = False   # fusing is a kernel-backend notion
     new_plan = ExecutionPlan.build(plan.cfg, plan.policy, **kw)
     params = _rescale_act_scales(
-        model.params, _act_scale_factors(plan, plan.act_bits, act_bits))
+        model.params, plan.cfg, _act_scale_factors(plan, plan.act_bits, act_bits))
     return DeployedModel(plan=new_plan, params=params)
 
 

@@ -14,16 +14,20 @@ loads as ``"cuda"`` and writes back as ``"pallas"``, so an artifact moves
 between the two packages unchanged.
 
 Two modes are served: ``"encoder"`` (the bert family, prefill-only) and
-``"decode"`` (the dense decoder, vlm and moe families over a dense slot KV
-cache or a paged block pool, ``kv_paging``, at kv_bits 16, 8 or 4, chunked
-prefill, with the shared-prefix cache when ``prefix_cache > 0``). A
-``tp > 1`` plan shards the deployed integer weights and the KV heads over
-``tp`` ranks (``_validate_tp``: JAX's rules, in JAX's order) and runs the
-plain integer path, whose row-parallel int32 sums keep every stream
-byte-identical to tp=1; ``make_group`` checks the ranks when a model is
-placed, not at build; MoE plans are refused at ``tp > 1`` (expert
-sharding is a later slice). What later slices add raises ``ValueError``
-naming that slice: token-mode prefill and the other model families.
+``"decode"``. A decode plan prefills ``"chunked"`` (the dense decoder, vlm
+and moe families over a dense slot KV cache or a paged block pool,
+``kv_paging``, at kv_bits 16, 8 or 4, with the shared-prefix cache when
+``prefix_cache > 0``) or ``"token"``: the JAX package's seed semantics,
+prompts fed one token per batched step through a shared cursor over an fp
+decode state (kv_bits 16), which ``"auto"`` picks for the families without
+a KV slot cache (``TOKEN_ONLY_FAMILIES``: hybrid and encdec here) and
+which the other decode families may ask for. A ``tp > 1`` plan shards the
+deployed integer weights and the KV heads over ``tp`` ranks
+(``_validate_tp``: JAX's rules, in JAX's order; MoE experts shard as the
+FFN does) and runs the plain integer path, whose row-parallel int32 sums
+keep every stream byte-identical to tp=1; ``make_group`` checks the ranks
+when a model is placed, not at build. The xlstm family raises
+``ValueError`` naming the slice it arrives with.
 """
 from __future__ import annotations
 
@@ -37,20 +41,35 @@ from ..core.policy import QuantPolicy
 from ..models.layers import QuantSpec
 from ..models.transformer import segments_from_policy
 
-__all__ = ["ExecutionPlan", "resolve_segments", "plan_to_meta",
-           "plan_from_meta", "BACKENDS", "MODES"]
+__all__ = ["ExecutionPlan", "resolve_segments", "validate_cache_layout",
+           "plan_to_meta", "plan_from_meta", "BACKENDS", "MODES",
+           "TOKEN_ONLY_FAMILIES"]
 
 #: 'cuda' routes int matmuls through the hand-written kernels (their plain
 #: versions for CPU tensors); 'reference' is the plain integer path.
 BACKENDS = ("reference", "cuda")
 MODES = ("decode", "encoder")
 #: families whose decode plans the port builds (the vlm is served on tokens,
-#: as the JAX engine serves it; MoE keeps the transformer's KV slot cache)
-DECODE_FAMILIES = ("dense", "vlm", "moe")
+#: as the JAX engine serves it; MoE keeps the transformer's KV slot cache;
+#: hybrid and encdec keep an fp decode state and prefill in token mode)
+DECODE_FAMILIES = ("dense", "vlm", "moe", "hybrid", "encdec")
 
 #: families whose decode state is not a KV slot cache (JAX's list): no
-#: sharding rules exist for their fp recurrent state
+#: chunked prefill, no slot table, no quantized KV, and no sharding rules
+#: for their fp recurrent state
 TOKEN_ONLY_FAMILIES = ("xlstm", "hybrid", "encdec")
+
+
+def validate_cache_layout(cfg: ModelConfig, *, per_slot_len: bool = False,
+                          kv_bits: int = 16) -> None:
+    """Family-compatibility of the decode-state layout (JAX's
+    ``validate_cache_layout``; ``api.decode_state`` defers here)."""
+    if kv_bits not in (16, 8, 4):
+        raise ValueError(f"kv_bits must be 16, 8 or 4, got {kv_bits}")
+    if cfg.family in TOKEN_ONLY_FAMILIES and (per_slot_len or kv_bits != 16):
+        raise ValueError(
+            "per_slot_len/kv_bits: transformer-family caches only "
+            f"({cfg.family} keeps the fp decode state)")
 
 #: the artifact meta's name for the kernel backend
 _META_BACKEND = {"cuda": "pallas"}
@@ -64,22 +83,46 @@ def resolve_segments(cfg: ModelConfig, policy: Optional[QuantPolicy],
                      use_kernels: bool = False, fuse_epilogue: bool = False,
                      act_bits: Optional[int] = None, tp: int = 1
                      ) -> list[tuple[int, int, QuantSpec]]:
-    """Policy -> contiguous (start, end, QuantSpec) runs. ``act_bits``: None
-    keeps the policy's per-layer assignment, 4/8 forces that grid on every
-    quantized layer, 0 keeps activations in floating point. ``tp`` is the
+    """Policy -> contiguous (start, end, QuantSpec) runs for ``cfg``'s
+    family: layers, a hybrid stack's groups (``hybrid.group_segments``) or
+    an encoder-decoder's decoder layers. ``act_bits``: None keeps the
+    policy's per-layer assignment, 4/8 forces that grid on every quantized
+    layer, 0 keeps activations in floating point. ``tp`` is the
     tensor-parallel degree the row-parallel linears sum over."""
     if policy is None:
-        return [(0, cfg.num_layers, QuantSpec())]
+        return [(0, _segment_units(cfg), QuantSpec())]
+    if cfg.family in ("xlstm", "hybrid"):
+        from ..models.hybrid import group_segments
+        per = cfg.slstm_every if cfg.family == "xlstm" else cfg.attn_every
+        return group_segments(policy, cfg.num_layers // per, use_kernels,
+                              act_bits=act_bits)
+    if cfg.family == "encdec" and policy.num_layers != cfg.dec_layers:
+        raise ValueError(
+            f"encdec policy covers decoder layers ({cfg.dec_layers}), "
+            f"got num_layers={policy.num_layers}")
     return segments_from_policy(policy, use_kernels, fuse_epilogue,
                                 act_bits=act_bits, tp=tp)
+
+
+def _segment_units(cfg: ModelConfig) -> int:
+    """What a policy's layers count: groups of a hybrid (or xlstm) stack,
+    decoder layers of an encoder-decoder, layers otherwise."""
+    if cfg.family == "xlstm":
+        return cfg.num_layers // cfg.slstm_every
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    if cfg.family == "encdec":
+        return cfg.dec_layers
+    return cfg.num_layers
 
 
 def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
                  act_bits: Optional[int], segments, tp: int) -> None:
     """Structural checks of a tensor-parallel plan, the JAX package's
     ``_validate_tp``: the same conditions in the same order, each naming
-    the knob that caused it, and one of the port's own: MoE is refused
-    (JAX shards its experts; the port does not yet)."""
+    the knob that caused it, then the port's own for MoE: the experts' FFN
+    widths must divide as d_ff does (their w1 / w3 shard column-parallel,
+    their w2 row-parallel with int32 sums, the router is replicated)."""
     if backend != "reference":
         raise ValueError(
             f"tp={tp}: the hand-written kernels are single-device; shard on "
@@ -88,11 +131,6 @@ def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
         raise ValueError(
             f"tp={tp}: no sharding rules for family {cfg.family!r}'s fp "
             "recurrent decode state; transformer-cache families only")
-    if cfg.family == "moe":
-        raise ValueError(
-            f"tp={tp}: MoE under tensor parallelism (sharded experts, the "
-            "experts' w2 summed row-parallel in int32) is a later slice of "
-            "the port (ROADMAP Queue 1); serve MoE at tp=1")
     if policy is None or policy.mode != "int":
         raise ValueError(
             f"tp={tp} shards DEPLOYED integer weights (row-parallel partial "
@@ -108,11 +146,21 @@ def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
             raise ValueError(
                 f"tp={tp} does not divide {dim_name}={dim}; pick a tp that "
                 "divides the attention-head and FFN dims")
+    # the port's own: the experts' (and the shared expert's) FFN widths
+    # shard like d_ff (JAX leaves their divisibility to GSPMD's padding)
+    moe_dims = ((("expert_d_ff", cfg.expert_d_ff),
+                 ("shared_expert_d_ff", cfg.shared_expert_d_ff))
+                if cfg.family == "moe" else ())
+    for dim_name, dim in moe_dims:
+        if dim % tp:
+            raise ValueError(
+                f"tp={tp} does not divide {dim_name}={dim}; pick a tp that "
+                "divides the experts' FFN dims")
     # int4 codes pack two values a byte along the contracting axis, so a
     # row-parallel int4 weight shards its packed K/2 rows
     if any(sp.w_bits == 4 for _, _, sp in segments):
         for dim_name, dim in (("num_heads*head_dim", cfg.num_heads * cfg.hd),
-                              ("d_ff", cfg.d_ff)):
+                              ("d_ff", cfg.d_ff), *moe_dims):
             if dim % (2 * tp):
                 raise ValueError(
                     f"tp={tp} with int4 segments: packed codes shard the K/2 "
@@ -169,11 +217,25 @@ class ExecutionPlan:
         kv_bits = cfg.kv_bits if kv_bits is None else kv_bits
         if kv_bits not in (16, 8, 4):
             raise ValueError(f"kv_bits must be 16, 8 or 4, got {kv_bits}")
+        if mode == "decode" and cfg.family not in DECODE_FAMILIES:
+            raise ValueError(
+                f"mode='decode' serves the {DECODE_FAMILIES} families; "
+                f"family {cfg.family!r} arrives with a later slice of the "
+                "port (xlstm: ROADMAP Queue 1 item 4)")
         if prefill_mode == "auto":
-            prefill_mode = "chunked"
+            prefill_mode = ("token" if cfg.family in TOKEN_ONLY_FAMILIES
+                            else "chunked")
         if prefill_mode not in ("chunked", "token"):
             raise ValueError(f"prefill_mode must be 'auto', 'chunked' or "
                              f"'token', got {prefill_mode!r}")
+        if prefill_mode == "chunked" and cfg.family in TOKEN_ONLY_FAMILIES:
+            raise ValueError(
+                f"{cfg.family}: no KV slot cache; use prefill_mode='token'")
+        validate_cache_layout(cfg, kv_bits=kv_bits)
+        if prefill_mode == "token" and kv_bits != 16:
+            raise ValueError(
+                "kv_bits < 16 needs the chunked slot cache; token-mode "
+                "prefill keeps the fp decode state")
         prefix_cache = int(prefix_cache)
         prefill_batch = int(prefill_batch)
         if prefix_cache < 0:
@@ -208,16 +270,6 @@ class ExecutionPlan:
                 raise ValueError(
                     "mode='encoder' computes every request in one forward; "
                     "prefix_cache has no KV rows to reuse")
-        else:
-            if cfg.family not in DECODE_FAMILIES:
-                raise ValueError(
-                    f"mode='decode' serves the {DECODE_FAMILIES} families; "
-                    f"family {cfg.family!r} arrives with a later slice of "
-                    "the port")
-            if prefill_mode == "token":
-                raise ValueError(
-                    "prefill_mode='token': token-mode prefill is a later "
-                    "slice of the port; decode plans prefill chunked")
         if kv_paging not in ("dense", "paged"):
             raise ValueError(f"kv_paging must be 'dense' or 'paged', "
                              f"got {kv_paging!r}")

@@ -47,19 +47,26 @@ def int_matmul_exact(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
 
 
 def expert_matmul_exact(x: torch.Tensor, wq: torch.Tensor, s_a: torch.Tensor,
-                        s_w: torch.Tensor, w_bits: int, a_bits: int) -> torch.Tensor:
+                        s_w: torch.Tensor, w_bits: int, a_bits: int,
+                        reduce: bool = False) -> torch.Tensor:
     """The deployed integer product over experts, all at once: x (E, C, K)
     float, wq (E, K, N) int8 codes or (E, K/2, N) packed nibbles, s_a (E, 1,
     1), s_w (E, 1, N). Each expert's activations are quantized with its own
     scale, the int32 accumulator is exact (:func:`int_matmul_exact`, batched)
     and the epilogue is ``(acc.f32 * (s_a * s_w)).to(x.dtype)``, the JAX
     package's ``_expert_matmul`` in its order. The plain integer path of
-    every backend on the CPU and of the reference backend on the card."""
+    every backend on the CPU and of the reference backend on the card.
+    ``reduce`` (a row-parallel expert weight under tensor parallelism: this
+    rank holds a slice of K) sums the int32 accumulator over the ranks
+    before the epilogue, so the result is tp=1's to the bit."""
     w8 = unpack_int4(wq, axis=-2) if w_bits == 4 else wq
     K = x.shape[-1]
     if w8.shape[-2] != K:          # int4 packing padded K to even
         w8 = w8.narrow(-2, 0, K)
     acc = int_matmul_exact(quantize_to_int(x, s_a, a_bits), w8)
+    if reduce:
+        import torch.distributed as dist
+        dist.all_reduce(acc)       # int32: exact in any order
     return (acc.to(torch.float32) * (s_a * s_w)).to(x.dtype)
 
 

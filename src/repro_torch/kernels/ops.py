@@ -99,7 +99,8 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor, s_a: torch.Tensor,
     return int4_matmul_plain(x8, wp, s_a, s_w, out_dtype=x.dtype)
 
 
-def expert_matmul(x_ecd: torch.Tensor, p: dict, spec) -> torch.Tensor:
+def expert_matmul(x_ecd: torch.Tensor, p: dict, spec,
+                  reduce: bool = False) -> torch.Tensor:
     """The deployed integer product over MoE experts: x (E, C, K) float @
     each expert's weight codes ``p['wq']`` ((E, K, N) int8, or (E, K/2, N)
     packed nibbles at ``spec.w_bits`` 4), with its own activation scale
@@ -111,14 +112,20 @@ def expert_matmul(x_ecd: torch.Tensor, p: dict, spec) -> torch.Tensor:
     expert would need a host read of the counts, and the decode step stays
     capturable in a CUDA graph), each handed that expert's scalar scale, so
     a split-K GEMM quantizes inside with it. On the CPU, the exact batched
-    product (``expert_matmul_exact``): the same bits."""
+    product (``expert_matmul_exact``): the same bits. ``reduce`` sums a
+    row-parallel weight's int32 partials over the tensor-parallel ranks,
+    which only the plain path does (the kernels are single-device)."""
     if not spec.a_bits:
         raise ValueError("expert_matmul: the integer kernels take activation "
                          "codes; a_bits=0 (fp activations) is the reference "
                          "backend's path")
     if not x_ecd.is_cuda:
         return expert_matmul_exact(x_ecd, p["wq"], p["s_a"], p["s_w"],
-                                   spec.w_bits, spec.a_bits)
+                                   spec.w_bits, spec.a_bits, reduce=reduce)
+    if reduce:
+        raise ValueError("expert_matmul: a tensor-parallel row-parallel sum "
+                         "runs on the plain integer path only (backend "
+                         "'reference')")
     E = x_ecd.shape[0]
     x_ecd = x_ecd.contiguous()
     s_a = p["s_a"].reshape(E)                  # views: expert e's scalar ...

@@ -26,6 +26,10 @@ stop-token ids, ``--stream`` prints each token as the engine emits it.
 ``--kv-paging paged`` (+ ``--kv-budget-mb``) serves from the paged block
 pool, ``--prefix-cache-mb`` turns on shared-prefix reuse, ``--policy-from``
 deploys the per-layer bit assignment a search artifact chose.
+``--prefill-mode token`` feeds prompts one token per step through a shared
+cursor (what ``auto`` picks for ``--arch zamba2-2.7b``, the Mamba2 hybrid);
+an encoder-decoder arch deploys but its engine is refused, as the JAX
+engine cannot serve it either.
 
 Scale axes (DESIGN.md §16): ``--replicas N`` serves the burst through a
 ``ReplicaSet`` of N engines over the one deployed model (least-loaded
@@ -104,7 +108,8 @@ def _build_model(args, dev, say=print):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    n_units = cfg.num_layers
+    # an encoder-decoder's policy covers its decoder layers, as in JAX
+    n_units = cfg.dec_layers if cfg.family == "encdec" else cfg.num_layers
     if args.policy_from:
         from ..core.autosearch import load_search_policy
         policy = load_search_policy(args.policy_from, n_units)

@@ -1,13 +1,15 @@
 """Family-dispatching model API: init / forward / decode state.
 
 ``forward(params, plan, state=..., tokens=..., patch_embeds=...,
-patch_mask=...) -> (logits, new_state)`` for the transformer families the
-port serves (dense decoders, MoE decoders, the vlm with its
-patch-embedding stub, and the bert stack as an LM); ``want_taps=True``
-adds the last layer's q/k/v taps and ``want_aux=True`` then the MoE
-load-balance loss (0 for the other families), the JAX package's ``forward``
-returning both always. Families without a KV slot cache (xlstm, hybrid,
-encdec) raise a ``ValueError`` that names the slice they arrive with.
+patch_mask=..., src_embeds=..., enc_out=...) -> (logits, new_state)`` for
+every family the port serves: dense decoders, MoE decoders, the vlm with
+its patch-embedding stub, the bert stack as an LM, the encoder-decoder
+(``src_embeds`` for the encoder, or its output ``enc_out`` in a decode
+step, ``decode_extra_inputs``) and the Mamba2 hybrid. ``want_taps=True``
+adds the last layer's taps and ``want_aux=True`` then the MoE load-balance
+loss (0 for the other families), the JAX package's ``forward`` returning
+both always. The xlstm family raises a ``ValueError`` that names the slice
+it arrives with.
 """
 from __future__ import annotations
 
@@ -16,41 +18,54 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from ..device import resolve_device
+from . import encdec, hybrid, transformer
 
 #: families whose forward and decode state this slice of the port serves
-FAMILIES = ("dense", "bert", "vlm", "moe")
+FAMILIES = ("dense", "bert", "vlm", "moe", "hybrid", "encdec")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(
             f"family {cfg.family!r}: the port serves {FAMILIES} so far; "
-            "the token-mode families (xlstm, hybrid, encdec) arrive with "
-            "a later slice")
+            "xlstm arrives with a later slice (ROADMAP Queue 1 item 4)")
 
 
 def init_model(cfg: ModelConfig, g: torch.Generator, device) -> dict:
     """fp params on ``device`` drawn from ``g`` (the JAX tree's keys and
     shapes)."""
     _check_family(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.init_hybrid(cfg, g, device)
+    if cfg.family == "encdec":
+        return encdec.init_encdec(cfg, g, device)
     return transformer.init_lm(cfg, g, device)
 
 
 def forward(params, plan, *, state: Optional[dict] = None, tokens,
-            patch_embeds=None, patch_mask=None, want_taps: bool = False,
-            want_aux: bool = False):
+            patch_embeds=None, patch_mask=None, src_embeds=None, enc_out=None,
+            want_taps: bool = False, want_aux: bool = False):
     """One forward under ``plan`` (an ``ExecutionPlan``): logits (B, S,
     padded_vocab) and the decode state advanced by S tokens (updated in
     place; None without a state). vlm inputs: ``patch_embeds`` (B, P, d)
-    placed at the True positions of ``patch_mask`` (B, S). ``want_taps``
-    adds the last layer's q/k/v for distillation, ``want_aux`` then the
-    summed MoE load-balance loss (a 0-d f32 tensor)."""
-    _check_family(plan.cfg)
-    return transformer.lm_forward(params, plan.cfg, plan.segments,
+    placed at the True positions of ``patch_mask`` (B, S); encdec inputs:
+    ``src_embeds`` (B, S_src, d) or, in a decode step, ``enc_out``.
+    ``want_taps`` adds the last layer's taps for distillation, ``want_aux``
+    then the summed MoE load-balance loss (a 0-d f32 tensor)."""
+    cfg = plan.cfg
+    _check_family(cfg)
+    kw = dict(want_taps=want_taps, want_aux=want_aux)
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_forward(params, cfg, plan.segments, tokens=tokens,
+                                     states=state, **kw)
+    if cfg.family == "encdec":
+        return encdec.encdec_forward(params, cfg, plan.segments, tokens=tokens,
+                                     src_embeds=src_embeds, enc_out=enc_out,
+                                     caches=state, **kw)
+    return transformer.lm_forward(params, cfg, plan.segments,
                                   tokens=tokens, patch_embeds=patch_embeds,
-                                  patch_mask=patch_mask, caches=state,
-                                  want_taps=want_taps, want_aux=want_aux)
+                                  patch_mask=patch_mask, caches=state, **kw)
 
 
 def decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -64,9 +79,32 @@ def decode_state(cfg: ModelConfig, batch: int, max_len: int,
     independently. ``kv_heads`` is the number of KV heads held (a
     tensor-parallel rank's share; default all). Serving callers use
     ``plan.decode_state``, so cache, prefill and decode share the plan's
-    one decode dtype and head share."""
+    one decode dtype and head share. The token-mode families keep an fp
+    state with one 0-d cursor (``per_slot_len`` and kv_bits 8/4 raise, as
+    in the JAX package): the hybrid's Mamba2 states and shared-block KV,
+    the encoder-decoder's decoder KV."""
     _check_family(cfg)
+    from ..deploy.plan import validate_cache_layout
     kv_bits = cfg.kv_bits if kv_bits is None else kv_bits
+    validate_cache_layout(cfg, per_slot_len=per_slot_len, kv_bits=kv_bits)
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_states(cfg, batch, max_len, dtype, device)
+    if cfg.family == "encdec":
+        return encdec.encdec_caches(cfg, batch, max_len, dtype, device)
     return transformer.lm_caches(cfg, batch, max_len, dtype,
                                  per_slot_len=per_slot_len, kv_bits=kv_bits,
                                  device=device, kv_heads=kv_heads)
+
+
+def decode_extra_inputs(cfg: ModelConfig, batch: int, src_len: int,
+                        dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """A family's extra decode inputs, zeros on ``device`` (the card unless
+    the caller asks for the CPU): the encoder-decoder's ``enc_out`` (batch,
+    src_len, d_model), which a caller fills with the encoder's output
+    (``encdec.encode``); nothing for the other families."""
+    _check_family(cfg)
+    if cfg.family != "encdec":
+        return {}
+    dev = resolve_device(device)
+    return {"enc_out": torch.zeros((batch, src_len, cfg.d_model), dtype=dtype,
+                                   device=dev)}

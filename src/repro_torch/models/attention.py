@@ -1,5 +1,6 @@
 """GQA multi-head attention: cacheless (encoder, prefill), chunked (long
-cacheless forwards) and KV-cache decode.
+cacheless forwards), KV-cache decode and the cross-attention of an
+encoder-decoder (``kv_input``).
 
 All projections route through ``qlinear`` (quantizable per the MKQ policy);
 the scores and the softmax stay in fp32 (paper §5). The cacheless and the
@@ -134,6 +135,7 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                     hd: int, spec: QuantSpec, causal: bool = True,
                     rope: bool = False, rope_theta: float = 10000.0,
                     cache: Optional[dict] = None,
+                    kv_input: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None, chunk: int = 0,
                     want_taps: bool = False):
     """One attention sublayer (the residual is the caller's). Returns
@@ -149,6 +151,9 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         ``len ...`` and attend the cache masked to ``len`` plus themselves;
         ``new_kv`` is their (k, v), which the caller writes (quantizing on
         append), so a token attends itself at full precision.
+    kv_input: the cross-attention source (B, S_src, d) of an
+        encoder-decoder: keys and values come from it, with no RoPE, no
+        causal mask and never the chunk branch (the JAX package's rules).
     kv_len: (B,) per-row valid lengths for the cacheless path: keys at or
         past a row's length are masked before the softmax, which keeps
         bucket-padded bidirectional (encoder) rows independent of their
@@ -158,14 +163,15 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         chunk == 0`` and no ``kv_len`` is given.
     """
     B, Sq, _ = x.shape
+    src = x if kv_input is None else kv_input
     q = _split_heads(qlinear(x, p["wq"], spec), n_heads)
-    k = _split_heads(qlinear(x, p["wk"], spec), n_kv)
-    v = _split_heads(qlinear(x, p["wv"], spec), n_kv)
+    k = _split_heads(qlinear(src, p["wk"], spec), n_kv)
+    v = _split_heads(qlinear(src, p["wv"], spec), n_kv)
     taps = None
     if want_taps:
-        taps = {"q": q.reshape(B, Sq, -1), "k": k.reshape(B, Sq, -1),
-                "v": v.reshape(B, Sq, -1)}
-    if rope:
+        taps = {"q": q.reshape(B, Sq, -1), "k": k.reshape(B, k.shape[1], -1),
+                "v": v.reshape(B, v.shape[1], -1)}
+    if rope and kv_input is None:
         positions = torch.arange(Sq, device=x.device)[None, :]
         if cache is not None:
             off = cache["len"]
@@ -217,12 +223,13 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                      _repeat_kv(cache["v"].to(q.dtype), groups),
                      _repeat_kv(k, groups), _repeat_kv(v, groups), cache["len"])
         new_kv = (k, v)
-    elif chunk and Sq > chunk and Sq % chunk == 0 and kv_len is None:
+    elif (chunk and Sq > chunk and Sq % chunk == 0 and kv_len is None
+          and kv_input is None):
         out = attend(chunked_attention, q, k, v, causal=causal, chunk=chunk,
                      use_kernel=spec.use_kernels)
     else:
         out = attend(full_attention, q, _repeat_kv(k, groups), _repeat_kv(v, groups),
-                     causal=causal,
+                     causal=causal and kv_input is None,
                      kv_len=(None if kv_len is None else kv_len.reshape(-1, 1, 1, 1)))
     out = qlinear(out.reshape(B, Sq, n_heads * hd), p["wo"], spec,
                   row_parallel=True)

@@ -83,23 +83,27 @@ def ffn_apply(x, p, cfg: ModelConfig, spec: QuantSpec):
 
 
 # ------------------------------------------------------------------ MoE
-def _expert_matmul(x_ecd: torch.Tensor, p: dict, spec: QuantSpec) -> torch.Tensor:
+def _expert_matmul(x_ecd: torch.Tensor, p: dict, spec: QuantSpec,
+                   row_parallel: bool = False) -> torch.Tensor:
     """x (E, C, K) @ w (E, K, N) with per-expert quantization: expert e's
     activations on its own scale ``s_a[e]`` ((E, 1, 1)), its weight on its
     own per-channel ``s_w[e]`` ((E, 1, N)). Under calibration the input's
     |x| percentile is recorded per expert (empty slots' zero rows
-    included, as in the JAX package)."""
+    included, as in the JAX package). ``row_parallel`` marks the experts'
+    w2, whose K a tp plan shards: at ``spec.tp > 1`` its int32 partial sums
+    are all-reduced over the ranks before the epilogue."""
     if calibration.active():
         calibration.record_input(x_ecd, per_axis0=True)
     if spec.mode == "int":
+        reduce = row_parallel and spec.tp > 1
         if spec.a_bits and spec.use_kernels:
             from ..kernels import ops as kops
-            return kops.expert_matmul(x_ecd, p, spec)
+            return kops.expert_matmul(x_ecd, p, spec, reduce=reduce)
         if spec.a_bits:
             return expert_matmul_exact(x_ecd, p["wq"], p["s_a"], p["s_w"],
-                                       spec.w_bits, spec.a_bits)
-        assert not spec.use_kernels, \
-            "fp-activation fallback is reference-backend only"
+                                       spec.w_bits, spec.a_bits, reduce=reduce)
+        assert not spec.use_kernels and not reduce, \
+            "fp-activation fallback is reference-backend only, at tp=1"
         w8 = unpack_int4(p["wq"], axis=-2) if spec.w_bits == 4 else p["wq"]
         k = x_ecd.shape[-1]
         if w8.shape[-2] != k:
@@ -137,7 +141,7 @@ def _experts(xe: torch.Tensor, p: dict, spec: QuantSpec, dtype) -> torch.Tensor:
     h1 = _expert_matmul(xe, p["w1"], spec)
     h3 = _expert_matmul(xe, p["w3"], spec)
     h = F.silu(h1.to(torch.float32)).to(dtype) * h3
-    return _expert_matmul(h, p["w2"], spec)
+    return _expert_matmul(h, p["w2"], spec, row_parallel=True)
 
 
 def _shared_expert(x: torch.Tensor, p: dict, cfg: ModelConfig,

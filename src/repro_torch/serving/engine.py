@@ -45,6 +45,21 @@ pump; it returns the ``(rid, token)`` pairs it emitted.
   scheduler as generation traffic and resolve in the step that admits
   them, before that step's decode.
 
+* **token mode** (``plan.prefill_mode='token'``, the JAX package's seed
+  semantics and the only mode of the families without a KV slot cache):
+  prompts are fed one token per batched step through ONE shared cursor
+  over an fp decode state (the hybrid's Mamba2 states and shared-block KV,
+  or a dense decoder's fp cache with a 0-d cursor). A slot emits once it
+  has consumed its prompt. The cursor only advances, so admission is gated
+  on the live cursor (``_token_fits``) and an idle engine whose cursor
+  cannot fit the next request starts a fresh state at cursor 0. A request
+  admitted into a freed slot resets only that slot's prompt position: the
+  slot's recurrent state and the KV rows the earlier occupant and the idle
+  steps wrote stay, as in the JAX engine. An encoder-decoder plan is
+  refused: the JAX engine's step passes no encoder input and cannot serve
+  it either (decode it through ``models.api.forward`` with
+  ``decode_extra_inputs``).
+
 * **tensor parallelism** (a ``tp > 1`` plan, DESIGN.md §16): one engine
   per rank, each over its rank's shard of the weights and
   ``num_kv_heads / tp`` heads of the KV state. Every rank is given the same
@@ -57,7 +72,7 @@ Greedy streams are ``argmax``; sampled ones draw from a per-request
 generator seeded from (seed, token index), so a request's tokens depend on
 (prompt, seed) only. ``last_step_tokens`` (prompt, decode and encode tokens
 of the last ``engine_step``) is what the multi-tenant deficit round-robin
-pays with. Left for a later slice: token-mode prefill.
+pays with.
 """
 from __future__ import annotations
 
@@ -135,6 +150,15 @@ class ServingEngine:
                                 "with repro_torch.deploy.ExecutionPlan.build")
         if plan.mode not in ("decode", "encoder"):
             raise ValueError(f"unknown plan mode {plan.mode!r}")
+        if plan.mode == "decode" and plan.cfg.family == "encdec":
+            raise ValueError(
+                f"{plan.cfg.name}: the serving engine cannot serve an "
+                "encoder-decoder plan. Its token step feeds tokens only, and "
+                "an encdec forward needs the encoder's input (src_embeds) or "
+                "output (enc_out); the JAX package's engine has the same "
+                "limit (its step passes neither, models/encdec.py:95). "
+                "Decode it through models.api.forward with "
+                "api.decode_state and api.decode_extra_inputs")
         self.plan = plan
         self.cfg = plan.cfg
         self.params = params
@@ -186,8 +210,14 @@ class ServingEngine:
             raise ValueError(
                 "kv_budget_bytes applies to kv_paging='paged' plans only "
                 "(the dense layout preallocates slots*max_len rows)")
+        self.token_mode = self.mode == "decode" and plan.prefill_mode == "token"
         if self.mode == "encoder":
             self.kv = None
+        elif self.token_mode:
+            self.kv = None
+            self.state = plan.decode_state(slots, max_len, device=self.device)
+            self.pos = np.zeros(slots, np.int64)   # per-slot prompt cursor
+            self._cursor = 0   # host mirror of the shared token-mode cursor
         elif self.paged:
             if max_len % PREFIX_BLOCK:
                 raise ValueError(
@@ -238,7 +268,8 @@ class ServingEngine:
             raise ValueError(f"request {req.rid}: empty prompt")
         if plen + req.max_new_tokens > self.max_len:
             # past max_len the cache writes drop: decode would keep emitting
-            # tokens that cannot see recent context
+            # tokens that cannot see recent context. (Token mode's shared
+            # cursor also gates admission on the live cursor: _token_fits.)
             raise ValueError(
                 f"request {req.rid}: prompt ({plen}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds engine max_len "
@@ -371,11 +402,23 @@ class ServingEngine:
 
     def engine_step(self) -> list[tuple[int, int]]:
         """The public pump: admit, then prefill + one batched decode step
-        (decode mode) or one batched encode per group (encoder mode).
-        Returns the ``(rid, token)`` pairs emitted this step."""
+        (decode mode), one batched token step (token mode) or one batched
+        encode per group (encoder mode). Returns the ``(rid, token)`` pairs
+        emitted this step."""
         self._events = []
         self.last_step_tokens = 0
         self.last_step_encode_tokens = 0
+        if self.token_mode:
+            self._token_step()
+        else:
+            self._slot_step()
+        for req in self.scheduler.pop_shed():
+            self._finalize_unslotted(req, "shed")
+        if self.paged:
+            self.metrics.update_kv(self.pool.stats())
+        return self._events
+
+    def _slot_step(self) -> None:
         fits = None
         if self.paged:
             # ONE byte budget drives admission: reservations are per round
@@ -394,11 +437,6 @@ class ServingEngine:
             self._prefill_admitted(gen)
         if self.mode == "decode":
             self._decode_active()
-        for req in self.scheduler.pop_shed():
-            self._finalize_unslotted(req, "shed")
-        if self.paged:
-            self.metrics.update_kv(self.pool.stats())
-        return self._events
 
     # ------------------------------------------------------------ lifecycle
     def _admit(self, fits: Optional[Callable] = None) -> list:
@@ -768,7 +806,10 @@ class ServingEngine:
         uploads the host's tables, cursors and write targets and attends
         straight from the pool (``PagedKVCache.decode_state``)."""
         with torch.no_grad():
-            if self.paged:
+            if self.token_mode:
+                logits, self.state = model_api.forward(
+                    self.params, self.plan, state=self.state, tokens=tokens)
+            elif self.paged:
                 active = self.scheduler.active_slots()
                 logits, _ = model_api.forward(
                     self.params, self.plan,
@@ -801,6 +842,72 @@ class ServingEngine:
             self._emit(req, int(next_tok[s]))
             if self.scheduler.active[s] is req:   # ... or a self-cancel
                 self._maybe_complete(s, req)
+
+    # --------------------------------------------------------------- token
+    def _token_fits(self, req) -> bool:
+        """Token mode shares ONE cursor across slots: a request admitted at
+        cursor c takes positions [c, c + plen + max_new), so it fits iff
+        that span ends inside max_len."""
+        return (self._cursor + len(req.prompt) + req.max_new_tokens
+                <= self.max_len)
+
+    def _token_step(self) -> None:
+        """The JAX engine's token step: prompts fed one token per batched
+        step at the shared cursor, every slot in the batch (an idle slot
+        feeds token 0). The cursor only advances, so admission is gated on
+        the live cursor, and an idle engine whose cursor cannot fit the next
+        request takes a fresh decode state at cursor 0 instead of admitting
+        work whose writes would fall past max_len. An admitted request
+        resets only its slot's prompt position (``pos``), as JAX does: the
+        slot's recurrent state and KV rows carry over."""
+        head = self.scheduler.peek()
+        if (head is not None and self.scheduler.num_active == 0
+                and self._cursor > 0 and not self._token_fits(head)):
+            # drained but the cursor is spent: fresh state, cursor 0;
+            # submit() guarantees every queued request fits from there
+            self.state = self.plan.decode_state(self.slots, self.max_len,
+                                                device=self.device)
+            self._cursor = 0
+        for s, _req in self._admit(fits=self._token_fits):
+            self.pos[s] = 0
+        active = self.scheduler.active_slots()
+        if not active:
+            return
+        if self._cursor >= self.max_len:
+            raise RuntimeError(
+                f"token-mode cache cursor exhausted mid-flight (cursor "
+                f"{self._cursor} >= max_len {self.max_len}) with "
+                f"{len(active)} active request(s): admission gating should "
+                "have prevented this")
+        toks = np.zeros((self.slots, 1), np.int64)
+        for s in active:
+            req = self.scheduler.active[s]
+            if self.pos[s] < len(req.prompt):      # still feeding the prompt
+                toks[s, 0] = req.prompt[self.pos[s]]
+            else:                                  # submit() bans empty
+                toks[s, 0] = self.generated[s][-1]  # prompts: always filled
+        t0 = self.clock()
+        next_tok = self.decode_forward(
+            torch.as_tensor(toks, device=self.device)).cpu().numpy()
+        self._cursor += 1
+        # a slot emits a generated token this step once it has consumed its
+        # last prompt token, i.e. pos >= plen - 1 before the increment
+        n_decoding = sum(
+            int(self.pos[s] >= len(self.scheduler.active[s].prompt) - 1)
+            for s in active)
+        self.metrics.record("decode", self.clock() - t0, n_decoding,
+                            tenant=self.tenant)
+        self.last_step_tokens += len(active)
+        for s in active:
+            req = self.scheduler.active[s]
+            if req is None:    # freed mid-step by an on_token cancel()
+                continue
+            self.pos[s] += 1
+            if self.pos[s] >= len(req.prompt):
+                self.generated[s].append(int(next_tok[s]))
+                self._emit(req, int(next_tok[s]))
+                if self.scheduler.active[s] is req:   # ... or a self-cancel
+                    self._maybe_complete(s, req)
 
     # -------------------------------------------------------------- encode
     def encode_batch(self, tokens, lengths) -> dict[str, torch.Tensor]:

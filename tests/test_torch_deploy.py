@@ -145,7 +145,8 @@ def test_plan_meta_round_trip(backend, act_bits):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="decode", prefill_mode="token"), "token-mode prefill"),
+    # token mode keeps the fp decode state: a quantized KV cache is refused
+    (dict(mode="decode", prefill_mode="token", kv_bits=8), "token-mode prefill"),
     (dict(mode="decode", prefill_mode="token", prefix_cache=1024),
      "prefix_cache needs the chunked"),
     (dict(kv_paging="paged"), "pages the decode KV cache"),
@@ -209,13 +210,27 @@ def test_moe_decode_plan_matches_jax(arch):
     ("encdec", dict(enc_layers=1, dec_layers=1)),
 ])
 def test_decode_plan_refuses_the_families_still_to_port(family, extra):
+    """xlstm is still to port: its decode plan names the later slice in
+    either prefill mode. hybrid and encdec are ported in token mode only:
+    a chunked plan is refused for want of a KV slot cache, as in JAX."""
     from repro_torch.configs.base import ModelConfig
     cfg = ModelConfig(name=f"tiny-{family}", family=family, num_layers=2,
                       d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                       vocab_size=256, **extra)
-    pol = QuantPolicy(num_layers=2, mode="int", last_k_int4=1)
-    with pytest.raises(ValueError, match="later slice"):
-        ExecutionPlan.build(cfg, pol, backend="cuda", mode="decode")
+    # an encoder-decoder's policy covers its decoder layers
+    pol = QuantPolicy(num_layers=cfg.dec_layers if family == "encdec" else 2,
+                      mode="int", last_k_int4=1)
+    if family == "xlstm":
+        for mode in ("auto", "token", "chunked"):
+            with pytest.raises(ValueError, match="later slice"):
+                ExecutionPlan.build(cfg, pol, backend="cuda", mode="decode",
+                                    prefill_mode=mode)
+        return
+    with pytest.raises(ValueError, match="no KV slot cache"):
+        ExecutionPlan.build(cfg, pol, backend="cuda", mode="decode",
+                            prefill_mode="chunked")
+    assert ExecutionPlan.build(cfg, pol, backend="cuda",
+                               mode="decode").prefill_mode == "token"
 
 
 def test_params_from_numpy_keeps_dtypes():

@@ -66,7 +66,10 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
                  "src/repro_torch/serving/tenants.py",
                  "src/repro_torch/distributed/__init__.py",
                  "src/repro_torch/distributed/sharding.py",
-                 "src/repro_torch/launch/mesh.py"):
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/models/encdec.py",
+                 "src/repro_torch/models/mamba2.py",
+                 "src/repro_torch/models/hybrid.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.core import qat\n"
@@ -152,3 +155,28 @@ def test_training_entry_points_default_to_the_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         table3_ablation.run(steps=1)
     assert not any(tmp_path.iterdir())      # nothing ran before the refusal
+
+
+def test_token_mode_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """The encoder-decoder's extra decode inputs, a hybrid artifact's load
+    and the serve CLI on zamba2-2.7b default to the card and raise without
+    one; each runs with ``device="cpu"``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy import DeployedModel, ExecutionPlan, deploy
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    cfg = reduced(get_config("seamless-m4t-medium"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.decode_extra_inputs(cfg, 2, 8)
+    assert api.decode_extra_inputs(cfg, 2, 8, device="cpu")["enc_out"].device.type == "cpu"
+    hcfg = reduced(get_config("zamba2-2.7b"))
+    plan = ExecutionPlan.build(hcfg, QuantPolicy(num_layers=4, mode="int"), backend="cuda")
+    fp = api.init_model(hcfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deploy(fp, plan)
+    deploy(fp, plan, device="cpu").save(str(tmp_path / "h"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeployedModel.load(str(tmp_path / "h"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "zamba2-2.7b", "--reduced"])

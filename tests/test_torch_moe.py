@@ -133,9 +133,9 @@ class ExpertSpy:
         self.inputs = []
         orig = module._expert_matmul
 
-        def spy(x, p, spec):
+        def spy(x, p, spec, **kw):     # kw: the port's row_parallel flag
             self.inputs.append(np.array(x))
-            return orig(x, p, spec)
+            return orig(x, p, spec, **kw)
         monkeypatch.setattr(module, "_expert_matmul", spy)
 
 
@@ -555,10 +555,24 @@ def test_expert_matmul_on_the_cpu_is_the_exact_product():
 
 # ------------------------------------------------------------------ plan
 def test_moe_tp_is_refused():
+    """MoE at tp > 1 is refused where JAX refuses a tp plan (the kernel
+    backend, a non-dividing head count) and where the experts' FFN widths do
+    not divide; the reference backend's plan builds (the sharded experts'
+    parity is ``test_torch_tp.py``'s MoE grid)."""
     cfg = _cfgs("qwen2-moe-a2.7b")[0]
-    with pytest.raises(ValueError, match="MoE under tensor parallelism.*later slice"):
-        ExecutionPlan.build(cfg, _policy(QuantPolicy), backend="reference", tp=2)
+    with pytest.raises(ValueError, match="single-device"):
+        ExecutionPlan.build(cfg, _policy(QuantPolicy), backend="cuda", tp=2)
+    with pytest.raises(ValueError, match="does not divide num_heads"):
+        ExecutionPlan.build(cfg, _policy(QuantPolicy), backend="reference", tp=3)
+    with pytest.raises(ValueError, match="does not divide expert_d_ff=34"):
+        ExecutionPlan.build(cfg.replace(expert_d_ff=34), _policy(QuantPolicy),
+                            backend="reference", tp=4)
+    with pytest.raises(ValueError, match="expert_d_ff=38 must divide by 2\\*tp"):
+        ExecutionPlan.build(cfg.replace(expert_d_ff=38), _policy(QuantPolicy),
+                            backend="reference", tp=2)
     assert ExecutionPlan.build(cfg, _policy(QuantPolicy), backend="reference").tp == 1
+    assert ExecutionPlan.build(cfg, _policy(QuantPolicy), backend="reference",
+                               tp=2).tp == 2
 
 
 @pytest.mark.parametrize("arch", ARCHS)

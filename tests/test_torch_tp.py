@@ -17,6 +17,12 @@
   small W8A8/W4A4 bert encoder plan, its results bit-equal.
 * **The tp=2 artifact**: deployed and saved at tp=2, it holds tp=1's
   arrays and serves at tp=1 and tp=4 with tp=2's streams.
+* **The MoE grid**: reduced granite-moe-3b-a800m (dense and sorted
+  dispatch) and qwen2-moe-a2.7b (its shared expert and sigmoid gate), W8A8
+  + W4A4 at kv 8, saved at tp=1 and served at tp=2 and tp=4: the experts'
+  w1 / w3 hold a column slice, their w2 a row slice whose int32 partials
+  are all-reduced, the router is replicated; streams and every decode
+  step's logits equal to tp=1's.
 
 Each tp degree is one ``spawn_tp`` (tp=1 too, so every process runs one
 intra-op thread) that serves the whole grid; the three take about 20 s.
@@ -242,6 +248,89 @@ def test_make_tp_group_refuses_missing_cards():
         spawn_tp(_serve, 64, None, device="cuda")
 
 
+# ------------------------------------------------------------ the MoE grid
+MOE_CASES = ("granite-moe-3b-a800m", "granite-moe-3b-a800m-sorted", "qwen2-moe-a2.7b")
+
+
+def _moe_cfg(case: str):
+    cfg = reduced(get_config(case.replace("-sorted", "")))
+    return cfg.replace(moe_impl="sorted") if case.endswith("-sorted") else cfg
+
+
+def _moe_rank(paths: dict) -> dict:
+    """One rank of a tp degree: every MoE artifact resharded to it and
+    served, with this rank's expert shard shapes."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    out = {}
+    for case, path in paths.items():
+        model = DeployedModel.load(path, tp=dist.get_world_size(), device="cpu")
+        moe = model.params["layers"][0]["moe"]
+        out[case] = {**_serve(model),
+                     "shapes": {k: tuple(moe[k]["wq"].shape) for k in ("w1", "w3", "w2")},
+                     "router": tuple(moe["router"].shape)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def moe_grid(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tp_moe")
+    paths = {}
+    for case in MOE_CASES:
+        cfg = _moe_cfg(case)
+        plan = ExecutionPlan.build(cfg, QuantPolicy(num_layers=4, mode="int",
+                                                    last_k_int4=2),
+                                   backend="reference", kv_bits=8)
+        paths[case] = str(tmp / case)
+        deploy(_fp_params(cfg), plan, CALIB, device="cpu").save(paths[case])
+    return {tp: spawn_tp(_moe_rank, tp, paths) for tp in (1, 2, 4)}
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_tp_streams_and_logits_are_bit_equal_to_tp1(moe_grid, case):
+    """Sharded experts at tp 2 and 4 serve tp=1's streams, and every
+    decode step's logits to the bit."""
+    ref = moe_grid[1][case]
+    assert all(len(s) == 5 for s in ref["streams"])
+    for tp in (2, 4):
+        got = moe_grid[tp][case]
+        assert got["streams"] == ref["streams"], f"tp={tp} {case}"
+        assert torch.equal(got["logits"], ref["logits"]), f"tp={tp} {case}"
+
+
+def test_moe_tp_ranks_hold_expert_slices(moe_grid):
+    """A rank holds 1/tp of every expert's w1 / w3 columns and of its w2's
+    rows (W8A8 layers 0-1, int8 codes), and the whole router."""
+    for case in MOE_CASES:
+        cfg = _moe_cfg(case)
+        E, d, f = cfg.num_experts, cfg.d_model, cfg.expert_d_ff
+        for tp in (1, 2, 4):
+            got = moe_grid[tp][case]
+            assert got["shapes"] == {"w1": (2, E, d, f // tp), "w3": (2, E, d, f // tp),
+                                     "w2": (2, E, f // tp, d)}, (case, tp)
+            assert got["router"] == (2, d, E)
+
+
+def test_moe_tp_plans_build_as_jax_builds_them():
+    """JAX's ``_validate_tp`` admits MoE at the reference backend; so does
+    the port's, at tp 2 and 4, and both refuse the kernel backend."""
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced as jreduced
+    from repro.core.policy import QuantPolicy as JQuantPolicy
+    from repro.deploy import ExecutionPlan as JExecutionPlan
+    for arch in ("granite-moe-3b-a800m", "qwen2-moe-a2.7b"):
+        cfg, jcfg = reduced(get_config(arch)), jreduced(jget_config(arch))
+        for backend, tp in (("reference", 2), ("reference", 4), ("cuda", 2)):
+            pol = QuantPolicy(num_layers=4, mode="int", last_k_int4=2)
+            jpol = JQuantPolicy(num_layers=4, mode="int", last_k_int4=2)
+            got = _outcome(lambda: ExecutionPlan.build(cfg, pol, backend=backend, tp=tp))
+            want = _outcome(lambda: JExecutionPlan.build(
+                jcfg, jpol, backend={"cuda": "pallas"}.get(backend, backend), tp=tp))
+            assert (got is None) == (want is None), (arch, backend, tp, got, want)
+            if want is not None:
+                assert "single-device" in got and "single-device" in want
+
+
 # ------------------------------------------------------ the head count
 HEAD_SHAPES = [((4, 4, 100, 16), 2), ((8, 32, 448, 80), 2), ((8, 32, 448, 80), 4)]
 
@@ -401,6 +490,12 @@ def _deployed(w: str, encoder: bool = False):
                                    backend="reference", mode="encoder")
         return deploy(init_bert_classifier(cfg, 2, torch.Generator().manual_seed(0), "cpu"),
                       plan, device="cpu").params
+    if w == "moe":
+        cfg = reduced(get_config("qwen2-moe-a2.7b"))
+        plan = ExecutionPlan.build(cfg, QuantPolicy(num_layers=4, mode="int",
+                                                    last_k_int4=2), backend="reference")
+        return deploy(api.init_model(cfg, torch.Generator().manual_seed(0), "cpu"), plan,
+                      device="cpu").params
     cfg = reduced(get_config("llava-next-mistral-7b")).replace(tie_embeddings=False)
     plan = ExecutionPlan.build(cfg, _policy(w) if w != "mixed" else
                                QuantPolicy(num_layers=4, mode="int", last_k_int4=2),
@@ -409,7 +504,7 @@ def _deployed(w: str, encoder: bool = False):
                   device="cpu").params
 
 
-@pytest.mark.parametrize("which", ["int8", "int4", "mixed", "encoder_int4"])
+@pytest.mark.parametrize("which", ["int8", "int4", "mixed", "encoder_int4", "moe"])
 def test_param_shard_axes_equal_jax_serving_specs(which):
     import jax
     from repro.distributed.sharding import serving_param_specs as jspecs
@@ -424,6 +519,10 @@ def test_param_shard_axes_equal_jax_serving_specs(which):
     assert any(s.endswith("attn/wq/wq") for s in sharded)
     assert any(s.endswith("attn/wo/wq") for s in sharded)
     assert not any(s.startswith(("embed", "lm_head")) for s in sharded)
+    if which == "moe":      # the experts and the shared expert shard; the router does not
+        for site in ("moe/w1/wq", "moe/w2/wq", "moe/w3/s_w", "moe/shared/w2/wq"):
+            assert any(s.endswith(site) for s in sharded), site
+        assert not any("router" in s or "shared_gate" in s for s in sharded)
 
 
 @pytest.mark.parametrize("tp", [2, 4, 3])

@@ -367,3 +367,112 @@ def test_cli_resume_equals_an_uninterrupted_run(tmp_path, monkeypatch):
     for k in a:
         np.testing.assert_array_equal(a[k].numpy(), b[k].numpy(), err_msg=k)
     assert CheckpointManager(str(tmp_path / "b")).all_steps() == [2, 4]
+
+
+# --------------------------------------------------- the MoE aux loss
+def _moe_setup():
+    from repro.deploy import ExecutionPlan as JPlan
+    from repro.models import api as japi
+    from repro_torch.deploy import ExecutionPlan
+
+    arch = "granite-moe-3b-a800m"
+    jcfg, cfg = jred(jget(arch)), reduced(get_config(arch))
+    jpol = JPol(num_layers=4, mode="fake", last_k_int4=2, grad_mode="mse")
+    pol = QuantPolicy(num_layers=4, mode="fake", last_k_int4=2, grad_mode="mse")
+    hp_kw = dict(total_steps=10, lr_weights=1e-3)
+    return dict(jcfg=jcfg, cfg=cfg, jp=japi.init_model(jcfg, jax.random.PRNGKey(0)),
+                jteacher=japi.init_model(jcfg, jax.random.PRNGKey(1)),
+                jhp=JHP(**hp_kw), hp=TrainHParams(**hp_kw),
+                jplan=JPlan.build(jcfg, jpol), jtplan=JPlan.build(jcfg, None),
+                plan=ExecutionPlan.build(cfg, pol), tplan=ExecutionPlan.build(cfg, None),
+                data=JSLM(jcfg.vocab_size, 16, 2))
+
+
+@pytest.fixture(scope="module")
+def moe():
+    return _moe_setup()
+
+
+@pytest.mark.parametrize("distill", [False, True], ids=["plain", "distilled"])
+def test_moe_train_loss_adds_the_aux_loss_as_jax_does(moe, distill):
+    """A reduced granite-moe-3b-a800m QAT step's loss on JAX's arrays:
+    JAX's ``loss_fn`` is ``lm_loss + aux`` (the Switch load-balance loss),
+    on the plain and the MINI-distilled path; the loss and its parts
+    within rtol 1e-5, the gradients within rtol 1e-4 / atol 1e-6 (relative
+    to each leaf's largest), and the aux itself a visible part of the loss
+    (the port once trained on ``lm_loss`` alone)."""
+    from repro.core.distill import combine_losses, minilm_losses, output_loss
+    from repro.models import api as japi
+    from repro.models.transformer import lm_loss as jlm_loss
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import api
+    from repro_torch.models.transformer import lm_loss
+
+    batch = moe["data"].batch(0)
+    jb = jax.tree.map(jnp.asarray, batch)
+
+    def jloss_fn(p):
+        logits, _, taps_s, aux = japi.forward(p, moe["jplan"], want_taps=distill,
+                                              tokens=jb["tokens"])
+        l_train = jlm_loss(logits, jb["labels"]) + aux
+        if not distill:
+            return l_train, {"loss/train": l_train}
+        t_logits, _, taps_t, _ = japi.forward(moe["jteacher"], moe["jtplan"],
+                                              want_taps=True, tokens=jb["tokens"])
+        l_out = output_loss(logits, jax.lax.stop_gradient(t_logits))
+        l_attn, l_val = minilm_losses(taps_s, jax.lax.stop_gradient(taps_t),
+                                      moe["jcfg"].num_heads)
+        return combine_losses(l_train, l_out, l_attn, l_val, moe["jhp"].alpha,
+                              moe["jhp"].beta)
+    (jloss, jparts), jgrads = jax.jit(jax.value_and_grad(jloss_fn, has_aux=True))(
+        moe["jp"])
+    kw = {}
+    if distill:
+        kw = dict(teacher=params_from_numpy(N(moe["jteacher"]), "cpu"),
+                  teacher_plan=moe["tplan"])
+    step = build_train_step(moe["plan"], moe["hp"], **kw)
+    params = params_from_numpy(N(moe["jp"]), "cpu")
+    loss, parts, grads = value_and_grad(step.loss_fn, params, batch)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    assert sorted(parts) == sorted(jparts)
+    for k in jparts:
+        np.testing.assert_allclose(parts[k].item(), float(jparts[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    _assert_tree_close(grads, jgrads, rtol=1e-4, atol=1e-6, scaled=True)
+    with torch.no_grad():
+        logits, _, aux = api.forward(params, moe["plan"], tokens=batch["tokens"],
+                                     want_aux=True)
+        lm_only = lm_loss(logits, torch.as_tensor(batch["labels"]))
+    assert aux.item() > 1e-4
+    np.testing.assert_allclose(parts["loss/train"].item(), (lm_only + aux).item(),
+                               rtol=1e-6)
+    assert abs(parts["loss/train"].item() - lm_only.item()) > 0.5 * aux.item()
+
+
+@pytest.mark.parametrize("family", ["hybrid", "encdec", "xlstm"])
+def test_train_refuses_the_token_mode_families(family, tmp_path):
+    """The port has no hidden-state distillation (JAX's loss for the
+    attention-free families) and no training parity for them: the step,
+    the loop and the CLI refuse them, naming the later slice, before any
+    device is touched or any checkpoint written."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.launch import train
+    cfg = ModelConfig(name=f"tiny-{family}", family=family, num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
+                      vocab_size=256)
+    pol = QuantPolicy(num_layers=2, mode="fake")
+    plan = ExecutionPlan(cfg=cfg, policy=pol, backend="reference", kv_bits=16,
+                         prefill_mode="token", decode_dtype="float32",
+                         fuse_epilogue=False, segments=())
+    with pytest.raises(ValueError, match="later slice"):
+        train.build_train_step(plan, TrainHParams())
+    with pytest.raises(ValueError, match="later slice"):
+        train.run_training(cfg, pol, TrainHParams(), lambda s: iter(()),
+                           ckpt_dir=str(tmp_path / "ckpt"), device="cuda")
+    arch = {"hybrid": "zamba2-2.7b", "encdec": "seamless-m4t-medium"}.get(family)
+    if arch is not None:
+        with pytest.raises(ValueError, match=f"training family '{family}'.*later slice"):
+            train.main(["--arch", arch, "--reduced", "--device", "cuda",
+                        "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()
