@@ -129,8 +129,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 10. shared-prefix traffic at kv_bits 8 (13 requests: one sampled, n = 2,
    on a 200-token prompt; 8 sharing a 256-token system prompt followed by
    8-72 distinct tokens; 4 unique prompts of 100-300 tokens) on phase 6's
-   artifact cut to 16 layers (``PREFIX_LAYERS``: layers 0-7 of its W8A8
-   segment and 0-7 of its W4A4 one, as one W8A8 0-7 / W4A4 8-15 model;
+   artifact cut to 8 layers (``PREFIX_LAYERS``: layers 0-3 of its W8A8
+   segment and 0-3 of its W4A4 one, as one W8A8 0-3 / W4A4 4-7 model;
    the depth cut keeps the script within its time) through (i) a
    dense engine with a 256 MiB prefix cache, (ii) a paged engine with the
    prefix registry at the dense-equivalent budget, (iii) the paged engine
@@ -255,10 +255,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    Then ``--reduced --ckpt-every 2``: 4 steps uninterrupted bit-equal, on
    every leaf, to a run stopped by SIGTERM after 2 steps (the CLI's
    preemption path: it checkpoints and exits) and resumed for 2 more.
-   Then ``benchmarks/table1_glue.run(quick=True)``, ``run_artifact(quick=
+   Then ``benchmarks/table1_glue.run`` (rows 2 and 4), ``run_artifact(quick=
    True)`` (deployed on the cuda backend: scored through the integer
    kernels, no plain version on a CUDA tensor) and
-   ``table3_ablation.run(quick=True)``, the two tables on one trained fp
+   ``table3_ablation.run``, the two tables at ``TABLE_STEPS`` (30, 3/8 of
+   their ``quick`` size) on one trained fp
    teacher and student (``teacher_and_student``): their rows and the quality payload
    printed, the payload written to ``chiprun_out/BENCH_quality.json`` and
    read by ``tools/check_quality.py``, which must pass: against itself,
@@ -285,9 +286,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``chiprun_out/BENCH_load_fleet.json``: the classify tenant's goodput
    1.0 beside the flood, two replicas at least 1.8x one engine's virtual
    capacity with byte-identical streams;
-21. the MoE family: (a) granite-moe-3b-a800m at full width and depth (32
-   layers, d 1536, 24 heads of 64 on 8 KV heads, 40 experts of d_ff 512,
-   top-8; W8A8 layers 0-15, W4A4 16-31, bf16 activations) from a seeded
+21. the MoE family: (a) granite-moe-3b-a800m at full width, its depth cut
+   to 16 of 32 layers for the script's time (``MOE_GRANITE_LAYERS``; d
+   1536, 24 heads of 64 on 8 KV heads, 40 experts of d_ff 512, top-8; W8A8
+   layers 0-7, W4A4 8-15, bf16 activations) from a seeded
    generator on the card -> ``deploy`` with 4 calibration batches ->
    ``save`` -> ``load``, serving 8 greedy requests (prompts of 5-256
    tokens, 4-12 new tokens) and one sampled (n = 2) on 8 slots at kv8
@@ -311,11 +313,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    checks and (b)'s layer check at its shapes. Phases 5, 8 and 12 also run
    the attention kernels at GQA groups 3, 5 and 8 ((24, 8, 64), (40, 8,
    128), (64, 8, 128): granite-moe-3b-a800m, qwen2.5-32b, qwen1.5-110b);
-22. zamba2-2.7b (the Mamba2 hybrid) at full width and depth (54 Mamba2
-   layers, d 2560, 80 SSM heads of 64, state 64, in 9 groups of 6, each
-   group followed by the one shared attention + SwiGLU block, 32 heads of
-   80; vocab 32000; bf16 activations) under the serve CLI's policy: W8A8
-   groups 0-4, W4A4 groups 5-8, the shared block at the last segment's 4
+22. zamba2-2.7b (the Mamba2 hybrid) at full width, its depth cut to 24 of
+   54 Mamba2 layers for the script's time (``ZAMBA_LAYERS``; d 2560, 80 SSM
+   heads of 64, state 64, in 4 groups of 6, each group followed by the one
+   shared attention + SwiGLU block, 32 heads of 80; vocab 32000; bf16
+   activations) under the serve CLI's policy: W8A8 groups 0-1, W4A4 groups
+   2-3, the shared block at the last segment's 4
    bits. fp params from a seeded generator on the card -> ``deploy`` with 2
    calibration batches of 256 tokens (a multiple of the SSD chunk) ->
    ``save`` under ``build/`` -> ``load`` -> a token-mode ``ServingEngine``
@@ -331,7 +334,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    5120, the shared block's) bit-equal to its plain version. One cacheless
    forward of 4096 tokens (the shared block on the causal flash kernel,
    ``ssd_chunked`` over 16 chunks; every GEMM behind act_quant), launching
-   exactly what ``hybrid_linears`` and 9 flash calls make, the first flash
+   exactly what ``hybrid_linears`` and 4 flash calls make, the first flash
    call within phase 12's tolerances of the plain version, the first call
    of each GEMM shape bit-equal, the logits bit-equal to the reference
    plan's with its attention on the flash kernel too (every other part is
@@ -360,7 +363,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    greedy tokens' agreement with the reference backend over its own encoder
    output reported. Then the non-causal flash kernel alone at the encoder's
    shape beside its plain version, SDPA (``is_causal=False``) and its
-   bound.
+   bound;
+24. xlstm-1.3b at full width and depth (48 layers in 6 groups of 7 mLSTM +
+   1 sLSTM, d 2048, 4 heads, the mLSTM's head width 1024, vocab 50304;
+   bf16 activations, an f32 recurrent state of 2.83 GB at 4 slots) under
+   the serve CLI's policy: W8A8 groups 0-2, W4A4 groups 3-5. fp params
+   from a seeded generator on the card -> ``deploy`` with 2 calibration
+   batches of 256 tokens (the mLSTM chunk) -> ``save`` under ``build/`` ->
+   ``load``. The first call of each integer GEMM shape of a token step (up
+   and sLSTM w_in 2048 x 8192, wq / wk / wv 4096 x 4096, down 4096 x 2048,
+   sLSTM down 2048 x 2048, all split-K at 4 rows) bit-equal to its plain
+   version. A token-mode ``ServingEngine`` (4 slots, max_len 512) serving
+   one request of 16 prompt tokens and 500 new ones, past max_len, which
+   the engine admits and finishes for this family as JAX's does, and 8
+   greedy requests (prompts of 16-48 tokens, 16 new tokens; freed slots
+   refilled): every request finishes, every step's logits finite, every
+   token step launches exactly the 222 GEMMs ``xlstm_linears`` derives
+   (int8 111, int4 111, all split-K: no act_quant, no attention kernel), no
+   plain version on a CUDA tensor; the streams equal the same artifact's
+   under the reference backend on the card. A token step's eager and
+   CUDA-graph (device) ms. One cacheless forward of 1024 tokens
+   (``mlstm_chunked`` over 4 chunks, the sLSTM loop over 1024 steps)
+   launching exactly 222 act_quant and 222 GEMMs (wgmma), the first call
+   of each GEMM shape bit-equal to its plain version, the logits bit-equal
+   to the reference plan's; eager ms and peak memory. Then 2 training
+   steps of 2 x 256 tokens on the model cut to its first group (8 layers),
+   fake-quant W4A4 under an fp teacher of the same cut, with the
+   hidden-state distillation: every loss finite, each step's eager ms and
+   the peak memory.
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -430,6 +460,9 @@ PER_DECODE_STEP = {"act_quant": 0, "int8_matmul": 112, "int4_matmul": 112,
 PAGED_DECODE_STEP = {**PER_DECODE_STEP, "decode_attention": 0,
                      "decode_attention_paged": 32}
 BLOCK = 8                      # rows per KV block (serving/prefix_cache.PREFIX_BLOCK)
+#: phase 6's warm-up run serves the requests of this many new tokens (3 of
+#: 17, prompts of 5, 48 and 200 tokens: 16 decode steps instead of 64)
+WARMUP_NEW = 16
 LONG_CACHE = 8192              # the timed-only decode-attention row: B = 1 at this length
 DECODE_SLOTS, DECODE_MAX_LEN, DECODE_LEN = 8, 512, 448
 
@@ -1400,9 +1433,9 @@ def record_forwards(eng, record: dict) -> None:
     eng.decode_forward = delta(eng.decode_forward, "decode")
 
 
-def serve_decode(model, *, launches=None, tops=None, other=None):
-    """Serve the decode traffic on a fresh engine; returns the results in
-    submission order (the sampled request's two samples last).
+def serve_decode(model, *, launches=None, tops=None, other=None, reqs=None):
+    """Serve the decode traffic (or ``reqs``) on a fresh engine; returns the
+    results in submission order (the sampled request's two samples last).
     ``launches`` (a dict) collects the kernel launches of every prefill and
     decode forward, with its token rows under "rows". ``tops`` (a dict) collects, per request, one record per
     decode-sampled position: the top-eight logits and token ids and, unless
@@ -1419,7 +1452,7 @@ def serve_decode(model, *, launches=None, tops=None, other=None):
     if launches is not None:
         record_forwards(eng, launches)
     streams = []
-    for req in decode_traffic(model.plan.cfg.vocab_size):
+    for req in decode_traffic(model.plan.cfg.vocab_size) if reqs is None else reqs:
         out = eng.submit(copy.deepcopy(req))
         streams += out if isinstance(out, list) else [out]
     orig = engine_mod.sample_batch
@@ -1602,8 +1635,9 @@ def decode_end_to_end(dev) -> dict:
     for kv, plan in plans.items():
         model = DeployedModel(plan=plan, params=loaded.params)
         models[kv] = model
-        if kv == 8:
-            serve_decode(model)                     # warm-up (kv4 reuses it)
+        if kv == 8:     # warm-up (kv4 reuses it): the traffic's shortest requests
+            serve_decode(model, reqs=[r for r in decode_traffic(cfg.vocab_size)
+                                      if r.max_new_tokens == WARMUP_NEW])
         torch.cuda.synchronize()
         record = {}
         build.reset_counts()
@@ -2233,7 +2267,7 @@ def compare_prefix(ref, run) -> dict:
 
 #: phase 10's depth: the first PREFIX_LAYERS / 2 layers of each of phase
 #: 6's two bit-width segments
-PREFIX_LAYERS = 16
+PREFIX_LAYERS = 8
 
 
 def depth_cut(model, layers: int):
@@ -3580,6 +3614,11 @@ def qat_end_to_end(dev) -> dict:
 # ----------------------------------------------------------------- phase 19
 #: the train CLI's default at full width: stablelm-3b, 3 steps of 8 x 128
 TRAIN_ARGV = ["--steps", "3", "--batch", "8", "--seq", "128"]
+#: QAT steps a row of Table 1 and Table 3 in phase 19 (3/8 of the tables'
+#: ``quick`` size, ``table1_glue.QUICK_STEPS`` = 80, for the script's time;
+#: at 20 the fp pair learns nothing and every row reads the majority class;
+#: the quality payload keeps its own ``quick`` run)
+TABLE_STEPS = 30
 
 
 def preempted_after(n: int, builder):
@@ -3683,8 +3722,8 @@ def train_cli_phase(dev) -> dict:
     # the fp teacher and student that Table 1 and Table 3 both start from,
     # trained once for the two (each run would train the same pair)
     t0 = time.perf_counter()
-    trained = table1_glue.teacher_and_student(table1_glue.QUICK_STEPS, 0, dev)
-    table1 = table1_glue.run(quick=True, device=dev, trained=trained)
+    trained = table1_glue.teacher_and_student(TABLE_STEPS, 0, dev)
+    table1 = table1_glue.run(steps=TABLE_STEPS, rows=(2, 4), device=dev, trained=trained)
     table1_s = time.perf_counter() - t0
     build.reset_counts()
     t0 = time.perf_counter()
@@ -3695,7 +3734,7 @@ def train_cli_phase(dev) -> dict:
     if any(plain.values()):
         raise AssertionError(f"quality bench: plain versions on CUDA {plain}")
     t0 = time.perf_counter()
-    table3 = table3_ablation.run(quick=True, device=dev, trained=trained)
+    table3 = table3_ablation.run(steps=TABLE_STEPS, device=dev, trained=trained)
     table3_s = time.perf_counter() - t0
     out = ROOT / "chiprun_out" / "BENCH_quality.json"
     out.parent.mkdir(exist_ok=True)
@@ -3714,7 +3753,8 @@ def train_cli_phase(dev) -> dict:
             "quality": payload, "quality_s": artifact_s,
             "quality_launches": launches, "check_quality_rc": gate.returncode,
             "check_quality": gate.stdout.strip().splitlines(),
-            "table3": [list(r) for r in table3], "table3_s": table3_s}
+            "table3": [list(r) for r in table3], "table3_s": table3_s,
+            "table_steps": TABLE_STEPS}
 
 
 # ----------------------------------------------------------------- phase 20
@@ -4017,8 +4057,11 @@ def fleet_phase(dev, dense_streams: list, single: dict) -> dict:
 MOE_SLOTS, MOE_MAX_LEN = 8, 512
 #: qwen2-moe-a2.7b's depth on the card: 8 of its 24 layers (5.2 B fp
 #: params, 20.9 GB in f32; the full 14.3 B would not share the card with
-#: its codes and calibration); granite-moe-3b-a800m runs at full depth
+#: its codes and calibration)
 MOE_QWEN_LAYERS = 8
+#: granite-moe-3b-a800m's depth on the card: 16 of its 32 layers, for the
+#: script's time (each layer's work is the same)
+MOE_GRANITE_LAYERS = 16
 #: the layer checks' token counts: a decode step, and a prefill in two
 #: groups of moe_group_size 512
 MOE_LAYER_TOKENS = (8, 1024)
@@ -4330,7 +4373,8 @@ def moe_phase(dev) -> dict:
     t0 = time.perf_counter()
     out = {}
     granite, out["granite_deploy"] = moe_model(
-        "granite-moe-3b-a800m", dev, art=ROOT / "build" / "chip_smoke_moe_artifact")
+        "granite-moe-3b-a800m", dev, layers=MOE_GRANITE_LAYERS,
+        art=ROOT / "build" / "chip_smoke_moe_artifact")
     reqs = moe_traffic(granite.plan.cfg.vocab_size)
     serve = {}
     for tag, kv, paging in (("kv8_dense", 8, "dense"), ("kv8_paged", 8, "paged"),
@@ -4358,7 +4402,12 @@ def moe_phase(dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 22
-ZAMBA_SLOTS, ZAMBA_MAX_LEN, ZAMBA_NEW = 4, 512, 16
+#: the token-mode engines of phases 22 and 24: slots, max_len, and the new
+#: tokens of a request
+TOKEN_SLOTS, TOKEN_MAX_LEN, TOKEN_NEW = 4, 512, 16
+#: zamba2-2.7b's depth on the card: 24 of its 54 layers (4 groups of 6),
+#: for the script's time
+ZAMBA_LAYERS = 24
 #: the cacheless forward past the chunk threshold: the shared block on the
 #: flash kernel (causal), ssd_chunked over 4096 / 256 = 16 chunks
 ZAMBA_LONG = 4096
@@ -4395,41 +4444,46 @@ def zamba_traffic(vocab: int):
     from repro_torch.serving import GenerationRequest
     rng = np.random.default_rng(22)
     return [GenerationRequest(prompt=rng.integers(1, vocab, n).astype(np.int32),
-                              max_new_tokens=ZAMBA_NEW)
+                              max_new_tokens=TOKEN_NEW)
             for n in (16, 48, 24, 40, 32, 20, 44, 28)]
 
 
-def zamba_model(dev, art) -> tuple:
-    """zamba2-2.7b at full width and depth under the serve CLI's policy
-    (W8A8 groups 0-4, W4A4 groups 5-8, the shared block at 4 bits), bf16
-    activations: fp params from a seeded generator on the card, deployed
-    with ``ZAMBA_CALIB`` calibration batches, saved under ``art`` and
-    loaded back."""
+def token_model(dev, art, name: str, calib: tuple, segments: list,
+                layers: int = 0) -> tuple:
+    """``name`` at full width (``layers`` cuts the depth) under the serve
+    CLI's policy (the
+    last half of its layers int4; a group takes its first layer's bits),
+    bf16 activations: fp params from a seeded generator on the card,
+    deployed with ``calib`` calibration batches ((batches, rows, tokens), a
+    multiple of the model's chunk), saved under ``art`` and loaded back.
+    The plan must prefill in token mode over ``segments``, [(start, end,
+    weight bits)] of groups."""
     from repro_torch.configs import get_config
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.deploy import DeployedModel, ExecutionPlan, deploy
     from repro_torch.models import api
 
-    cfg = get_config("zamba2-2.7b")
+    cfg = get_config(name)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     n = cfg.num_layers
     policy = QuantPolicy(num_layers=n, mode="int", last_k_int4=n // 2)
     plan = ExecutionPlan.build(cfg, policy, backend="cuda")
-    # at full depth W8A8 groups 0-4 and W4A4 groups 5-8 (each group takes
-    # its first layer's bits)
-    if plan.prefill_mode != "token" or [sp.w_bits for _, _, sp in plan.segments] != [8, 4]:
-        raise AssertionError(f"zamba2 plan: {plan.describe()}")
+    if plan.prefill_mode != "token" or \
+            [(s, e, sp.w_bits) for s, e, sp in plan.segments] != segments:
+        raise AssertionError(f"{name} plan: {plan.describe()}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fp = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     fp_params = sum(int(t.numel()) for t in _leaves(fp))
-    nb, rows, S = ZAMBA_CALIB
+    nb, rows, S = calib
     rng = np.random.default_rng(0)
-    calib = [{"tokens": rng.integers(1, cfg.vocab_size, (rows, S)).astype(np.int32)}
-             for _ in range(nb)]
-    model = deploy(fp, plan, calib, device=dev)
+    batches = [{"tokens": rng.integers(1, cfg.vocab_size, (rows, S)).astype(np.int32)}
+               for _ in range(nb)]
+    model = deploy(fp, plan, batches, device=dev)
     torch.cuda.synchronize()
-    info = {"model": cfg.name, "layers": n, "groups": n // cfg.attn_every,
+    info = {"model": cfg.name, "layers": n, "groups": segments[-1][1],
             "fp_params": fp_params, "deploy_s": time.perf_counter() - t0,
             "policy": policy.describe(), "plan": plan.describe()}
     del fp
@@ -4441,7 +4495,7 @@ def zamba_model(dev, art) -> tuple:
     model = DeployedModel.load(str(art), device=dev)
     torch.cuda.synchronize()
     if model.plan != plan:
-        raise AssertionError("zamba2: plan did not round-trip through the artifact")
+        raise AssertionError(f"{name}: plan did not round-trip through the artifact")
     info.update(save_load_s=time.perf_counter() - t0,
                 artifact_bytes=sum(f.stat().st_size for f in art.iterdir()),
                 deployed_bytes=sum(t.numel() * t.element_size()
@@ -4450,8 +4504,8 @@ def zamba_model(dev, art) -> tuple:
 
 
 def serve_token_mode(model, reqs, per_step=None) -> dict:
-    """Serve ``reqs`` on a fresh token-mode engine (``ZAMBA_SLOTS`` slots,
-    ``ZAMBA_MAX_LEN``) with every count at 0 just before: every request
+    """Serve ``reqs`` on a fresh token-mode engine (``TOKEN_SLOTS`` slots,
+    ``TOKEN_MAX_LEN``) with every count at 0 just before: every request
     finishes, every step's logits are finite, and with ``per_step`` every
     step launches exactly that (no prefill forward runs in token mode);
     no plain version on a CUDA tensor."""
@@ -4463,7 +4517,7 @@ def serve_token_mode(model, reqs, per_step=None) -> dict:
 
     plan = model.plan
     V = plan.cfg.vocab_size
-    eng = ServingEngine(model, slots=ZAMBA_SLOTS, max_len=ZAMBA_MAX_LEN)
+    eng = ServingEngine(model, slots=TOKEN_SLOTS, max_len=TOKEN_MAX_LEN)
     if not eng.token_mode:
         raise AssertionError(f"{plan.describe()}: the engine is not in token mode")
     record, finite = {}, []
@@ -4600,10 +4654,13 @@ def zamba_phase(dev) -> dict:
 
     t0 = time.perf_counter()
     out = {}
-    model, out["deploy"] = zamba_model(dev, ROOT / "build" / "chip_smoke_zamba2_artifact")
+    # W8A8 groups 0-1, W4A4 groups 2-3, the shared block at 4 bits
+    model, out["deploy"] = token_model(dev, ROOT / "build" / "chip_smoke_zamba2_artifact",
+                                       "zamba2-2.7b", ZAMBA_CALIB, [(0, 2, 8), (2, 4, 4)],
+                                       layers=ZAMBA_LAYERS)
     cfg = model.plan.cfg
     linears = hybrid_linears(cfg, model.plan.segments)
-    per_step = {**dict.fromkeys(SOURCES, 0), **gemm_launches(linears, ZAMBA_SLOTS)}
+    per_step = {**dict.fromkeys(SOURCES, 0), **gemm_launches(linears, TOKEN_SLOTS)}
     reqs = zamba_traffic(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     serve = serve_token_mode(model, reqs, per_step)
@@ -4618,8 +4675,8 @@ def zamba_phase(dev) -> dict:
     out["streams_equal_reference"] = len(parted)
     # each GEMM shape of a token step (M = 4 slots: in_bc N = 128, in_dt
     # N = 80, out_proj K = 5120) bit-equal to its plain version
-    st = model.plan.decode_state(ZAMBA_SLOTS, 8, device=dev)
-    toks = torch.randint(1, cfg.vocab_size, (ZAMBA_SLOTS, 1), device=dev)
+    st = model.plan.decode_state(TOKEN_SLOTS, 8, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (TOKEN_SLOTS, 1), device=dev)
     out["token_step_calls_bit_equal"] = check_kept_calls(
         one_step_calls(model, st, toks), "zamba2 token step")
     del st
@@ -4941,6 +4998,190 @@ def seamless_phase(dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 24
+#: the request past max_len: a 16-token prompt and 500 new tokens (516 >
+#: 512), which the engine admits and finishes for xLSTM, as JAX's does
+XLSTM_PAST = (16, 500)
+XLSTM_LONG = 1024
+#: calibration batches: (batches, rows, tokens), a multiple of the mLSTM
+#: chunk (256)
+XLSTM_CALIB = (2, 1, 256)
+#: training: (rows, tokens, steps) on the first group (8 layers)
+XLSTM_TRAIN = (2, 256, 2)
+XLSTM_TRAIN_LAYERS = 8
+
+
+def xlstm_linears(cfg, segments) -> dict:
+    """The quantized linears of one xLSTM forward under ``segments`` (group
+    granularity): each mLSTM layer's up (N = 2 x di), wq, wk, wv (di x di)
+    and down (K = di) and each sLSTM layer's w_in (N = 4d) and down (d x
+    d), at the group's bits. (K, N, bits, fused) -> calls."""
+    d, di, per = cfg.d_model, cfg.ssm_expand * cfg.d_model, cfg.slstm_every
+    out: dict = {}
+
+    def add(K, N, bits, n):
+        out[(K, N, bits, False)] = out.get((K, N, bits, False), 0) + n
+    for s, e, spec in segments:
+        for K, N in ((d, 2 * di), (di, di), (di, di), (di, di), (di, d)):
+            add(K, N, spec.w_bits, (e - s) * (per - 1))
+        for K, N in ((d, 4 * d), (d, d)):
+            add(K, N, spec.w_bits, e - s)
+    return out
+
+
+def xlstm_traffic(vocab: int):
+    """The request past max_len first, then 8 greedy requests of 16-48
+    prompt tokens and 16 new tokens each."""
+    from repro_torch.serving import GenerationRequest
+    rng = np.random.default_rng(24)
+    first = GenerationRequest(prompt=rng.integers(1, vocab, XLSTM_PAST[0]).astype(np.int32),
+                              max_new_tokens=XLSTM_PAST[1])
+    return [first] + [GenerationRequest(prompt=rng.integers(1, vocab, n).astype(np.int32),
+                                        max_new_tokens=TOKEN_NEW)
+                      for n in (16, 48, 24, 40, 32, 20, 44, 28)]
+
+
+def xlstm_step_times(model, dev) -> dict:
+    """One token step of ``TOKEN_SLOTS`` rows on a fixed decode state: eager
+    and replayed from a CUDA graph (device time), between CUDA events."""
+    from repro_torch.models import api
+    st = model.plan.decode_state(TOKEN_SLOTS, 8, device=dev)
+    toks = torch.randint(1, model.plan.cfg.vocab_size, (TOKEN_SLOTS, 1), device=dev)
+
+    def step():
+        with torch.no_grad():
+            api.forward(model.params, model.plan, state=st, tokens=toks)
+    eager = cuda_ms(step, samples=5, reps=2, graph=False)
+    device = cuda_ms(step, samples=5, reps=2)
+    state_bytes = sum(t.numel() * t.element_size() for t in _leaves(st))
+    del st
+    return {"eager_ms": eager, "device_ms": device,
+            "device_idle_share_eager": 1.0 - device / eager,
+            "state_bytes": state_bytes, "slots": TOKEN_SLOTS}
+
+
+def xlstm_train(dev) -> dict:
+    """xlstm-1.3b at full width cut to its first group (``XLSTM_TRAIN_LAYERS``
+    layers: 7 mLSTM + 1 sLSTM), fake-quant W4A4 under an fp teacher of the
+    same cut, ``XLSTM_TRAIN`` steps of hidden-state distillation through
+    ``launch.train.build_train_step``: every loss finite, the value part 0
+    (the xLSTM's taps hold no attention), each step's eager ms and the peak
+    device memory."""
+    from repro_torch.configs import TrainHParams, get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.optim import adam_init
+
+    cfg = get_config("xlstm-1.3b").replace(num_layers=XLSTM_TRAIN_LAYERS)
+    n = cfg.num_layers
+    rows, S, n_steps = XLSTM_TRAIN
+    plan = ExecutionPlan.build(cfg, QuantPolicy(num_layers=n, mode="fake", last_k_int4=n))
+    if [(sp.w_bits, sp.a_bits) for _, _, sp in plan.segments] != [(4, 4)]:
+        raise AssertionError(f"xlstm train plan: {plan.describe()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    student = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    teacher = api.init_model(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    step = train.build_train_step(plan, TrainHParams(total_steps=n_steps), teacher=teacher,
+                                  teacher_plan=ExecutionPlan.build(cfg, None))
+    opt = adam_init(student)
+    rng = np.random.default_rng(24)
+    steps = []
+    build.reset_counts()
+    for _ in range(n_steps):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (rows, S + 1)), device=dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        student, opt, parts = step(student, opt, batch)
+        torch.cuda.synchronize()
+        steps.append({"eager_ms": 1e3 * (time.perf_counter() - t0),
+                      **{k: float(v) for k, v in parts.items()}})
+    if not all(np.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"xlstm train: non-finite losses {steps}")
+    if any(s["loss/value"] != 0.0 or s["loss/attention"] <= 0.0 for s in steps):
+        raise AssertionError(f"xlstm train: not the hidden-state loss {steps}")
+    n_params = sum(int(t.numel()) for t in _leaves(student))
+    out = {"layers": n, "plan": plan.describe(), "rows": rows, "tokens": S,
+           "params": n_params, "steps": steps,
+           "step_eager_ms": [s["eager_ms"] for s in steps],
+           "launches": dict(build.LAUNCHES), "plain_on_cuda": dict(build.PLAIN_ON_CUDA),
+           "resident_before_bytes": resident,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del student, teacher, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_phase(dev) -> dict:
+    """Phase 24: xlstm-1.3b served in token mode, one cacheless forward of
+    1024 tokens and two training steps (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    model, out["deploy"] = token_model(dev, ROOT / "build" / "chip_smoke_xlstm_artifact",
+                                       "xlstm-1.3b", XLSTM_CALIB, [(0, 3, 8), (3, 6, 4)])
+    cfg = model.plan.cfg
+    linears = xlstm_linears(cfg, model.plan.segments)
+    per_step = {**dict.fromkeys(SOURCES, 0), **gemm_launches(linears, TOKEN_SLOTS)}
+    if (per_step["act_quant"], per_step["int8_matmul"], per_step["int4_matmul"]) \
+            != (0, 111, 111):
+        raise AssertionError(f"xlstm: a token step's planned launches {per_step}")
+    # each GEMM shape of a token step (M = 4, split-K) bit-equal to its plain
+    # version, on a fresh state
+    st = model.plan.decode_state(TOKEN_SLOTS, 8, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (TOKEN_SLOTS, 1), device=dev)
+    out["token_step_calls_bit_equal"] = check_kept_calls(
+        one_step_calls(model, st, toks), "xlstm token step")
+    del st
+    reqs = xlstm_traffic(cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve = serve_token_mode(model, reqs, per_step)
+    serve["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    ref = serve_token_mode(reference_twin(model), reqs)
+    parted = first_divergence(serve["streams"], ref["streams"])
+    if any(p is not None for p in parted):
+        raise AssertionError(f"xlstm: kernel streams part from the reference "
+                             f"backend's at steps {parted}")
+    out["serve"] = {k: v for k, v in serve.items() if k != "streams"}
+    out["past_max_len"] = {"prompt": XLSTM_PAST[0], "new_tokens": XLSTM_PAST[1],
+                           "max_len": TOKEN_MAX_LEN,
+                           "tokens_served": len(serve["streams"][0])}
+    out["reference_serve_s"] = ref["serve_s"]
+    out["reference_step_ms_mean"] = ref["step_ms_mean"]
+    out["streams_equal_reference"] = len(parted)
+    out["token_step"] = xlstm_step_times(model, dev)
+    # one cacheless forward of 1024 tokens: every GEMM behind act_quant
+    inputs = prefill_inputs(cfg, XLSTM_LONG, dev)
+    expected = {**dict.fromkeys(SOURCES, 0), **gemm_launches(linears, XLSTM_LONG)}
+    run = long_forward(model, inputs, gemms=True, expected=expected)
+    tag = f"xlstm S={XLSTM_LONG}"
+    shapes = check_gemms(run.pop("kept"), tag)
+    run.pop("taken")
+    logits = run.pop("logits")
+    from repro_torch.models import api
+    with torch.no_grad():
+        ref_logits = api.forward(model.params, reference_twin(model).plan, **inputs)[0]
+    if not torch.equal(ref_logits, logits):
+        diff = (ref_logits.float() - logits.float()).abs().max().item()
+        raise AssertionError(f"{tag}: kernel plan != reference plan (max |diff| {diff})")
+    out["long_forward"] = {**run, "logits_bit_equal_reference": True,
+                           "gemm_shapes_bit_equal": shapes}
+    del logits, ref_logits, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = xlstm_train(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5171,6 +5412,13 @@ def main() -> int:
     seamless = seamless_phase(dev)
     seconds["seamless"] = time.perf_counter() - t0
     emit({"phase": "seamless", **seamless})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    xl = xlstm_phase(dev)
+    seconds["xlstm"] = time.perf_counter() - t0
+    emit({"phase": "xlstm", **{k: v for k, v in xl.items() if k != "train"}})
+    emit({"phase": "xlstm_train", **xl["train"]})
     dec_rows.append(seamless["noncausal_flash_row"])
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
@@ -5213,7 +5461,9 @@ def main() -> int:
                         "zamba2_token": zamba["serve"]["launches"],
                         f"zamba2_prefill_{ZAMBA_LONG}": zamba["long_forward"]["launches"],
                         "seamless_encoder": seamless["encoder"]["launches"],
-                        "seamless_decode": seamless["decode"]["launches"]}
+                        "seamless_decode": seamless["decode"]["launches"],
+                        "xlstm_token": xl["serve"]["launches"],
+                        f"xlstm_prefill_{XLSTM_LONG}": xl["long_forward"]["launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
     planned = {"encoder": e2e["expected_launches"]["act_quant"],
@@ -5265,7 +5515,9 @@ def main() -> int:
                        ("zamba2_token", HYBRID_KERNELS),
                        (f"zamba2_prefill_{ZAMBA_LONG}", PREFILL_KERNELS),
                        ("seamless_encoder", SEAMLESS_ENC_KERNELS),
-                       ("seamless_decode", SEAMLESS_DEC_KERNELS)):
+                       ("seamless_decode", SEAMLESS_DEC_KERNELS),
+                       ("xlstm_token", HYBRID_KERNELS),
+                       (f"xlstm_prefill_{XLSTM_LONG}", GEMM_KERNELS)):
         idle = [k for k in need if not launches_by_path[path][k]
                 and (k != "act_quant" or planned.get(path, 1))]
         if idle:
@@ -5281,6 +5533,10 @@ def main() -> int:
         t2_rows = [r for r in table2["gemm_times"] if r["kernel"] == entry["name"]]
         if t2_rows:
             entry["table2_gemms"] = t2_rows
+        if entry["name"] in GEMM_KERNELS:
+            entry["xlstm"] = {
+                "per_token_step": xl["serve"]["launches_per_step"][entry["name"]],
+                f"per_forward_{XLSTM_LONG}": xl["long_forward"]["launches"][entry["name"]]}
     emit({"phase": "seconds", **seconds})
     report = ROOT / "chiprun_out" / "chip_smoke_report.json"
     report.parent.mkdir(exist_ok=True)
@@ -5301,7 +5557,8 @@ def main() -> int:
                                   "score_end_to_end": score, "load": load,
                                   "qat_end_to_end": qat, "train_cli": trained,
                                   "fleet": fleet, "moe": moe, "zamba2": zamba,
-                                  "seamless": seamless, "seconds": seconds},
+                                  "seamless": seamless, "xlstm": xl,
+                                  "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})
     print(card_line(), flush=True)

@@ -1,6 +1,6 @@
-"""Architecture registry of the port (bert, dense decoder, vlm, moe,
-encdec and hybrid families) plus ``reduced``, the CPU-sized variant of a
-config."""
+"""Architecture registry of the port (every family of the JAX package's:
+bert, dense decoder, vlm, moe, encdec, hybrid and xlstm) plus ``reduced``,
+the CPU-sized variant of a config."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,10 +17,7 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant: same family and wiring, tiny dims (the JAX
-    package's ``configs.reduced`` for the families the port serves)."""
-    if cfg.family not in ("dense", "bert", "vlm", "moe", "hybrid", "encdec"):
-        raise ValueError(f"reduced(): family {cfg.family!r} is not served by "
-                         "the port yet")
+    package's ``configs.reduced``)."""
     kw = dict(
         num_layers=4, d_model=64, num_heads=4, head_dim=16, d_ff=128,
         vocab_size=256, dtype="float32", remat=False,
@@ -32,6 +29,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.family == "moe":
         kw.update(num_experts=8, top_k=min(cfg.top_k, 4), expert_d_ff=32,
                   shared_expert_d_ff=64 if cfg.shared_expert_d_ff else 0)
+    if cfg.family == "xlstm":
+        kw.update(num_layers=4, slstm_every=2, num_heads=2, num_kv_heads=2,
+                  ssm_expand=2, d_ff=0)
     if cfg.family == "hybrid":
         kw.update(num_layers=4, attn_every=2, ssm_state=8, ssm_head_dim=16,
                   ssm_expand=2, num_kv_heads=4)

@@ -1,8 +1,8 @@
 """Architectures the port serves: the paper's own BERT configurations, the
 dense decoders of the decode serving path, the vlm of the long-context
-prefill path, the MoE decoders, the encoder-decoder and the Mamba2 hybrid
-(copied from the JAX package's registry, same fields and values). The
-xlstm family is not here yet."""
+prefill path, the MoE decoders, the encoder-decoder, the Mamba2 hybrid and
+xLSTM (copied from the JAX package's registry, same fields and values:
+every arch of that registry is here)."""
 from __future__ import annotations
 
 from .base import ModelConfig
@@ -98,3 +98,10 @@ _reg(ModelConfig(
     num_heads=32, num_kv_heads=32, d_ff=10240, vocab_size=32000,
     ssm_state=64, ssm_head_dim=64, ssm_expand=2, ssm_chunk=256,
     attn_every=6))
+
+# --- ssm -------------------------------------------------------------------
+# sLSTM + mLSTM blocks [arXiv:2405.04517; unverified]. d_ff=0: no std FFN.
+_reg(ModelConfig(
+    name="xlstm-1.3b", family="xlstm", num_layers=48, d_model=2048,
+    num_heads=4, num_kv_heads=4, d_ff=0, vocab_size=50304,
+    slstm_every=8, ssm_expand=2, ssm_chunk=256, rope=False))

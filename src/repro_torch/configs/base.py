@@ -96,9 +96,11 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainHParams:
-    """QAT hyperparameters (paper §5.2), the JAX package's defaults (its
-    distributed-training fields, microbatching and gradient compression,
-    are not ported)."""
+    """QAT hyperparameters (paper §5.2): the JAX package's fields and
+    defaults. Its training loop reads neither ``microbatch`` nor
+    ``grad_compression`` (only its dry run reads ``microbatch``), and
+    neither does the port's; gradient compression is
+    ``distributed.compression.compressed_grad_mean``."""
     lr_weights: float = 1e-5
     lr_act_scale: float = 0.01
     lr_weight_scale: float = 0.001
@@ -110,3 +112,5 @@ class TrainHParams:
     grad_clip: float = 1.0
     alpha: float = 10.0         # output-distill weight
     beta: float = 1.0           # MINI-distill weight
+    microbatch: int = 0         # 0 = no grad accumulation
+    grad_compression: bool = False

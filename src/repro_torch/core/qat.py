@@ -212,9 +212,15 @@ def deploy_params(params, cfg: ModelConfig, segments) -> dict:
     (packed weights cannot share one stacked array across bit-width
     segments) of ``params['layers']``, of a hybrid's group-stacked
     ``params['mamba']`` (its shared block quantized once, at the last
-    segment's bits) or of an encoder-decoder's ``params['dec']`` (its
-    encoder stack quantized at the first segment's bits)."""
+    segment's bits), of xLSTM's group-stacked ``params['mlstm']`` (G, per
+    - 1, ...) and ``params['slstm']`` (G, ...), or of an encoder-decoder's
+    ``params['dec']`` (its encoder stack quantized at the first segment's
+    bits)."""
     out = dict(params)
+    if cfg.family == "xlstm":
+        out["mlstm"] = _segment_stacks(params["mlstm"], segments)
+        out["slstm"] = _segment_stacks(params["slstm"], segments)
+        return out
     if cfg.family == "hybrid":
         out["mamba"] = _segment_stacks(params["mamba"], segments)
         last = segments[-1][2]

@@ -170,6 +170,10 @@ def _rescale_act_scales(params_int, cfg, factors: list[float]):
         return walk(tree)
 
     out = dict(params_int)
+    if cfg.family == "xlstm":
+        for key in ("mlstm", "slstm"):
+            out[key] = [scale_tree(t, f) for t, f in zip(params_int[key], factors)]
+        return out
     if cfg.family == "hybrid":
         out["mamba"] = [scale_tree(t, f)
                         for t, f in zip(params_int["mamba"], factors)]

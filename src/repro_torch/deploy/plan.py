@@ -26,8 +26,7 @@ deployed integer weights and the KV heads over ``tp`` ranks
 (``_validate_tp``: JAX's rules, in JAX's order; MoE experts shard as the
 FFN does) and runs the plain integer path, whose row-parallel int32 sums
 keep every stream byte-identical to tp=1; ``make_group`` checks the ranks
-when a model is placed, not at build. The xlstm family raises
-``ValueError`` naming the slice it arrives with.
+when a model is placed, not at build.
 """
 from __future__ import annotations
 
@@ -51,8 +50,8 @@ BACKENDS = ("reference", "cuda")
 MODES = ("decode", "encoder")
 #: families whose decode plans the port builds (the vlm is served on tokens,
 #: as the JAX engine serves it; MoE keeps the transformer's KV slot cache;
-#: hybrid and encdec keep an fp decode state and prefill in token mode)
-DECODE_FAMILIES = ("dense", "vlm", "moe", "hybrid", "encdec")
+#: xlstm, hybrid and encdec keep an fp decode state and prefill in token mode)
+DECODE_FAMILIES = ("dense", "vlm", "moe", "xlstm", "hybrid", "encdec")
 
 #: families whose decode state is not a KV slot cache (JAX's list): no
 #: chunked prefill, no slot table, no quantized KV, and no sharding rules
@@ -219,9 +218,8 @@ class ExecutionPlan:
             raise ValueError(f"kv_bits must be 16, 8 or 4, got {kv_bits}")
         if mode == "decode" and cfg.family not in DECODE_FAMILIES:
             raise ValueError(
-                f"mode='decode' serves the {DECODE_FAMILIES} families; "
-                f"family {cfg.family!r} arrives with a later slice of the "
-                "port (xlstm: ROADMAP Queue 1 item 4)")
+                f"mode='decode' serves the {DECODE_FAMILIES} families, "
+                f"not {cfg.family!r}")
         if prefill_mode == "auto":
             prefill_mode = ("token" if cfg.family in TOKEN_ONLY_FAMILIES
                             else "chunked")

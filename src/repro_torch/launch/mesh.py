@@ -1,5 +1,11 @@
-"""Tensor-parallel process groups of the port, the counterpart of the JAX
-package's ``make_tp_mesh``.
+"""Device layouts of the port: the (data, model) layout of a training
+restart (``make_mesh_for_devices``, the counterpart of the JAX package's)
+and tensor-parallel process groups (the counterpart of its
+``make_tp_mesh``).
+
+``make_mesh_for_devices`` keeps JAX's arithmetic, error text and
+``degraded`` flag and returns a :class:`MeshLayout` with no mesh object:
+the port places training state per device (``launch/elastic.py``).
 
 A tp plan runs one process per rank. Every rank serves the same requests
 in the same order (the sampler's inputs are replicated), holds its slices
@@ -22,7 +28,53 @@ from typing import Callable
 
 import torch
 
-__all__ = ["TPGroup", "make_tp_group", "spawn_tp"]
+__all__ = ["MeshLayout", "make_mesh_for_devices", "TPGroup", "make_tp_group",
+           "spawn_tp"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """A (data, model) split of the live devices. ``requested_model`` is
+    the caller's ask (0 = auto); ``degraded`` is True when an explicit
+    request was halved down to a divisor (only with
+    ``allow_degrade=True``)."""
+    data: int
+    model: int
+    requested_model: int
+    degraded: bool
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.data, self.model)
+
+
+def make_mesh_for_devices(n_devices: int, model_parallel: int = 0, *,
+                          allow_degrade: bool = False) -> MeshLayout:
+    """Whatever devices are alive -> a (data, model) layout.
+
+    ``model_parallel <= 0`` picks min(16, n) halved to the nearest divisor.
+    An explicit degree that does not divide ``n_devices`` raises a
+    ValueError naming both numbers, unless ``allow_degrade=True`` (the
+    elastic restart's contract: preserved if possible, else halved), which
+    records the halving in ``degraded``."""
+    if n_devices < 1:
+        raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+    requested = model_parallel
+    if model_parallel <= 0:
+        model_parallel = min(16, n_devices)
+        while n_devices % model_parallel:
+            model_parallel //= 2
+    elif n_devices % model_parallel:
+        if not allow_degrade:
+            raise ValueError(
+                f"model_parallel={model_parallel} does not divide "
+                f"n_devices={n_devices}; pick a divisor, or pass "
+                f"allow_degrade=True to halve to the nearest one")
+        while n_devices % model_parallel:
+            model_parallel //= 2
+    return MeshLayout(data=n_devices // model_parallel, model=model_parallel,
+                      requested_model=requested,
+                      degraded=requested > 0 and model_parallel != requested)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,8 @@ stop-token ids, ``--stream`` prints each token as the engine emits it.
 pool, ``--prefix-cache-mb`` turns on shared-prefix reuse, ``--policy-from``
 deploys the per-layer bit assignment a search artifact chose.
 ``--prefill-mode token`` feeds prompts one token per step through a shared
-cursor (what ``auto`` picks for ``--arch zamba2-2.7b``, the Mamba2 hybrid);
+cursor (what ``auto`` picks for ``--arch zamba2-2.7b``, the Mamba2 hybrid,
+and ``--arch xlstm-1.3b``, whose requests are not held to ``--max-len``);
 an encoder-decoder arch deploys but its engine is refused, as the JAX
 engine cannot serve it either.
 

@@ -37,12 +37,6 @@ import torch
 from ..device import resolve_device
 
 
-#: families the port serves but does not train yet: JAX's distilled loss
-#: for them is a hidden-state loss the port lacks, and their plain loss
-#: would run on forwards no training test holds to JAX's
-UNTRAINED_FAMILIES = ("xlstm", "hybrid", "encdec")
-
-
 def _plan_mode(cfg) -> str:
     # the port's decode plans serve decoders; a bert stack trains as an LM
     # under an encoder plan (the segments are the same)
@@ -50,14 +44,17 @@ def _plan_mode(cfg) -> str:
 
 
 def check_trainable(cfg) -> None:
-    """Raise for a family the port cannot train on JAX's loss yet."""
-    if cfg.family in UNTRAINED_FAMILIES:
+    """Raise for a family the train CLI cannot feed: the encoder-decoder's
+    forward needs ``src_embeds``, and the CLI's synthetic LM batches carry
+    tokens only, as JAX's do (its ``lm_batches``)."""
+    if cfg.family == "encdec":
         raise ValueError(
-            f"training family {cfg.family!r}: the port has no hidden-state "
-            "distillation loss (JAX's for attention-free families) and no "
-            "training parity for it; training the token-mode families "
-            "(xlstm, hybrid, encdec) is a later slice of the port "
-            "(ROADMAP Queue 1 item 2, the rest of the training infra)")
+            f"training family 'encdec' ({cfg.name}) from the CLI: its LM "
+            "batches carry tokens only and an encoder-decoder forward needs "
+            "src_embeds. The JAX package's train CLI has the same limit (its "
+            "lm_batches carry no src_embeds; its forward raises at "
+            "models/encdec.py:94). Train it through build_train_step or "
+            "run_training with batches that carry src_embeds")
 
 
 def build_train_step(plan, hparams, teacher=None, teacher_plan=None):
@@ -65,16 +62,19 @@ def build_train_step(plan, hparams, teacher=None, teacher_plan=None):
     ``train_step.loss_fn(params, batch) -> (loss, parts)`` is its loss.
 
     ``plan``/``teacher_plan`` are ``ExecutionPlan``s (student QAT plan and
-    fp teacher plan). ``params`` and ``opt`` are updated in place."""
-    from ..core.distill import combine_losses, minilm_losses, output_loss
+    fp teacher plan). ``params`` and ``opt`` are updated in place. Every
+    key of a batch but ``labels`` goes to the forward, so an
+    encoder-decoder's batches carry ``src_embeds``. The distillation loss
+    is JAX's: MINI on the attention taps where the student's taps hold
+    them (``'q'``), the hidden-state loss otherwise (xLSTM, whose taps are
+    ``{'hidden'}``), with a 0 value-relation loss."""
+    from ..core.distill import (combine_losses, hidden_state_loss,
+                                minilm_losses, output_loss)
     from ..models import api
     from ..models.transformer import lm_loss
     from ..optim import adam_update, linear_warmup_decay, value_and_grad
 
     cfg = plan.cfg
-    check_trainable(cfg)
-    if teacher_plan is not None:
-        check_trainable(teacher_plan.cfg)
     sched = linear_warmup_decay(hparams.total_steps, hparams.warmup_frac)
     lr_by_group = {"weights": hparams.lr_weights,
                    "act_scale": hparams.lr_act_scale,
@@ -96,8 +96,13 @@ def build_train_step(plan, hparams, teacher=None, teacher_plan=None):
             t_logits, _, taps_t = api.forward(teacher, teacher_plan,
                                               want_taps=True, **inputs)
         l_out = output_loss(logits, t_logits)
-        R = min(cfg.num_heads, teacher_plan.cfg.num_heads)
-        l_attn, l_val = minilm_losses(out[2], taps_t, R)
+        taps_s = out[2]
+        if taps_s is not None and "q" in taps_s:
+            R = min(cfg.num_heads, teacher_plan.cfg.num_heads)
+            l_attn, l_val = minilm_losses(taps_s, taps_t, R)
+        else:   # attention-free family: hidden-state distillation
+            l_attn = hidden_state_loss(taps_s["hidden"], taps_t["hidden"])
+            l_val = torch.zeros((), dtype=torch.float32, device=l_attn.device)
         return combine_losses(l_train, l_out, l_attn, l_val,
                               hparams.alpha, hparams.beta)
 
@@ -149,7 +154,6 @@ def run_training(cfg, policy, hparams, data_fn, *, ckpt_dir: str,
     from ..models import api
     from ..optim import adam_init
 
-    check_trainable(cfg)
     dev = resolve_device(device)
     plan = ExecutionPlan.build(cfg, policy, mode=_plan_mode(cfg))
     teacher_plan = (ExecutionPlan.build(teacher_cfg, None,
@@ -236,7 +240,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.reduced:
         cfg = reduced(cfg)
-    n_units = cfg.num_layers
+    # an encoder-decoder's policy covers its decoder layers, as in JAX
+    n_units = cfg.dec_layers if cfg.family == "encdec" else cfg.num_layers
     k4 = args.int4_last_k if args.int4_last_k >= 0 else n_units // 2
     policy = QuantPolicy(num_layers=n_units, mode="fake", last_k_int4=k4,
                          grad_mode=args.grad_mode)

@@ -5,11 +5,10 @@ patch_mask=..., src_embeds=..., enc_out=...) -> (logits, new_state)`` for
 every family the port serves: dense decoders, MoE decoders, the vlm with
 its patch-embedding stub, the bert stack as an LM, the encoder-decoder
 (``src_embeds`` for the encoder, or its output ``enc_out`` in a decode
-step, ``decode_extra_inputs``) and the Mamba2 hybrid. ``want_taps=True``
-adds the last layer's taps and ``want_aux=True`` then the MoE load-balance
-loss (0 for the other families), the JAX package's ``forward`` returning
-both always. The xlstm family raises a ``ValueError`` that names the slice
-it arrives with.
+step, ``decode_extra_inputs``), the Mamba2 hybrid and xLSTM.
+``want_taps=True`` adds the last layer's taps (xLSTM's: ``{'hidden'}``, the
+stack's output) and ``want_aux=True`` then the MoE load-balance loss (0 for
+the other families), the JAX package's ``forward`` returning both always.
 """
 from __future__ import annotations
 
@@ -19,23 +18,24 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import encdec, hybrid, transformer
+from . import encdec, hybrid, transformer, xlstm
 
-#: families whose forward and decode state this slice of the port serves
-FAMILIES = ("dense", "bert", "vlm", "moe", "hybrid", "encdec")
+#: families whose forward and decode state the port serves (every family of
+#: the JAX package's registry)
+FAMILIES = ("dense", "bert", "vlm", "moe", "hybrid", "encdec", "xlstm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise ValueError(
-            f"family {cfg.family!r}: the port serves {FAMILIES} so far; "
-            "xlstm arrives with a later slice (ROADMAP Queue 1 item 4)")
+        raise ValueError(f"family {cfg.family!r}: the port serves {FAMILIES}")
 
 
 def init_model(cfg: ModelConfig, g: torch.Generator, device) -> dict:
     """fp params on ``device`` drawn from ``g`` (the JAX tree's keys and
     shapes)."""
     _check_family(cfg)
+    if cfg.family == "xlstm":
+        return xlstm.init_xlstm(cfg, g, device)
     if cfg.family == "hybrid":
         return hybrid.init_hybrid(cfg, g, device)
     if cfg.family == "encdec":
@@ -56,6 +56,9 @@ def forward(params, plan, *, state: Optional[dict] = None, tokens,
     cfg = plan.cfg
     _check_family(cfg)
     kw = dict(want_taps=want_taps, want_aux=want_aux)
+    if cfg.family == "xlstm":
+        return xlstm.xlstm_forward(params, cfg, plan.segments, tokens=tokens,
+                                   states=state, **kw)
     if cfg.family == "hybrid":
         return hybrid.hybrid_forward(params, cfg, plan.segments, tokens=tokens,
                                      states=state, **kw)
@@ -82,11 +85,14 @@ def decode_state(cfg: ModelConfig, batch: int, max_len: int,
     one decode dtype and head share. The token-mode families keep an fp
     state with one 0-d cursor (``per_slot_len`` and kv_bits 8/4 raise, as
     in the JAX package): the hybrid's Mamba2 states and shared-block KV,
-    the encoder-decoder's decoder KV."""
+    the encoder-decoder's decoder KV; xLSTM's recurrent state is f32
+    whatever ``dtype`` and holds no positions (``max_len`` is unused)."""
     _check_family(cfg)
     from ..deploy.plan import validate_cache_layout
     kv_bits = cfg.kv_bits if kv_bits is None else kv_bits
     validate_cache_layout(cfg, per_slot_len=per_slot_len, kv_bits=kv_bits)
+    if cfg.family == "xlstm":
+        return xlstm.xlstm_states(cfg, batch, device)
     if cfg.family == "hybrid":
         return hybrid.hybrid_states(cfg, batch, max_len, dtype, device)
     if cfg.family == "encdec":

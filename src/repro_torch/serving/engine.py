@@ -55,7 +55,9 @@ pump; it returns the ``(rid, token)`` pairs it emitted.
   cannot fit the next request starts a fresh state at cursor 0. A request
   admitted into a freed slot resets only that slot's prompt position: the
   slot's recurrent state and the KV rows the earlier occupant and the idle
-  steps wrote stay, as in the JAX engine. An encoder-decoder plan is
+  steps wrote stay, as in the JAX engine. xLSTM's state is recurrent and
+  holds no positions, so, as in the JAX engine, its requests are not held
+  to ``max_len`` and its admission is not gated on the cursor. An encoder-decoder plan is
   refused: the JAX engine's step passes no encoder input and cannot serve
   it either (decode it through ``models.api.forward`` with
   ``decode_extra_inputs``).
@@ -266,10 +268,13 @@ class ServingEngine:
         plen = len(req.prompt)
         if plen <= 0:
             raise ValueError(f"request {req.rid}: empty prompt")
-        if plen + req.max_new_tokens > self.max_len:
+        if plen + req.max_new_tokens > self.max_len and \
+                self.cfg.family != "xlstm":
             # past max_len the cache writes drop: decode would keep emitting
-            # tokens that cannot see recent context. (Token mode's shared
-            # cursor also gates admission on the live cursor: _token_fits.)
+            # tokens that cannot see recent context. (xLSTM's state is
+            # recurrent: no positional cache to overflow. Token mode's
+            # shared cursor also gates admission on the live cursor:
+            # _token_fits.)
             raise ValueError(
                 f"request {req.rid}: prompt ({plen}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds engine max_len "
@@ -859,21 +864,27 @@ class ServingEngine:
         request takes a fresh decode state at cursor 0 instead of admitting
         work whose writes would fall past max_len. An admitted request
         resets only its slot's prompt position (``pos``), as JAX does: the
-        slot's recurrent state and KV rows carry over."""
-        head = self.scheduler.peek()
-        if (head is not None and self.scheduler.num_active == 0
-                and self._cursor > 0 and not self._token_fits(head)):
-            # drained but the cursor is spent: fresh state, cursor 0;
-            # submit() guarantees every queued request fits from there
-            self.state = self.plan.decode_state(self.slots, self.max_len,
-                                                device=self.device)
-            self._cursor = 0
-        for s, _req in self._admit(fits=self._token_fits):
+        slot's recurrent state and KV rows carry over. xLSTM's state is
+        recurrent and holds no positions: nothing gates its admission and
+        its cursor cannot run out, as in the JAX engine."""
+        fits = None
+        recurrent = self.cfg.family == "xlstm"
+        if not recurrent:
+            fits = self._token_fits
+            head = self.scheduler.peek()
+            if (head is not None and self.scheduler.num_active == 0
+                    and self._cursor > 0 and not fits(head)):
+                # drained but the cursor is spent: fresh state, cursor 0;
+                # submit() guarantees every queued request fits from there
+                self.state = self.plan.decode_state(self.slots, self.max_len,
+                                                    device=self.device)
+                self._cursor = 0
+        for s, _req in self._admit(fits=fits):
             self.pos[s] = 0
         active = self.scheduler.active_slots()
         if not active:
             return
-        if self._cursor >= self.max_len:
+        if not recurrent and self._cursor >= self.max_len:
             raise RuntimeError(
                 f"token-mode cache cursor exhausted mid-flight (cursor "
                 f"{self._cursor} >= max_len {self.max_len}) with "

@@ -210,9 +210,9 @@ def test_moe_decode_plan_matches_jax(arch):
     ("encdec", dict(enc_layers=1, dec_layers=1)),
 ])
 def test_decode_plan_refuses_the_families_still_to_port(family, extra):
-    """xlstm is still to port: its decode plan names the later slice in
-    either prefill mode. hybrid and encdec are ported in token mode only:
-    a chunked plan is refused for want of a KV slot cache, as in JAX."""
+    """The token-mode families (xlstm, hybrid, encdec) are ported in token
+    mode only: a chunked plan is refused for want of a KV slot cache, as in
+    JAX, and ``auto`` resolves to token mode."""
     from repro_torch.configs.base import ModelConfig
     cfg = ModelConfig(name=f"tiny-{family}", family=family, num_layers=2,
                       d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
@@ -220,12 +220,6 @@ def test_decode_plan_refuses_the_families_still_to_port(family, extra):
     # an encoder-decoder's policy covers its decoder layers
     pol = QuantPolicy(num_layers=cfg.dec_layers if family == "encdec" else 2,
                       mode="int", last_k_int4=1)
-    if family == "xlstm":
-        for mode in ("auto", "token", "chunked"):
-            with pytest.raises(ValueError, match="later slice"):
-                ExecutionPlan.build(cfg, pol, backend="cuda", mode="decode",
-                                    prefill_mode=mode)
-        return
     with pytest.raises(ValueError, match="no KV slot cache"):
         ExecutionPlan.build(cfg, pol, backend="cuda", mode="decode",
                             prefill_mode="chunked")

@@ -69,7 +69,10 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
                  "src/repro_torch/launch/mesh.py",
                  "src/repro_torch/models/encdec.py",
                  "src/repro_torch/models/mamba2.py",
-                 "src/repro_torch/models/hybrid.py"):
+                 "src/repro_torch/models/hybrid.py",
+                 "src/repro_torch/models/xlstm.py",
+                 "src/repro_torch/distributed/compression.py",
+                 "src/repro_torch/launch/elastic.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.core import qat\n"
@@ -180,3 +183,26 @@ def test_token_mode_entry_points_default_to_the_card(no_cuda, tmp_path):
         DeployedModel.load(str(tmp_path / "h"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "zamba2-2.7b", "--reduced"])
+
+
+def test_xlstm_and_elastic_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """The serve and train CLIs on xlstm-1.3b and ``elastic_resume``
+    default to the card and raise without one, before anything is written;
+    each runs with the CPU asked for."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import elastic, serve, train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "xlstm-1.3b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "xlstm-1.3b", "--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert not any(tmp_path.iterdir())
+    mgr = CheckpointManager(str(tmp_path / "mgr"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        elastic.elastic_resume({"w": torch.zeros(2)}, mgr)
+    out = serve.main(["--arch", "xlstm-1.3b", "--reduced", "--device", "cpu",
+                      "--requests", "2", "--max-len", "16"])
+    assert out is not None
+    mgr.save(1, {"w": torch.ones(2)})
+    state, step, _ = elastic.elastic_resume({"w": torch.zeros(2)}, mgr, device="cpu")
+    assert step == 1 and torch.equal(state["w"], torch.ones(2))

@@ -4,9 +4,8 @@ fp decode state) on a reduced stablelm-3b, and the plan's token-mode rules.
 
 * The plan resolves ``prefill_mode`` and refuses the token-mode
   combinations as JAX's ``test_plan_auto_resolution`` and
-  ``test_plan_validation_fails_at_build`` have JAX's do, case for case (the
-  xlstm cases on the hybrid, as the port refuses xlstm itself naming its
-  later slice).
+  ``test_plan_validation_fails_at_build`` have JAX's do, case for case,
+  on the dense decoder, the hybrid, the encoder-decoder and xLSTM.
 * ``submit`` refuses empty and oversized requests, token-mode engines
   refuse prefill-only requests.
 * Greedy streams of a deployed W8A8 + W4A4 model on both backends equal
@@ -60,6 +59,10 @@ PLAN_CASES = [
     ("hybrid-auto", "zamba2-2.7b", dict()),
     ("hybrid-chunked", "zamba2-2.7b", dict(prefill_mode="chunked")),
     ("hybrid-kv8", "zamba2-2.7b", dict(kv_bits=8)),
+    ("xlstm-auto", "xlstm-1.3b", dict()),
+    ("xlstm-chunked", "xlstm-1.3b", dict(prefill_mode="chunked")),
+    ("xlstm-kv8", "xlstm-1.3b", dict(kv_bits=8)),
+    ("xlstm-token-paged", "xlstm-1.3b", dict(prefill_mode="token", kv_paging="paged")),
     ("encdec-auto", "seamless-m4t-medium", dict()),
     ("encdec-token-kv4", "seamless-m4t-medium", dict(prefill_mode="token", kv_bits=4)),
 ]
@@ -77,13 +80,6 @@ def test_plan_resolves_and_refuses_token_mode_as_jax_does(case):
     else:
         assert (got.prefill_mode, got.kv_bits, got.kv_paging) == \
             (want.prefill_mode, want.kv_bits, want.kv_paging)
-
-
-def test_xlstm_still_names_its_slice():
-    cfg = reduced(get_config("stablelm-3b")).replace(family="xlstm", slstm_every=2)
-    with pytest.raises(ValueError, match="later slice.*Queue 1 item 4"):
-        ExecutionPlan.build(cfg, None)
-    assert JPlan.build(jreduced(jget("xlstm-1.3b")), None).prefill_mode == "token"
 
 
 @pytest.fixture(scope="module")

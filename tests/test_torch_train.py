@@ -449,30 +449,27 @@ def test_moe_train_loss_adds_the_aux_loss_as_jax_does(moe, distill):
     assert abs(parts["loss/train"].item() - lm_only.item()) > 0.5 * aux.item()
 
 
-@pytest.mark.parametrize("family", ["hybrid", "encdec", "xlstm"])
-def test_train_refuses_the_token_mode_families(family, tmp_path):
-    """The port has no hidden-state distillation (JAX's loss for the
-    attention-free families) and no training parity for them: the step,
-    the loop and the CLI refuse them, naming the later slice, before any
-    device is touched or any checkpoint written."""
-    from repro_torch.configs.base import ModelConfig
-    from repro_torch.deploy import ExecutionPlan
+def test_train_cli_refuses_encdec_naming_jax_limit(tmp_path):
+    """The CLI's synthetic LM batches carry tokens only, and an
+    encoder-decoder forward needs ``src_embeds``: the CLI refuses
+    seamless-m4t-medium, naming JAX's own limit (its ``lm_batches`` carry
+    no ``src_embeds`` and its forward raises), before any device is touched
+    or any checkpoint written. ``build_train_step`` and ``run_training``
+    take such batches (``test_torch_train_families.py``); JAX's train step
+    on token-only batches fails as the CLI's would."""
+    from repro.deploy import ExecutionPlan as JPlan
+    from repro.launch.train import build_train_step as jbuild
+    from repro.models import api as japi
     from repro_torch.launch import train
-    cfg = ModelConfig(name=f"tiny-{family}", family=family, num_layers=2,
-                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
-                      vocab_size=256)
-    pol = QuantPolicy(num_layers=2, mode="fake")
-    plan = ExecutionPlan(cfg=cfg, policy=pol, backend="reference", kv_bits=16,
-                         prefill_mode="token", decode_dtype="float32",
-                         fuse_epilogue=False, segments=())
-    with pytest.raises(ValueError, match="later slice"):
-        train.build_train_step(plan, TrainHParams())
-    with pytest.raises(ValueError, match="later slice"):
-        train.run_training(cfg, pol, TrainHParams(), lambda s: iter(()),
-                           ckpt_dir=str(tmp_path / "ckpt"), device="cuda")
-    arch = {"hybrid": "zamba2-2.7b", "encdec": "seamless-m4t-medium"}.get(family)
-    if arch is not None:
-        with pytest.raises(ValueError, match=f"training family '{family}'.*later slice"):
-            train.main(["--arch", arch, "--reduced", "--device", "cuda",
-                        "--ckpt-dir", str(tmp_path / "ckpt")])
+    with pytest.raises(ValueError, match="training family 'encdec'.*JAX package's "
+                                         "train CLI has the same limit"):
+        train.main(["--arch", "seamless-m4t-medium", "--reduced", "--device", "cuda",
+                    "--ckpt-dir", str(tmp_path / "ckpt")])
     assert not (tmp_path / "ckpt").exists()
+    jcfg = jred(jget("seamless-m4t-medium"))
+    jp = japi.init_model(jcfg, jax.random.PRNGKey(0))
+    step = jbuild(JPlan.build(jcfg, JPol(num_layers=jcfg.dec_layers, mode="fake")),
+                  JHP(total_steps=3))
+    toks = jnp.zeros((1, 8), jnp.int32)
+    with pytest.raises(AttributeError, match="astype"):
+        step(jp, jadam_init(jp), {"tokens": toks, "labels": toks})
