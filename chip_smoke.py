@@ -390,7 +390,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    steps of 2 x 256 tokens on the model cut to its first group (8 layers),
    fake-quant W4A4 under an fp teacher of the same cut, with the
    hidden-state distillation: every loss finite, each step's eager ms and
-   the peak memory.
+   the peak memory;
+25. (a) fused projections: phase 6's stablelm-3b fp params (same seed,
+   full width and depth) with wq | wk | wv concatenated into ``wqkv`` (2560
+   x 7680) and w1 | w3 into ``w13`` (2560 x 13824)
+   (``transformer.fuse_projections``), deployed under ``fused_proj`` with
+   phase 6's policy and calibration, saved, loaded and served at kv8 on
+   phase 6's traffic: every decode step launches int8_matmul 64,
+   int4_matmul 64 and decode_attention 32 (``FUSED_DECODE_STEP``, checked
+   against ``fused_linears``) and act_quant never, each prefill forward what
+   ``gemm_launches`` derives, no plain version on a CUDA tensor; the first
+   call of each GEMM shape bit-equal to its plain version (the fused shapes
+   among them); the streams compared with phase 6's unfused kv8 streams
+   (each request's first differing token is reported); a decode step's
+   eager and graphed ms, unfused and fused in turns (unfused, fused, fused,
+   unfused, the card's clocks beside each), with phase 7's. (b) ``remat``: one loss and
+   gradient of the train CLI's stablelm-3b (fake quant, phase 19's 8 x 128
+   batch) with ``remat`` off and on: the losses bit-equal, every gradient
+   leaf within ``REMAT_GRAD_RTOL`` of its largest |g| (the bit-equal leaves
+   counted), eager ms and peak memory of each (phases 19 and 24 now train
+   with ``remat`` on, their configs' default). (c) ``launch/op_analysis``
+   on meta copies of phase 6's kv8 decode step (8 slots at 448, phase 6's
+   artifact reloaded), the fused step and phase 3's 32 x 128 encoder
+   forward: the predicted launches equal the launches counted on the card;
+   the predicted bytes, FLOPs, the bound they give and the predicted
+   memory beside the graphed device ms and the measured peak; then
+   ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` on the single layout
+   (their JSON under ``chiprun_out/dryrun_torch/``).
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -5182,6 +5208,308 @@ def xlstm_phase(dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 25
+#: a fused decode step (8 rows): four GEMMs a layer (wqkv, wo, w13, w2), all
+#: split-K; ``fused_serving`` checks it against ``gemm_launches``
+FUSED_DECODE_STEP = {"act_quant": 0, "int8_matmul": 64, "int4_matmul": 64,
+                     "decode_attention": 32}
+#: phase 25 (b): one gradient of the train CLI's stablelm-3b (phase 19's
+#: batch of 8 x 128) with ``remat`` off and on: the losses bit-equal and each
+#: gradient leaf within this share of its largest |g| (a backward kernel's
+#: atomics may order a sum differently between two runs)
+REMAT_GRAD_RTOL = 1e-5
+#: phase 25 (c): the dry-run cells run on the card's host (meta device)
+DRYRUN_CELLS = (("stablelm-3b", "decode_32k"), ("xlstm-1.3b", "long_500k"))
+
+
+def fused_linears(cfg) -> dict:
+    """The quantized linears of one forward of a ``fused_proj`` decoder under
+    the serve CLI's policy: (K, N, weight bits, fused) -> calls; wqkv, wo,
+    w13 and w2, one GEMM each."""
+    d, q, kv = cfg.d_model, cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    out: dict = {}
+    for bits in (8, 4):
+        for K, N in ((d, q + 2 * kv), (q, d), (d, 2 * cfg.d_ff), (cfg.d_ff, d)):
+            key = (K, N, bits, False)
+            out[key] = out.get(key, 0) + cfg.num_layers // 2
+    return out
+
+
+def card_clocks() -> str:
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+
+
+def step_times(model, dev) -> dict:
+    """One decode step of ``model`` (8 slots at cache length 448), eager and
+    replayed from a CUDA graph, as phase 7 times it."""
+    from repro_torch.models import api
+    st = decode_state_at(model, dev, DECODE_LEN)
+    toks = torch.randint(1, model.plan.cfg.vocab_size, (DECODE_SLOTS, 1), device=dev)
+
+    def step():
+        with torch.no_grad():
+            return api.forward(model.params, model.plan, state=st, tokens=toks)[0]
+    eager = cuda_ms(step, reps=1, samples=10, graph=False)
+    device = cuda_ms(step, reps=1, samples=10)
+    return {"eager_ms": eager, "device_ms": device,
+            "device_idle_share_eager": 1.0 - device / eager}
+
+
+def fused_serving(dev, dense_streams: list, dense_step: dict) -> tuple:
+    """Phase 25 (a): phase 6's fp params fused (wq | wk | wv -> wqkv, w1 | w3
+    -> w13), deployed under phase 6's policy and calibration, saved, loaded
+    and served at kv8 on phase 6's traffic. Returns (report, model)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy import DeployedModel, ExecutionPlan, deploy
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.models.transformer import fuse_projections
+
+    base = get_config("stablelm-3b")
+    cfg = base.replace(fused_proj=True)
+    n = cfg.num_layers
+    policy = QuantPolicy(num_layers=n, mode="int", last_k_int4=n // 2)
+    linears = fused_linears(cfg)
+    step_table = {**gemm_launches(linears, DECODE_SLOTS), "decode_attention": n}
+    if {k: step_table[k] for k in FUSED_DECODE_STEP} != FUSED_DECODE_STEP:
+        raise AssertionError(f"FUSED_DECODE_STEP {FUSED_DECODE_STEP} != the plan's "
+                             f"{step_table}")
+    plan = ExecutionPlan.build(cfg, policy, backend="cuda", mode="decode", kv_bits=8,
+                               prefill_batch=4)
+    t0 = time.perf_counter()
+    fp = fuse_projections(api.init_model(base, torch.Generator(device=dev).manual_seed(0),
+                                         dev))
+    rng = np.random.default_rng(0)
+    calib = [{"tokens": rng.integers(1, cfg.vocab_size, (4, 32)).astype(np.int32)}
+             for _ in range(4)]
+    model = deploy(fp, plan, calib, device=dev)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    del fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    art = ROOT / "build" / "chip_smoke_fused_artifact"
+    t0 = time.perf_counter()
+    model.save(str(art))
+    del model
+    model = DeployedModel.load(str(art), device=dev)
+    torch.cuda.synchronize()
+    save_load_s = time.perf_counter() - t0
+    art_bytes = sum(f.stat().st_size for f in art.iterdir())
+    shutil.rmtree(art, ignore_errors=True)
+    if model.plan != plan:
+        raise AssertionError("fused plan did not round-trip through the artifact")
+    record = {}
+    build.reset_counts()
+    t0 = time.perf_counter()
+    with GemmSpies() as spies:
+        _, results = serve_decode(model, launches=record)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    planned = check_launches("fused kv8", record, FUSED_DECODE_STEP, linears)
+    shapes = check_kept_calls(spies.kept, "fused kv8")
+    new_shapes = sorted({(s[3][0], s[3][1]) for s in shapes if s[0] != "act_quant"})
+    for K, N in ((cfg.d_model, (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.hd),
+                 (cfg.d_model, 2 * cfg.d_ff)):
+        if (K, N) not in new_shapes:
+            raise AssertionError(f"fused kv8: no call of the ({K}, {N}) GEMM was checked")
+    streams = [list(map(int, r.tokens)) for r in results]
+    parted = first_divergence(streams, dense_streams)
+    return {"model": cfg.name, "plan": plan.describe(), "deploy_s": deploy_s,
+            "save_load_s": save_load_s, "artifact_bytes": art_bytes,
+            "requests": len(results), "tokens": int(sum(len(s) for s in streams)),
+            "decode_steps": len(record["decode"]),
+            "prefill_forwards": len(record["prefill"]),
+            "launches": launches, "act_quant_planned": planned,
+            "per_decode_step": FUSED_DECODE_STEP, "gemm_calls_bit_equal": shapes,
+            "streams_equal_unfused": sum(p is None for p in parted),
+            "streams_first_parted_token": parted, "serve_s": serve_s,
+            "decode_step_kv8_unfused_phase7": dense_step}, model
+
+
+def remat_train(dev) -> dict:
+    """Phase 25 (b): one loss and gradient of the train CLI's stablelm-3b
+    (fake quant W8A8 + W4A4, phase 19's synthetic batch of 8 x 128) with
+    ``remat`` off and on: eager ms and peak memory of each."""
+    from repro_torch.configs import TrainHParams, get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.data import SyntheticLM
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import value_and_grad
+
+    cfg = get_config("stablelm-3b")
+    n = cfg.num_layers
+    policy = QuantPolicy(num_layers=n, mode="fake", last_k_int4=n // 2)
+    batch = SyntheticLM(cfg.vocab_size, 128, 8).batch(0)
+    params = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    runs, grads, losses = {}, {}, {}
+    for remat in (False, False, True):      # the first a warm-up
+        plan = ExecutionPlan.build(cfg.replace(remat=remat), policy)
+        loss_fn = build_train_step(plan, TrainHParams(total_steps=3)).loss_fn
+        grads.pop(remat, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _, g = value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        losses[remat], grads[remat] = loss, dict(tree_leaves_with_path(g))
+        runs[f"remat_{'on' if remat else 'off'}"] = {
+            "eager_ms": ms, "loss": loss.item(), "resident_gb": resident / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_over_resident_gb": (torch.cuda.max_memory_allocated() - resident) / 1e9}
+        del g
+    if not torch.equal(losses[False], losses[True]):
+        raise AssertionError(f"remat: losses differ {losses[False].item()} "
+                             f"{losses[True].item()}")
+    worst, equal = 0.0, 0
+    for path, a in grads[False].items():
+        b = grads[True][path]
+        equal += int(torch.equal(a, b))
+        scale = a.abs().max().item() or 1.0
+        worst = max(worst, (a - b).abs().max().item() / scale)
+    if worst > REMAT_GRAD_RTOL:
+        raise AssertionError(f"remat: gradients differ by {worst} of a leaf's largest")
+    leaves = len(grads[False])
+    del grads, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**runs, "losses_bit_equal": True, "grad_leaves": leaves,
+            "grad_leaves_bit_equal": equal, "grad_max_rel_diff": worst,
+            "grad_rtol": REMAT_GRAD_RTOL}
+
+
+def _to_meta(tree):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.to("meta") if isinstance(t, torch.Tensor) else t, tree)
+
+
+def predicted_vs_card(tag: str, step, args: tuple, dev) -> dict:
+    """``op_analysis`` of ``step(*args)`` on meta copies of ``args`` beside
+    one eager call on the card: the predicted launches must equal the
+    counted ones; the predicted bytes, FLOPs, the bound they give and the
+    predicted memory are printed beside the graphed device time and the
+    measured peak."""
+    from repro_torch.benchmarks.timing import BF16_OPS_PER_S
+    from repro_torch.kernels import build
+    from repro_torch.launch.op_analysis import analyze, storage_bytes
+
+    meta = _to_meta(args)
+    pred = analyze(step, *meta)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    build.reset_counts()
+    out = step(*args)
+    torch.cuda.synchronize()
+    counted = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - resident
+    del out
+    if pred["launches"] != {k: counted[k] for k in pred["launches"]}:
+        raise AssertionError(f"{tag}: predicted launches {pred['launches']} != "
+                             f"counted {counted}")
+    graphed = cuda_ms(lambda: step(*args), reps=1, samples=10)
+    b_ms, b_by = bound(pred["hbm_bytes"], (pred["int_flops"], pred["float_flops"]),
+                       (INT8_OPS_PER_S, BF16_OPS_PER_S))
+    kb = sum(k["bytes"] for k in pred["kernels"].values())
+    kf = sum(k["dot_flops"] for k in pred["kernels"].values())
+    k_ms, k_by = bound(kb, kf, INT8_OPS_PER_S)
+    return {"launches": counted, "predicted_launches_equal": True,
+            "predicted": {k: pred[k] for k in ("flops", "int_flops", "float_flops",
+                                               "hbm_bytes", "torch_ops")},
+            "bound_ms": b_ms, "bound_by": b_by,
+            "kernels_bytes": kb, "kernels_bound_ms": k_ms, "kernels_bound_by": k_by,
+            "graphed_device_ms": graphed,
+            "argument_bytes_predicted": storage_bytes(*meta),
+            "argument_bytes_on_card": storage_bytes(*args),
+            "temp_bytes_predicted": pred["temp_bytes"],
+            "temp_bytes_measured_peak": peak}
+
+
+def analysis_vs_card(dev, models: dict) -> dict:
+    """Phase 25 (c): the step analysis against the card, on phase 6's kv8
+    decode step (8 slots at 448), the fused one and phase 3's 32 x 128
+    encoder forward; then the dry run's cells ``DRYRUN_CELLS``."""
+    from repro_torch.deploy import DeployedModel
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    from repro_torch.serving import ServingEngine
+
+    def decode_step(params, st, toks, plan):
+        with torch.no_grad():
+            return api.forward(params, plan, state=st, tokens=toks)[0]
+
+    out = {}
+    for tag, model in models.items():
+        st = decode_state_at(model, dev, DECODE_LEN)
+        toks = torch.randint(1, model.plan.cfg.vocab_size, (DECODE_SLOTS, 1), device=dev)
+        out[tag] = predicted_vs_card(
+            tag, lambda p, s, t, plan=model.plan: decode_step(p, s, t, plan),
+            (model.params, st, toks), dev)
+        del st
+    enc = DeployedModel.load(str(ROOT / "build" / "chip_smoke_artifact"), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        1, enc.plan.cfg.vocab_size, (32, 128)), device=dev)
+    lens = torch.full((32,), 128, dtype=torch.int32, device=dev)
+
+    def encode(params, toks, lens):
+        return ServingEngine(DeployedModel(plan=enc.plan, params=params), slots=8,
+                             max_len=128).encode_batch(toks, lens)["embed"]
+    out["encoder_32x128"] = predicted_vs_card("encoder 32x128", encode,
+                                              (enc.params, toks, lens), dev)
+    del enc
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, "single", str(ROOT / "chiprun_out" / "dryrun_torch"))
+        if r["status"] != "ok":
+            raise AssertionError(f"dry run {arch} {shape}: {r}")
+        cells[f"{arch}__{shape}"] = {**r, "seconds": time.perf_counter() - t0}
+    out["dryrun_cells"] = cells
+    return out
+
+
+def fused_remat_analysis_phase(dev, dense_streams: list, dense_step: dict) -> dict:
+    """Phase 25: fused projections served through the integer kernels,
+    ``remat`` in training, and the step analysis against the card (see the
+    module docstring). Phase 6's kv8 artifact is reloaded from ``build/``."""
+    from repro_torch.deploy import DeployedModel
+    t0 = time.perf_counter()
+    fused, fused_model = fused_serving(dev, dense_streams, dense_step)
+    dense_model = DeployedModel.load(str(ROOT / "build" / "chip_smoke_decode_artifact"),
+                                     device=dev)
+    # the unfused and the fused step in turns, on one card in one window
+    turns = []
+    for tag, model in (("unfused", dense_model), ("fused", fused_model),
+                       ("fused", fused_model), ("unfused", dense_model)):
+        turns.append({"step": tag, "clocks_before": card_clocks(),
+                      **step_times(model, dev)})
+    fused["decode_step_kv8_in_turns"] = turns
+    analysis = analysis_vs_card(dev, {"decode_kv8": dense_model,
+                                      "decode_kv8_fused": fused_model})
+    del fused_model, dense_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = remat_train(dev)
+    return {"fused": fused, "remat": remat, "analysis": analysis,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5419,6 +5747,21 @@ def main() -> int:
     seconds["xlstm"] = time.perf_counter() - t0
     emit({"phase": "xlstm", **{k: v for k, v in xl.items() if k != "train"}})
     emit({"phase": "xlstm_train", **xl["train"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p25 = fused_remat_analysis_phase(dev, dense_streams[8], dec_times["decode_step_kv8"])
+    seconds["fused_remat_analysis"] = time.perf_counter() - t0
+    fused = p25["fused"]
+    emit({"phase": "fused_serving", **{k: v for k, v in fused.items()
+                                       if k != "gemm_calls_bit_equal"},
+          "gemm_shapes_bit_equal": len(fused["gemm_calls_bit_equal"])})
+    emit({"phase": "remat_train", **p25["remat"]})
+    for tag, row in p25["analysis"].items():
+        if tag != "dryrun_cells":
+            emit({"phase": "analysis_vs_card", "step": tag, **row})
+    for cell, r in p25["analysis"]["dryrun_cells"].items():
+        emit({"phase": "dryrun_cell", "cell": cell, **r})
     dec_rows.append(seamless["noncausal_flash_row"])
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
@@ -5463,6 +5806,7 @@ def main() -> int:
                         "seamless_encoder": seamless["encoder"]["launches"],
                         "seamless_decode": seamless["decode"]["launches"],
                         "xlstm_token": xl["serve"]["launches"],
+                        "fused_kv8": fused["launches"],
                         f"xlstm_prefill_{XLSTM_LONG}": xl["long_forward"]["launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
@@ -5476,7 +5820,8 @@ def main() -> int:
                "score_paged_kv8": score["paged"]["act_quant_planned"],
                "qat_encoder": qat["expected_launches"]["act_quant"],
                "fleet_replicas_dense": fleet["replicas"]["dense"]["act_quant_planned"],
-               "fleet_replicas_paged": fleet["replicas"]["paged"]["act_quant_planned"]}
+               "fleet_replicas_paged": fleet["replicas"]["paged"]["act_quant_planned"],
+               "fused_kv8": fused["act_quant_planned"]}
     # the serve CLI's and the load generator's short prompts take split-K
     # (no act_quant) or not by their draw; the CLI's encoder policy is W4A4
     cli_decode = ("int8_matmul", "int4_matmul", "decode_attention")
@@ -5517,6 +5862,7 @@ def main() -> int:
                        ("seamless_encoder", SEAMLESS_ENC_KERNELS),
                        ("seamless_decode", SEAMLESS_DEC_KERNELS),
                        ("xlstm_token", HYBRID_KERNELS),
+                       ("fused_kv8", DECODER_KERNELS),
                        (f"xlstm_prefill_{XLSTM_LONG}", GEMM_KERNELS)):
         idle = [k for k in need if not launches_by_path[path][k]
                 and (k != "act_quant" or planned.get(path, 1))]
@@ -5558,6 +5904,7 @@ def main() -> int:
                                   "qat_end_to_end": qat, "train_cli": trained,
                                   "fleet": fleet, "moe": moe, "zamba2": zamba,
                                   "seamless": seamless, "xlstm": xl,
+                                  "fused_remat_analysis": p25,
                                   "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})

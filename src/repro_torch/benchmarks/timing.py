@@ -5,7 +5,8 @@
 issues it. ``bound`` is the least time the card could take for the same
 work: the larger of the bytes it must move over the memory rate and the
 operations it does over the peak rate of their type (NVIDIA's data sheet,
-SXM part, dense rates, at the full 700 W power limit).
+SXM part, dense rates, at the full 700 W power limit); the dry run
+(``launch/dryrun``) reads the same rates, and NVLink's for collectives.
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak
 TF32_OPS_PER_S = 495e12        # dense TF32 tensor-core peak
 FP32_OPS_PER_S = 67e12         # fp32 outside the tensor cores
+#: NVLink 4 between cards of one HGX H100 board: 900 GB/s a card, both
+#: directions together (NVIDIA H100 data sheet), so 450 GB/s each way
+NVLINK_BYTES_PER_S = 450e9
 
 
 def cuda_ms(fn: Callable[[], object], samples: int = 20, reps: int = 10,

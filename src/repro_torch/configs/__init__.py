@@ -5,8 +5,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from .archs import ARCHS
-from .base import ModelConfig, TrainHParams
+from .archs import ARCHS, ASSIGNED
+from .base import (SHAPES, SUBQUADRATIC_FAMILIES, ModelConfig, ShapeSpec,
+                   TrainHParams, input_specs, shape_applicable)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -42,4 +43,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ARCHS", "ModelConfig", "TrainHParams", "get_config", "reduced"]
+__all__ = ["ARCHS", "ASSIGNED", "SHAPES", "SUBQUADRATIC_FAMILIES",
+           "ModelConfig", "ShapeSpec", "TrainHParams", "get_config",
+           "input_specs", "reduced", "shape_applicable"]

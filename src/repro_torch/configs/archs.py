@@ -105,3 +105,10 @@ _reg(ModelConfig(
     name="xlstm-1.3b", family="xlstm", num_layers=48, d_model=2048,
     num_heads=4, num_kv_heads=4, d_ff=0, vocab_size=50304,
     slstm_every=8, ssm_expand=2, ssm_chunk=256, rope=False))
+
+#: the archs of the dry run's grid (the JAX package's ``ASSIGNED``)
+ASSIGNED = [
+    "stablelm-3b", "internlm2-20b", "qwen1.5-110b", "qwen2.5-32b",
+    "xlstm-1.3b", "seamless-m4t-medium", "llava-next-mistral-7b",
+    "qwen2-moe-a2.7b", "granite-moe-3b-a800m", "zamba2-2.7b",
+]

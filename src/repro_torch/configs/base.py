@@ -1,9 +1,12 @@
-"""Model configuration dataclass.
+"""Model configuration dataclass, the dry run's shapes and its inputs.
 
 The field list matches the JAX package's ``ModelConfig`` one for one, so a
 ``dataclasses.asdict`` of either side round-trips through the shared artifact
 meta (``ARTIFACT.json``). There is no framework dtype property: the port
-resolves ``dtype`` with :data:`TORCH_DTYPES`.
+resolves ``dtype`` with :data:`TORCH_DTYPES`. ``SHAPES`` and
+``shape_applicable`` are the JAX package's; ``input_specs`` returns tensors
+on the ``meta`` device (shapes and dtypes, no storage) where JAX returns
+``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -92,6 +95,57 @@ class ModelConfig:
         d = {k: v for k, v in d.items() if k in known}
         d["dp_axes"] = tuple(d.get("dp_axes", ("data",)))
         return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# Full-attention archs skip long_500k (DESIGN.md §5); SSM/hybrid run it.
+SUBQUADRATIC_FAMILIES = ("xlstm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    if shape.name == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
+        return False, "full-attention arch: 500k decode skipped (DESIGN.md §5)"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, device="meta") -> dict:
+    """Empty stand-ins for every model input of ``shape`` (the JAX
+    package's keys, shapes and dtypes), on ``device``: ``meta`` by default,
+    tensors with no storage. A decode shape's ``cache`` is None (its state
+    is family-specific: ``models.api.decode_state``)."""
+    B, S = shape.global_batch, shape.seq_len
+    mk = lambda s, dt: torch.empty(s, dtype=dt, device=device)
+    i32 = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": mk((B, 1), i32), "cache": None}
+    cd = cfg.torch_dtype
+    specs = {}
+    if cfg.input_kind == "embeds":        # audio frontend stub: frame embeddings
+        specs["src_embeds"] = mk((B, S, cfg.d_model), cd)
+        specs["tokens"] = mk((B, S), i32)
+    elif cfg.input_kind == "tokens+patches":
+        specs["tokens"] = mk((B, S), i32)
+        specs["patch_embeds"] = mk((B, cfg.num_patches, cfg.d_model), cd)
+        specs["patch_mask"] = mk((B, S), torch.bool)
+    else:
+        specs["tokens"] = mk((B, S), i32)
+    if shape.kind == "train":
+        specs["labels"] = mk((B, S), i32)
+    return specs
 
 
 @dataclasses.dataclass(frozen=True)

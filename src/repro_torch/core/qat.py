@@ -88,7 +88,9 @@ def default_bits_fn(cfg: ModelConfig, policy: QuantPolicy):
 SITE_ORDERS = {
     # per-layer quantized-matmul input records, in model code order
     "attn": ["attn/wq", "attn/wk", "attn/wv", "attn/wo"],
+    "attn_fused": ["attn/wqkv", "attn/wo"],
     "ffn_swiglu": ["ffn/w1", "ffn/w3", "ffn/w2"],
+    "ffn_fused": ["ffn/w13", "ffn/w2"],
     "ffn_gelu": ["ffn/w1", "ffn/w2"],
     "moe": ["moe/w1", "moe/w3", "moe/w2"],
 }
@@ -97,14 +99,19 @@ SITE_ORDERS = {
 def site_order(cfg: ModelConfig) -> list[str]:
     """The quantized-matmul sites of one layer in the order the forward
     records them: attention, then the FFN, or the experts and the shared
-    expert for MoE (whose expert sites record one value per expert)."""
+    expert for MoE (whose expert sites record one value per expert). Under
+    ``fused_proj`` the fused ``wqkv`` and ``w13`` are one site each, so
+    each holds one activation scale (the JAX package's ``site_order`` knows
+    no fused site: its calibration refuses a ``fused_proj`` model)."""
+    fused = cfg.fused_proj
+    attn = SITE_ORDERS["attn_fused" if fused else "attn"]
+    swiglu = SITE_ORDERS["ffn_fused" if fused else "ffn_swiglu"]
     if cfg.family == "moe":
-        sites = SITE_ORDERS["attn"] + SITE_ORDERS["moe"]
+        sites = attn + SITE_ORDERS["moe"]
         if cfg.shared_expert_d_ff:
-            sites = sites + ["moe/shared/w1", "moe/shared/w3", "moe/shared/w2"]
+            sites = sites + ["moe/shared/" + s.split("/")[1] for s in swiglu]
         return sites
-    ffn = SITE_ORDERS["ffn_swiglu"] if cfg.act == "swiglu" else SITE_ORDERS["ffn_gelu"]
-    return SITE_ORDERS["attn"] + ffn
+    return attn + (swiglu if cfg.act == "swiglu" else SITE_ORDERS["ffn_gelu"])
 
 
 def calibrate_act_scales(params, cfg: ModelConfig, policy: QuantPolicy,

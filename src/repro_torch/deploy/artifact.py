@@ -123,7 +123,7 @@ def _place(params_int, plan: ExecutionPlan, dev):
     if group is None:
         return params_int
     from ..distributed import serving_param_specs, shard_serving
-    return shard_serving(params_int, serving_param_specs(params_int),
+    return shard_serving(params_int, serving_param_specs(params_int, plan.cfg),
                          group.rank, group.tp)
 
 
@@ -236,7 +236,8 @@ class DeployedModel:
         import torch.distributed as dist
 
         from ..distributed import gather_serving, serving_param_specs
-        full = gather_serving(self.params, serving_param_specs(self.params),
+        full = gather_serving(self.params,
+                              serving_param_specs(self.params, self.plan.cfg),
                               group.tp)
         if group.rank == 0:
             path = ckpt.save_artifact(path, full, meta)

@@ -12,6 +12,13 @@ card, a GEMM whose plan is split-K (``gemm_plan.quantizes_in_gemm``: M <=
 loads them, with act_quant's arithmetic; every other GEMM gets act_quant's
 codes at the row pitch its path reads (``gemm_plan.code_pitch``). The
 kernels mask their ragged edges, so no divisor tiles are picked here.
+
+A tensor on the ``meta`` device (the step analysis, ``launch/op_analysis``)
+takes a third branch: it charges the kernel launches the card would make
+for these shapes, each as one op with the bytes and operations its bound
+reckons, to every recorder in :data:`ANALYSIS`, and returns an empty meta
+result of the kernel's shape and dtype. It computes nothing and is no
+fallback: a CUDA tensor still reaches only its kernel.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import decode_attention as _da
+from . import flash_attention as _fa
 from .act_quant import act_quant_cuda, act_quant_plain
 from .decode_attention import (decode_attention_cuda,
                                decode_attention_paged_cuda,
@@ -35,9 +44,50 @@ from .int8_matmul import (expert_matmul_exact, int8_matmul_cuda,
                           int8_matmul_plain)
 
 
+#: recorders of the meta branch: each is called, once a launch the card
+#: would make, as ``rec(kernel, nbytes=..., dot_flops=..., integer=...)``
+ANALYSIS: list = []
+
+
+def _charge(kernel: str, nbytes: float, dot_flops: float = 0.0,
+            integer: bool = False) -> None:
+    for rec in ANALYSIS:
+        rec(kernel, nbytes=nbytes, dot_flops=dot_flops, integer=integer)
+
+
+def _gemm_bytes(M: int, N: int, K: int, bits: int, x_itemsize: int) -> int:
+    """Bytes one GEMM call must move: the activations (the float rows where
+    the call quantizes them itself, else the int8 codes), the weight codes
+    (K / 2 packed rows at 4 bits), the scales and the output (x's dtype)."""
+    quantized = quantizes_in_gemm(M, N, K, bits)
+    w = -(-K // 2) * N if bits == 4 else K * N
+    return M * K * (x_itemsize if quantized else 1) + w + 4 + 4 * N + M * N * x_itemsize
+
+
+def _act_quant_bytes(M: int, K: int, x_itemsize: int) -> int:
+    """Bytes one act_quant call must move: the float rows, one code a value,
+    the scale."""
+    return M * K * (x_itemsize + 1) + 4
+
+
+def _meta_gemm(x: torch.Tensor, N: int, K: int, bits: int, kernel: str) -> torch.Tensor:
+    """The meta branch of a GEMM: act_quant where the plan does not
+    quantize inside the GEMM, then the GEMM, each charged as one launch."""
+    M = x.shape[0]
+    if not quantizes_in_gemm(M, N, K, bits):
+        _charge("act_quant", _act_quant_bytes(M, K, x.element_size()))
+    _charge(kernel, _gemm_bytes(M, N, K, bits, x.element_size()), 2.0 * M * N * K,
+            integer=True)
+    return torch.empty((M, N), dtype=x.dtype, device="meta")
+
+
 def act_quant(x: torch.Tensor, s: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """(..., K) float -> (..., K) int8 codes on the ``bits`` grid."""
     K = x.shape[-1]
+    if x.is_meta:
+        _charge("act_quant", _act_quant_bytes(x.numel() // max(K, 1), K,
+                                              x.element_size()))
+        return torch.empty(x.shape, dtype=torch.int8, device="meta")
     x2 = x.reshape(-1, K).contiguous()
     fn = act_quant_cuda if x2.is_cuda else act_quant_plain
     return fn(x2, s, bits).reshape(*x.shape[:-1], K)
@@ -60,6 +110,8 @@ def int8_matmul(x: torch.Tensor, w8: torch.Tensor, s_a: torch.Tensor,
     """x: (M, K) float -> quantize -> int8 GEMM -> dequant to x.dtype.
     w8: (K, N) int8."""
     K, N = w8.shape
+    if x.is_meta:
+        return _meta_gemm(x, N, K, 8, "int8_matmul")
     s_w = s_w.reshape(1, N).contiguous()
     if x.is_cuda:
         return int8_matmul_cuda(gemm_activations(x.contiguous(), N, K, 8, s_a, a_bits),
@@ -79,6 +131,9 @@ def int4_matmul(x: torch.Tensor, wp: torch.Tensor, s_a: torch.Tensor,
     set, ``bias`` (or zeros) is folded in as well.
     """
     Kw, N = wp.shape[0] * 2, wp.shape[1]
+    if x.is_meta:
+        return _meta_gemm(x, N, Kw, 4, "int4_matmul" if act is None
+                          else "int4_matmul_fused")
     s_w = s_w.reshape(1, N).contiguous()
     b = None
     if act is not None:
@@ -119,7 +174,7 @@ def expert_matmul(x_ecd: torch.Tensor, p: dict, spec,
         raise ValueError("expert_matmul: the integer kernels take activation "
                          "codes; a_bits=0 (fp activations) is the reference "
                          "backend's path")
-    if not x_ecd.is_cuda:
+    if not (x_ecd.is_cuda or x_ecd.is_meta):
         return expert_matmul_exact(x_ecd, p["wq"], p["s_a"], p["s_w"],
                                    spec.w_bits, spec.a_bits, reduce=reduce)
     if reduce:
@@ -144,6 +199,14 @@ def decode_attention(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
     (B, S, Hkv); k_new/v_new (B, Hkv, dh); lengths a scalar or (B,) cursor
     tensor. Returns (B, H, dh) in q's dtype."""
     B = q.shape[0]
+    if q.is_meta:       # the lengths are data: charge the whole extent
+        H, dh = q.shape[1], q.shape[2]
+        S, Hkv = k_q.shape[1], k_q.shape[2]
+        bits = 8 if k_q.shape[-1] == dh else 4
+        _charge("decode_attention", _da.bound_bytes(B, S, Hkv, H, dh, bits, [S] * B,
+                                                    q.element_size()),
+                4.0 * B * H * (S + 1) * dh)
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     lens = lengths.to(torch.int32).reshape(-1).expand(B).contiguous()
     fn = decode_attention_cuda if q.is_cuda else decode_attention_plain
     return fn(q.contiguous(), k_q.contiguous(), v_q.contiguous(),
@@ -162,6 +225,15 @@ def decode_attention_paged(q: torch.Tensor, k_q: torch.Tensor,
     entries clamp); k_new/v_new (B, Hkv, dh); lengths (B,). Returns (B, H,
     dh) in q's dtype."""
     B = q.shape[0]
+    if q.is_meta:       # the lengths are data: charge the tables' extent
+        H, dh = q.shape[1], q.shape[2]
+        block, Hkv, nb = k_q.shape[1], k_q.shape[2], tables.shape[1]
+        bits = 8 if k_q.shape[-1] == dh else 4
+        _charge("decode_attention_paged",
+                _da.bound_bytes_paged(B, nb, block, Hkv, H, dh, bits,
+                                      [nb * block] * B, q.element_size()),
+                4.0 * B * H * (nb * block + 1) * dh)
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     lens = lengths.to(torch.int32).reshape(-1).expand(B).contiguous()
     fn = decode_attention_paged_cuda if q.is_cuda else decode_attention_paged_plain
     return fn(q.contiguous(), k_q.contiguous(), v_q.contiguous(),
@@ -176,6 +248,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     == 0, unrepeated (query head h reads KV head h // (H // Hkv)). Returns
     (B, S, H, dh) in q's dtype. On the CPU the plain version runs at the
     kernel's tile, or at the largest divisor of S below it."""
+    if q.is_meta:
+        B, S, H, dh = q.shape
+        _charge("flash_attention", _fa.bound_bytes(B, S, H, k.shape[2], dh,
+                                                   q.element_size()),
+                _fa.bound_flops(B, S, H, dh, causal))
+        return torch.empty(q.shape, dtype=q.dtype, device="meta")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal)

@@ -13,6 +13,13 @@ of the weights and KV heads, and meets the others in one int32 all-reduce
 per row-parallel linear. On the CPU the ranks talk over gloo; on the card
 over NCCL, one card a rank.
 
+``make_production_mesh`` is the dry run's layout, device-free: where the
+JAX package targets (16, 16) and (2, 16, 16) TPU v5e meshes, the port's
+cells run on one H100 (``single``) or four (``multi``: serving at tp 4,
+training data-parallel over 4). On the ``meta`` device (the dry run's
+analysis) a tp group is torch's ``fake`` process group: one process plays
+rank 0 and its collectives move nothing.
+
 ``spawn_tp(fn, tp, *args)`` starts ``tp`` ranks with
 ``torch.multiprocessing`` and a ``torch.distributed.FileStore`` in a
 temporary directory (no port, no network), runs ``fn(*args)`` in each and
@@ -28,8 +35,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["MeshLayout", "make_mesh_for_devices", "TPGroup", "make_tp_group",
-           "spawn_tp"]
+__all__ = ["MeshLayout", "make_mesh_for_devices", "ProductionMesh",
+           "make_production_mesh", "TPGroup", "make_tp_group", "spawn_tp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +85,33 @@ def make_mesh_for_devices(n_devices: int, model_parallel: int = 0, *,
 
 
 @dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """A device-free layout of H100 cards: the axis names and sizes the
+    shard rules read (``distributed.sharding``), as JAX's mesh offers
+    them."""
+    name: str               #: single | multi
+    axis_names: tuple
+    shape: dict
+
+    @property
+    def chips(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+
+def make_production_mesh(*, multi: bool = False, serving: bool = False
+                         ) -> ProductionMesh:
+    """One H100 (``single``) or four (``multi``). Serving cells put the
+    four on "model" (the port's tp path); training cells on "data" (data
+    parallelism, the gradient mean over the four)."""
+    n = 4 if multi else 1
+    shape = {"data": 1, "model": n} if serving else {"data": n, "model": 1}
+    return ProductionMesh("multi" if multi else "single", ("data", "model"), shape)
+
+
+@dataclasses.dataclass(frozen=True)
 class TPGroup:
     """This process's place in a tensor-parallel group: ``rank`` of
     ``tp``; the collectives use the default process group."""
@@ -88,7 +122,8 @@ class TPGroup:
 def make_tp_group(tp: int, device) -> TPGroup:
     """The group a tp plan serves in. The caller (``spawn_tp``, or its own
     launcher) has initialised the default process group with ``tp`` ranks:
-    gloo for CPU tensors, NCCL for CUDA ones with one card a rank. A host
+    gloo for CPU tensors, NCCL for CUDA ones with one card a rank, torch's
+    ``fake`` group for meta tensors (the dry run). A host
     with fewer than ``tp`` cards raises, as JAX's ``make_tp_mesh`` does for
     devices; so does a missing or differently sized group."""
     import torch.distributed as dist
@@ -107,7 +142,7 @@ def make_tp_group(tp: int, device) -> TPGroup:
     if world != tp:
         raise RuntimeError(f"tp={tp} needs a process group of {tp} ranks, "
                            f"this one has {world}")
-    want = "nccl" if dev.type == "cuda" else "gloo"
+    want = {"cuda": "nccl", "meta": "fake"}.get(dev.type, "gloo")
     backend = dist.get_backend()
     if backend != want:
         raise RuntimeError(f"tp={tp} on {dev.type} runs over {want}, the "

@@ -138,7 +138,10 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                     kv_input: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None, chunk: int = 0,
                     want_taps: bool = False):
-    """One attention sublayer (the residual is the caller's). Returns
+    """One attention sublayer (the residual is the caller's). ``p`` holds
+    wq / wk / wv / wo, or the fused ``wqkv`` and wo (``fused_proj``, which
+    the JAX package gives only the transformer blocks: never a
+    cross-attention). Returns
     ``(out, new_kv)``, or ``(out, new_kv, taps)`` with ``want_taps``: the
     projected q, k and v before RoPE, each (B, S, heads * hd), which MINI
     distillation reads.
@@ -164,9 +167,17 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
     """
     B, Sq, _ = x.shape
     src = x if kv_input is None else kv_input
-    q = _split_heads(qlinear(x, p["wq"], spec), n_heads)
-    k = _split_heads(qlinear(src, p["wk"], spec), n_kv)
-    v = _split_heads(qlinear(src, p["wv"], spec), n_kv)
+    if "wqkv" in p:
+        # fused (``fused_proj``): one matmul, split at [H hd, (H + Hkv) hd]
+        # as the JAX package splits it; each part contiguous, as the
+        # unfused products are, so every later op sees the same layout
+        q, k, v = (t.contiguous() for t in torch.split(
+            qlinear(x, p["wqkv"], spec), [n_heads * hd, n_kv * hd, n_kv * hd], -1))
+        q, k, v = _split_heads(q, n_heads), _split_heads(k, n_kv), _split_heads(v, n_kv)
+    else:
+        q = _split_heads(qlinear(x, p["wq"], spec), n_heads)
+        k = _split_heads(qlinear(src, p["wk"], spec), n_kv)
+        v = _split_heads(qlinear(src, p["wv"], spec), n_kv)
     taps = None
     if want_taps:
         taps = {"q": q.reshape(B, Sq, -1), "k": k.reshape(B, k.shape[1], -1),

@@ -13,7 +13,10 @@ which for the bidirectional encoder is the flash kernel with
 Decode state: one fp ``{'k', 'v', 'len'}`` cache over the decoder layers,
 (L_dec, B, S, Hkv, hd) with a 0-d cursor, updated in place (the JAX package
 returns new arrays). A decode step takes ``enc_out`` instead of
-``src_embeds`` (``api.decode_extra_inputs``): the encoder runs once.
+``src_embeds`` (``api.decode_extra_inputs``): the encoder runs once. With
+``cfg.remat`` each encoder layer and each decoder layer but a tapped one
+runs under activation checkpointing in training (``layers.remat``), at the
+JAX package's ``jax.checkpoint`` places.
 """
 from __future__ import annotations
 
@@ -25,28 +28,10 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..core.tree import slice_stack, tree_map
 from .attention import attention_block
-from .layers import QuantSpec
-from .transformer import (_norm, _normal, ffn_apply, init_linear, init_norm,
-                          layer_cache, mask_padded_vocab, write_new_kv)
-
-
-def init_attention(g, cfg: ModelConfig, stacked: Optional[int], device) -> dict:
-    """wq / wk / wv / wo of ``cfg``'s heads, ``stacked`` along a layer dim."""
-    hq, hkv = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
-    lin = lambda k, n, bias: init_linear(g, k, n, bias, stacked, device)
-    return {"wq": lin(cfg.d_model, hq, cfg.qkv_bias),
-            "wk": lin(cfg.d_model, hkv, cfg.qkv_bias),
-            "wv": lin(cfg.d_model, hkv, cfg.qkv_bias),
-            "wo": lin(hq, cfg.d_model, cfg.out_bias)}
-
-
-def init_ffn(g, cfg: ModelConfig, stacked: Optional[int], device) -> dict:
-    """The JAX ``init_ffn`` tree: SwiGLU w1 / w3 / w2, or a biased w1 / w2."""
-    d, f = cfg.d_model, cfg.d_ff
-    lin = lambda k, n, bias: init_linear(g, k, n, bias, stacked, device)
-    if cfg.act == "swiglu":
-        return {"w1": lin(d, f, False), "w3": lin(d, f, False), "w2": lin(f, d, False)}
-    return {"w1": lin(d, f, True), "w2": lin(f, d, True)}
+from .layers import QuantSpec, remat
+from .transformer import (_norm, _normal, ffn_apply, init_attention, init_ffn,
+                          init_norm, layer_cache, mask_padded_vocab,
+                          write_new_kv)
 
 
 def init_encdec(cfg: ModelConfig, g: torch.Generator, device) -> dict:
@@ -108,8 +93,9 @@ def encode(params, cfg: ModelConfig, segments, src_embeds) -> torch.Tensor:
     h = torch.as_tensor(src_embeds, device=dev).to(cfg.torch_dtype)
     enc = params["enc"]
     n = enc["ln1"]["scale"].shape[0]
-    for i in range(n):
-        h = _enc_block(h, tree_map(lambda a: a[i], enc), cfg, enc_spec)
+    for i in range(n):      # JAX checkpoints the encoder's body
+        h = remat(cfg.remat, lambda h, i=i: _enc_block(
+            h, tree_map(lambda a: a[i], enc), cfg, enc_spec), h)
     return _norm(h, params["enc_norm"], cfg.norm)
 
 
@@ -141,8 +127,12 @@ def encdec_forward(params, cfg: ModelConfig, segments, *, tokens,
             lp = tree_map(lambda a: a[i], seg)
             cache_l = None if caches is None else layer_cache(caches, start + i)
             tap = want_taps and start + i == last
-            x, new_kv, t = _dec_block(x, enc_out, lp, cfg, spec, cache=cache_l,
-                                      want_taps=tap)
+            if tap or caches is not None:
+                x, new_kv, t = _dec_block(x, enc_out, lp, cfg, spec,
+                                          cache=cache_l, want_taps=tap)
+            else:   # JAX checkpoints every decoder layer but the tapped one
+                x, new_kv, t = remat(cfg.remat, lambda h, e, lp=lp, spec=spec:
+                                     _dec_block(h, e, lp, cfg, spec), x, enc_out)
             if tap:
                 taps = t
             if caches is not None:

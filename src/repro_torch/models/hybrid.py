@@ -12,7 +12,11 @@ last segment's spec.
 Decode state (``hybrid_states``): {'mamba': {'ssm', 'conv'} stacked (G,
 per, ...) in f32, 'attn': {'k', 'v'} (G, B, S, Hkv, hd) and ONE 0-d
 cursor 'len'} shared by every slot, the token-mode layout. It is updated
-in place (the JAX package returns new arrays).
+in place (the JAX package returns new arrays). With ``cfg.remat`` a
+stateless group (its Mamba2 layers and the shared block) runs under
+activation checkpointing in training (``layers.remat``), where JAX
+checkpoints the group's body. Under ``fused_proj`` the shared block's
+SwiGLU FFN is one ``w13``; its attention stays unfused, as JAX builds it.
 """
 from __future__ import annotations
 
@@ -25,10 +29,10 @@ from ..configs.base import ModelConfig
 from ..core.policy import QuantPolicy
 from ..core.tree import slice_stack, tree_map
 from .attention import attention_block
-from .encdec import init_attention, init_ffn
-from .layers import QuantSpec, rmsnorm
+from .layers import QuantSpec, remat, rmsnorm
 from .mamba2 import init_mamba2_block, mamba2_block, mamba2_state_init
-from .transformer import _normal, ffn_apply, init_norm, mask_padded_vocab
+from .transformer import (_normal, ffn_apply, init_attention, init_ffn,
+                          init_norm, mask_padded_vocab)
 
 
 def _groups(cfg: ModelConfig) -> tuple[int, int]:
@@ -97,6 +101,15 @@ def _shared_block(x, p, cfg: ModelConfig, spec: QuantSpec, cache=None,
     return (x, new_kv, taps) if want_taps else (x, new_kv)
 
 
+def _group(x, gp, shared, cfg: ModelConfig, spec: QuantSpec,
+           shared_spec: QuantSpec):
+    """One cacheless group: its Mamba2 layers (``gp`` stacked (per, ...))
+    and then the shared block."""
+    for li in range(_groups(cfg)[1]):
+        x, _ = mamba2_block(x, tree_map(lambda a: a[li], gp), cfg, spec)
+    return _shared_block(x, shared, cfg, shared_spec)[0]
+
+
 def hybrid_forward(params, cfg: ModelConfig, segments, *, tokens,
                    states: Optional[dict] = None, want_taps: bool = False,
                    want_aux: bool = False):
@@ -116,18 +129,17 @@ def hybrid_forward(params, cfg: ModelConfig, segments, *, tokens,
                else slice_stack(params["mamba"], start, end))
         for gi in range(end - start):
             grp = start + gi
+            if states is None:      # JAX checkpoints the group's body
+                x = remat(cfg.remat, lambda h, gi=gi, seg=seg, spec=spec: _group(
+                    h, tree_map(lambda a: a[gi], seg), shared, cfg, spec,
+                    shared_spec), x)
+                continue
             for li in range(per):
                 lp = tree_map(lambda a: a[gi, li], seg)
-                if states is None:
-                    x, _ = mamba2_block(x, lp, cfg, spec)
-                    continue
                 mst = {k: v[grp, li] for k, v in states["mamba"].items()}
                 x, ns = mamba2_block(x, lp, cfg, spec, state=mst)
                 for k, v in ns.items():
                     mst[k].copy_(v)
-            if states is None:
-                x, _ = _shared_block(x, shared, cfg, shared_spec)
-                continue
             ac = states["attn"]
             cache = {"k": ac["k"][grp], "v": ac["v"][grp], "len": ac["len"]}
             x, (k_new, v_new) = _shared_block(x, shared, cfg, shared_spec,

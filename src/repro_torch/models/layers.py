@@ -34,7 +34,7 @@ from ..kernels.int4_matmul import gelu_tanh
 from ..kernels.int8_matmul import int_matmul_exact
 
 __all__ = ["QuantSpec", "qlinear", "rmsnorm", "layernorm", "gelu_f32",
-           "act_fn", "rope_tables", "apply_rope"]
+           "act_fn", "rope_tables", "apply_rope", "remat"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +142,20 @@ def _qlinear_int(x: torch.Tensor, p: dict, spec: QuantSpec,
     if b is not None:
         out = out + b.to(out.dtype)
     return out
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``enabled`` (a
+    config's ``remat``) and autograd records: the layer body's activations
+    are dropped after the forward and recomputed in the backward, where the
+    JAX package wraps the body in ``jax.checkpoint``. The values and the
+    gradients are the same; the memory held between forward and backward is
+    one layer's input. A forward under ``no_grad`` (serving) runs as it is.
+    The bodies draw no random numbers, so no RNG state is kept."""
+    if enabled and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------- norms/acts

@@ -13,6 +13,13 @@ style) or the gather / scatter one (``moe_apply_sorted``,
 quantized per expert (``_expert_matmul``); on the kernel backend each
 expert's product is one integer GEMM launch (``kernels.ops.expert_matmul``).
 
+Under ``fused_proj`` a block holds one ``wqkv`` (q | k | v) and a SwiGLU
+FFN one ``w13`` (gate | up), each one matmul split after the product as
+the JAX package splits it (``fuse_projections`` builds such a tree from an
+unfused one). With ``cfg.remat`` every layer but a tapped one runs under
+activation checkpointing whenever autograd records (``layers.remat``), as
+JAX wraps the layer body in ``jax.checkpoint``.
+
 KV caches are updated in place (the JAX package returns new arrays and
 lets XLA alias them): ``lm_forward`` writes each layer's new rows into the
 cache buffers and returns the same buffers with the advanced cursor. The
@@ -36,7 +43,7 @@ from ..core.quantizer import fake_quant
 from ..core.tree import slice_stack, tree_map
 from ..kernels.int8_matmul import expert_matmul_exact
 from .attention import attention_block
-from .layers import QuantSpec, act_fn, layernorm, qlinear, rmsnorm
+from .layers import QuantSpec, act_fn, layernorm, qlinear, remat, rmsnorm
 
 
 def segments_from_policy(policy: QuantPolicy, use_kernels: bool = False,
@@ -69,6 +76,12 @@ def _norm(x, p, kind):
 
 
 def ffn_apply(x, p, cfg: ModelConfig, spec: QuantSpec):
+    if "w13" in p:
+        # fused gate-up (``fused_proj``): one matmul of width 2 * d_ff, split
+        # as the JAX package splits it (gate first)
+        h1, h3 = torch.chunk(qlinear(x, p["w13"], spec), 2, dim=-1)
+        h = F.silu(h1.to(torch.float32)).to(x.dtype) * h3
+        return qlinear(h, p["w2"], spec, row_parallel=True)
     if cfg.act == "swiglu":
         h = F.silu(qlinear(x, p["w1"], spec).to(torch.float32)).to(x.dtype)
         h = h * qlinear(x, p["w3"], spec)
@@ -295,8 +308,11 @@ def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
     ``cfg.attn_chunk``."""
     pre = cfg.norm == "rms" or not cfg.learned_pos  # BERT uses post-LN
     chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk_threshold else 0
-    n_heads = p["attn"]["wq"]["s_w"].shape[-1] // cfg.hd
-    n_kv = p["attn"]["wk"]["s_w"].shape[-1] // cfg.hd
+    if "wqkv" in p["attn"]:     # a rank holds 1 / tp of each part's heads
+        n_heads, n_kv = cfg.num_heads // spec.tp, cfg.num_kv_heads // spec.tp
+    else:
+        n_heads = p["attn"]["wq"]["s_w"].shape[-1] // cfg.hd
+        n_kv = p["attn"]["wk"]["s_w"].shape[-1] // cfg.hd
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def attn(h):
@@ -361,10 +377,39 @@ def init_expert_linear(g, e: int, k: int, n: int, stacked: Optional[int],
             "s_a": torch.ones(lead + (e, 1, 1), device=device)}
 
 
+def init_attention(g, cfg: ModelConfig, stacked: Optional[int], device,
+                   fused: bool = False) -> dict:
+    """wq / wk / wv / wo of ``cfg``'s heads, ``stacked`` along a layer dim;
+    with ``fused`` one ``wqkv`` of width (H + 2 Hkv) * hd (q | k | v, the
+    JAX package's ``init_attention(fused=True)``) and wo."""
+    hq, hkv = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    lin = lambda k, n, bias: init_linear(g, k, n, bias, stacked, device)
+    if fused:
+        return {"wqkv": lin(cfg.d_model, hq + 2 * hkv, cfg.qkv_bias),
+                "wo": lin(hq, cfg.d_model, cfg.out_bias)}
+    return {"wq": lin(cfg.d_model, hq, cfg.qkv_bias),
+            "wk": lin(cfg.d_model, hkv, cfg.qkv_bias),
+            "wv": lin(cfg.d_model, hkv, cfg.qkv_bias),
+            "wo": lin(hq, cfg.d_model, cfg.out_bias)}
+
+
+def init_ffn(g, cfg: ModelConfig, stacked: Optional[int], device) -> dict:
+    """The JAX ``init_ffn`` tree: SwiGLU w1 / w3 / w2 (``fused_proj``: one
+    w13 of width 2 * d_ff, gate first, and w2), or a biased w1 / w2."""
+    d, f = cfg.d_model, cfg.d_ff
+    lin = lambda k, n, bias: init_linear(g, k, n, bias, stacked, device)
+    if cfg.act == "swiglu":
+        if cfg.fused_proj:
+            return {"w13": lin(d, 2 * f, False), "w2": lin(f, d, False)}
+        return {"w1": lin(d, f, False), "w3": lin(d, f, False), "w2": lin(f, d, False)}
+    return {"w1": lin(d, f, True), "w2": lin(f, d, True)}
+
+
 def init_moe(g, cfg: ModelConfig, stacked: Optional[int], device) -> dict:
     """The JAX ``init_moe`` tree: the f32 router (d, E), the experts' w1 /
     w3 (d -> expert_d_ff) and w2, and, with a shared expert, its SwiGLU FFN
-    and its (d, 1) sigmoid gate."""
+    (``init_ffn`` at its width: w13 under ``fused_proj``) and its (d, 1)
+    sigmoid gate. The routed experts are never fused."""
     d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
     lead = () if stacked is None else (stacked,)
     p = {"router": _normal(g, lead + (d, e), device),
@@ -372,9 +417,8 @@ def init_moe(g, cfg: ModelConfig, stacked: Optional[int], device) -> dict:
          "w3": init_expert_linear(g, e, d, f, stacked, device),
          "w2": init_expert_linear(g, e, f, d, stacked, device)}
     if cfg.shared_expert_d_ff:
-        sf = cfg.shared_expert_d_ff
-        lin = lambda k, n: init_linear(g, k, n, False, stacked, device)
-        p["shared"] = {"w1": lin(d, sf), "w3": lin(d, sf), "w2": lin(sf, d)}
+        sub = dataclasses.replace(cfg, d_ff=cfg.shared_expert_d_ff)
+        p["shared"] = init_ffn(g, sub, stacked, device)
         p["shared_gate"] = _normal(g, lead + (d, 1), device)
     return p
 
@@ -384,28 +428,55 @@ def init_block(g: torch.Generator, cfg: ModelConfig, stacked: Optional[int],
     """One transformer block's fp params (``stacked`` of them along a
     leading layer dim, or one unstacked block when None): the JAX
     ``init_block`` tree, same keys, shapes and init scales (weights
-    N(0, 0.02), biases 0, norms 1 / 0, quant scales 1). Values come from
-    ``g``; ``jax.random``'s cannot be reproduced, so parity tests carry
-    JAX's arrays across instead."""
-    if cfg.family not in ("bert", "dense", "vlm", "moe") or cfg.fused_proj:
-        raise ValueError(f"init_block: family {cfg.family!r} (fused_proj="
-                         f"{cfg.fused_proj}) arrives with a later slice of "
-                         "the port")
-    d, f = cfg.d_model, cfg.d_ff
-    hq, hkv = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
-    lin = lambda k, n, bias: init_linear(g, k, n, bias, stacked, device)
+    N(0, 0.02), biases 0, norms 1 / 0, quant scales 1), the fused ``wqkv``
+    and ``w13`` under ``fused_proj``. Values come from ``g``;
+    ``jax.random``'s cannot be reproduced, so parity tests carry JAX's
+    arrays across instead."""
+    if cfg.family not in ("bert", "dense", "vlm", "moe"):
+        raise ValueError(f"init_block: family {cfg.family!r} has no "
+                         "transformer block (see models/api.init_model)")
+    d = cfg.d_model
     p = {"ln1": init_norm(d, stacked, device, cfg.norm),
-         "attn": {"wq": lin(d, hq, cfg.qkv_bias), "wk": lin(d, hkv, cfg.qkv_bias),
-                  "wv": lin(d, hkv, cfg.qkv_bias), "wo": lin(hq, d, cfg.out_bias)},
+         "attn": init_attention(g, cfg, stacked, device, fused=cfg.fused_proj),
          "ln2": init_norm(d, stacked, device, cfg.norm)}
     if cfg.family == "moe":
         p["moe"] = init_moe(g, cfg, stacked, device)
-    elif cfg.act == "swiglu":
-        p["ffn"] = {"w1": lin(d, f, False), "w3": lin(d, f, False),
-                    "w2": lin(f, d, False)}
     else:
-        p["ffn"] = {"w1": lin(d, f, True), "w2": lin(f, d, True)}
+        p["ffn"] = init_ffn(g, cfg, stacked, device)
     return p
+
+
+def fuse_projections(params):
+    """An unfused fp tree as ``fused_proj`` holds it: every transformer
+    block's wq | wk | wv concatenated along N into ``wqkv`` (their ``s_w``
+    and biases too, ``s_a`` from wq) and every SwiGLU FFN's w1 | w3 into
+    ``w13``: the dense FFN, a MoE layer's shared expert, the hybrid's
+    shared block (whose attention stays unfused, as the JAX package builds
+    it). The same functions of the inputs, one matmul each."""
+    def cat(parts):
+        out = {"w": torch.cat([q["w"] for q in parts], dim=-1),
+               "s_w": torch.cat([q["s_w"] for q in parts], dim=-1),
+               "s_a": parts[0]["s_a"]}
+        if "b" in parts[0]:
+            out["b"] = torch.cat([q["b"] for q in parts], dim=-1)
+        return out
+
+    def ffn(f):
+        if "w3" not in f:
+            return f
+        return {"w13": cat([f["w1"], f["w3"]]), "w2": f["w2"]}
+
+    if "layers" not in params:              # the hybrid: its shared block's FFN
+        shared = params["shared"]
+        return {**params, "shared": {**shared, "ffn": ffn(shared["ffn"])}}
+    layers = dict(params["layers"])
+    a = layers["attn"]
+    layers["attn"] = {"wqkv": cat([a["wq"], a["wk"], a["wv"]]), "wo": a["wo"]}
+    if "ffn" in layers:
+        layers["ffn"] = ffn(layers["ffn"])
+    if "shared" in layers.get("moe", {}):
+        layers["moe"] = {**layers["moe"], "shared": ffn(layers["moe"]["shared"])}
+    return {**params, "layers": layers}
 
 
 def init_lm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
@@ -557,8 +628,12 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
             lp = tree_map(lambda a: a[i], seg)
             cache_l = None if caches is None else layer_cache(caches, start + i)
             tap = want_taps and start + i == last
-            out = block_apply(x, lp, cfg, spec, cache=cache_l, want_taps=tap,
-                              want_aux=moe)
+            if tap or caches is not None:
+                out = block_apply(x, lp, cfg, spec, cache=cache_l,
+                                  want_taps=tap, want_aux=moe)
+            else:   # JAX checkpoints every layer but the tapped one
+                out = remat(cfg.remat, lambda h, lp=lp, spec=spec: block_apply(
+                    h, lp, cfg, spec, want_aux=moe), x)
             x, new_kv = out[0], out[1]
             if tap:
                 taps = out[2]

@@ -20,7 +20,9 @@ PyTorch, as in the JAX package, where none of them is a Pallas kernel.
 
 Decode state (``xlstm_states``): always f32, ``m`` at -1e30. It is updated
 in place, one layer at a time (the JAX package returns new arrays), so a
-step holds at most one layer's new ``C`` beside the state.
+step holds at most one layer's new ``C`` beside the state. With
+``cfg.remat`` a stateless group runs under activation checkpointing in
+training (``layers.remat``), where JAX checkpoints the group's body.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.tree import slice_stack, tree_map
-from .layers import QuantSpec, qlinear, rmsnorm
+from .layers import QuantSpec, qlinear, remat, rmsnorm
 from .mamba2 import CONV_K, _causal_conv, _softplus
 from .transformer import _normal, init_linear, init_norm, mask_padded_vocab
 
@@ -289,6 +291,14 @@ def init_xlstm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
     }
 
 
+def _group(x, mp, sp, cfg: ModelConfig, spec: QuantSpec):
+    """One stateless group: its mLSTM layers (``mp`` stacked (per - 1,
+    ...)) and then its sLSTM layer ``sp``."""
+    for li in range(_groups(cfg)[1] - 1):
+        x, _ = mlstm_block(x, tree_map(lambda a: a[li], mp), cfg, spec)
+    return slstm_block(x, sp, cfg, spec)[0]
+
+
 def xlstm_forward(params, cfg: ModelConfig, segments, *, tokens,
                   states: Optional[dict] = None, want_taps: bool = False,
                   want_aux: bool = False):
@@ -310,20 +320,20 @@ def xlstm_forward(params, cfg: ModelConfig, segments, *, tokens,
                 else slice_stack(params["slstm"], start, end))
         for gi in range(end - start):
             grp = start + gi
+            if states is None:      # JAX checkpoints the group's body
+                x = remat(cfg.remat, lambda h, gi=gi, mseg=mseg, sseg=sseg,
+                          spec=spec: _group(h, tree_map(lambda a: a[gi], mseg),
+                                            tree_map(lambda a: a[gi], sseg),
+                                            cfg, spec), x)
+                continue
             for li in range(per - 1):
                 lp = tree_map(lambda a: a[gi, li], mseg)
-                if states is None:
-                    x, _ = mlstm_block(x, lp, cfg, spec)
-                    continue
                 st = {k: v[grp, li] for k, v in states["mlstm"].items()}
                 x, ns = mlstm_block(x, lp, cfg, spec, state=st)
                 for k, v in ns.items():
                     st[k].copy_(v)
                 del ns
             sp = tree_map(lambda a: a[gi], sseg)
-            if states is None:
-                x, _ = slstm_block(x, sp, cfg, spec)
-                continue
             st = {k: v[grp] for k, v in states["slstm"].items()}
             x, ns = slstm_block(x, sp, cfg, spec, state=st)
             for k, v in ns.items():

@@ -168,10 +168,15 @@ class ServingEngine:
         # a tp plan: this process must be one of the plan's ranks, and the
         # params this rank's shard (checked on one head-sharded leaf)
         if plan.make_group(self.device) is not None:
-            wk = params["layers"][0]["attn"]["wk"]["s_w"].shape[-1]
-            if wk != plan.kv_heads * self.cfg.hd:
+            attn, cfg = params["layers"][0]["attn"], self.cfg
+            if "wqkv" in attn:      # q | k | v: the KV heads' share of its width
+                kv = (attn["wqkv"]["s_w"].shape[-1] // cfg.hd * cfg.num_kv_heads
+                      // (cfg.num_heads + 2 * cfg.num_kv_heads))
+            else:
+                kv = attn["wk"]["s_w"].shape[-1] // cfg.hd
+            if kv != plan.kv_heads:
                 raise ValueError(
-                    f"tp={plan.tp}: the params hold {wk // self.cfg.hd} KV "
+                    f"tp={plan.tp}: the params hold {kv} KV "
                     f"heads a layer, a rank's shard holds {plan.kv_heads}; "
                     "place them with deploy() or DeployedModel.load(tp=...)")
         self.tenant = tenant                  # metrics label

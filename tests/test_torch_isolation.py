@@ -72,7 +72,11 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
                  "src/repro_torch/models/hybrid.py",
                  "src/repro_torch/models/xlstm.py",
                  "src/repro_torch/distributed/compression.py",
-                 "src/repro_torch/launch/elastic.py"):
+                 "src/repro_torch/launch/elastic.py",
+                 "src/repro_torch/launch/op_analysis.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/benchmarks/roofline.py",
+                 "src/repro_torch/benchmarks/run.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.core import qat\n"
@@ -206,3 +210,29 @@ def test_xlstm_and_elastic_entry_points_default_to_the_card(no_cuda, tmp_path):
     mgr.save(1, {"w": torch.ones(2)})
     state, step, _ = elastic.elastic_resume({"w": torch.zeros(2)}, mgr, device="cpu")
     assert step == 1 and torch.equal(state["w"], torch.ones(2))
+
+
+def test_dryrun_and_op_analysis_take_meta_explicitly(no_cuda, capsys):
+    """The analysis runs on the meta device and says so: ``analyze``
+    refuses a step on CPU tensors (it would compute), a dry-run cell's
+    arguments are all meta tensors, and the section runner's device
+    sections default to the card (they fail without one) while the
+    roofline section needs none."""
+    from repro_torch.configs import ShapeSpec, get_config, reduced
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.benchmarks import run
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.op_analysis import analyze
+    with pytest.raises(ValueError, match="meta device"):
+        analyze(lambda x: x + 1, torch.zeros(2))
+    cfg = reduced(get_config("stablelm-3b"))
+    step, args, nbytes = dryrun._serve_cell(
+        cfg, ShapeSpec("d", 16, 2, "decode"), make_production_mesh(serving=True),
+        policy=QuantPolicy(num_layers=4, mode="int", last_k_int4=2), extra={})
+    leaves = [v for _, v in tree_leaves_with_path(list(args)) if isinstance(v, torch.Tensor)]
+    assert leaves and all(t.is_meta for t in leaves) and nbytes > 0
+    assert analyze(step, *args)["launches"]["int8_matmul"] == 14
+    assert run.main(["--quick", "--only", "table2"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

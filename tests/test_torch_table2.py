@@ -174,5 +174,9 @@ def test_init_block_matches_jax_shapes_and_scales(arch, stacked):
             np.testing.assert_array_equal(a.numpy(), b)
         else:                                # weights: N(0, 0.02)
             assert abs(float(a.std()) - 0.02) < 0.002, path
-    with pytest.raises(ValueError, match="later slice"):
-        init_block(torch.Generator(), cfg.replace(fused_proj=True), None, "cpu")
+    # fused_proj: the fused wqkv (and w13 for SwiGLU) of JAX's init_block
+    jf = jinit_block(jax.random.PRNGKey(0), jcfg.replace(fused_proj=True), stacked)
+    pf = init_block(torch.Generator().manual_seed(0), cfg.replace(fused_proj=True),
+                    stacked, "cpu")
+    assert _tree(pf, spec) == _tree(jf, spec)
+    assert "wqkv" in pf["attn"] and "wq" not in pf["attn"]
