@@ -129,8 +129,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 10. shared-prefix traffic at kv_bits 8 (13 requests: one sampled, n = 2,
    on a 200-token prompt; 8 sharing a 256-token system prompt followed by
    8-72 distinct tokens; 4 unique prompts of 100-300 tokens) on phase 6's
-   artifact cut to 8 layers (``PREFIX_LAYERS``: layers 0-3 of its W8A8
-   segment and 0-3 of its W4A4 one, as one W8A8 0-3 / W4A4 4-7 model;
+   artifact cut to 4 layers (``PREFIX_LAYERS``: layers 0-1 of its W8A8
+   segment and 0-1 of its W4A4 one, as one W8A8 0-1 / W4A4 2-3 model;
    the depth cut keeps the script within its time) through (i) a
    dense engine with a 256 MiB prefix cache, (ii) a paged engine with the
    prefix registry at the dense-equivalent budget, (iii) the paged engine
@@ -287,9 +287,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    1.0 beside the flood, two replicas at least 1.8x one engine's virtual
    capacity with byte-identical streams;
 21. the MoE family: (a) granite-moe-3b-a800m at full width, its depth cut
-   to 16 of 32 layers for the script's time (``MOE_GRANITE_LAYERS``; d
+   to 8 of 32 layers for the script's time (``MOE_GRANITE_LAYERS``; d
    1536, 24 heads of 64 on 8 KV heads, 40 experts of d_ff 512, top-8; W8A8
-   layers 0-7, W4A4 8-15, bf16 activations) from a seeded
+   layers 0-3, W4A4 4-7, bf16 activations) from a seeded
    generator on the card -> ``deploy`` with 4 calibration batches ->
    ``save`` -> ``load``, serving 8 greedy requests (prompts of 5-256
    tokens, 4-12 new tokens) and one sampled (n = 2) on 8 slots at kv8
@@ -313,13 +313,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    checks and (b)'s layer check at its shapes. Phases 5, 8 and 12 also run
    the attention kernels at GQA groups 3, 5 and 8 ((24, 8, 64), (40, 8,
    128), (64, 8, 128): granite-moe-3b-a800m, qwen2.5-32b, qwen1.5-110b);
-22. zamba2-2.7b (the Mamba2 hybrid) at full width, its depth cut to 24 of
+22. zamba2-2.7b (the Mamba2 hybrid) at full width, its depth cut to 12 of
    54 Mamba2 layers for the script's time (``ZAMBA_LAYERS``; d 2560, 80 SSM
-   heads of 64, state 64, in 4 groups of 6, each group followed by the one
+   heads of 64, state 64, in 2 groups of 6, each group followed by the one
    shared attention + SwiGLU block, 32 heads of 80; vocab 32000; bf16
-   activations) under the serve CLI's policy: W8A8 groups 0-1, W4A4 groups
-   2-3, the shared block at the last segment's 4
-   bits. fp params from a seeded generator on the card -> ``deploy`` with 2
+   activations) under the serve CLI's policy: W8A8 group 0, W4A4 group 1,
+   the shared block at the last segment's 4 bits. fp params from a seeded
+   generator on the card -> ``deploy`` with 2
    calibration batches of 256 tokens (a multiple of the SSD chunk) ->
    ``save`` under ``build/`` -> ``load`` -> a token-mode ``ServingEngine``
    (4 slots, max_len 512) serving 8 greedy requests (prompts of 16-48
@@ -364,10 +364,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    output reported. Then the non-causal flash kernel alone at the encoder's
    shape beside its plain version, SDPA (``is_causal=False``) and its
    bound;
-24. xlstm-1.3b at full width and depth (48 layers in 6 groups of 7 mLSTM +
-   1 sLSTM, d 2048, 4 heads, the mLSTM's head width 1024, vocab 50304;
-   bf16 activations, an f32 recurrent state of 2.83 GB at 4 slots) under
-   the serve CLI's policy: W8A8 groups 0-2, W4A4 groups 3-5. fp params
+24. xlstm-1.3b at full width, its depth cut to 24 of 48 layers for the
+   script's time (``XLSTM_LAYERS``; 3 groups of 7 mLSTM + 1 sLSTM, d 2048,
+   4 heads, the mLSTM's head width 1024, vocab 50304; bf16 activations,
+   an f32 recurrent state at 4 slots half the full depth's 2.83 GB) under
+   the serve CLI's policy: W8A8 groups 0-1, W4A4 group 2. fp params
    from a seeded generator on the card -> ``deploy`` with 2 calibration
    batches of 256 tokens (the mLSTM chunk) -> ``save`` under ``build/`` ->
    ``load``. The first call of each integer GEMM shape of a token step (up
@@ -378,13 +379,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the engine admits and finishes for this family as JAX's does, and 8
    greedy requests (prompts of 16-48 tokens, 16 new tokens; freed slots
    refilled): every request finishes, every step's logits finite, every
-   token step launches exactly the 222 GEMMs ``xlstm_linears`` derives
-   (int8 111, int4 111, all split-K: no act_quant, no attention kernel), no
+   token step launches exactly the 111 GEMMs ``xlstm_linears`` derives
+   (int8 74, int4 37, all split-K: no act_quant, no attention kernel), no
    plain version on a CUDA tensor; the streams equal the same artifact's
    under the reference backend on the card. A token step's eager and
    CUDA-graph (device) ms. One cacheless forward of 1024 tokens
    (``mlstm_chunked`` over 4 chunks, the sLSTM loop over 1024 steps)
-   launching exactly 222 act_quant and 222 GEMMs (wgmma), the first call
+   launching exactly 111 act_quant and 111 GEMMs (wgmma), the first call
    of each GEMM shape bit-equal to its plain version, the logits bit-equal
    to the reference plan's; eager ms and peak memory. Then 2 training
    steps of 2 x 256 tokens on the model cut to its first group (8 layers),
@@ -416,7 +417,36 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the predicted bytes, FLOPs, the bound they give and the predicted
    memory beside the graphed device ms and the measured peak; then
    ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` on the single layout
-   (their JSON under ``chiprun_out/dryrun_torch/``).
+   (their JSON under ``chiprun_out/dryrun_torch/``);
+26. (a) the sharded QAT step (``launch/train.build_train_step`` with
+   ``TrainGroups``): stablelm-3b at full width, its depth cut to 4 layers
+   (``SHARD_LAYERS``), fake quant W8A8 layers 0-1 / W4A4 2-3, ``remat`` on,
+   a batch of 2 x 4096 (past the chunk threshold: the chunk branch), the
+   CPU tests' hyperparameters (``SHARD_HP``), weight and activation scales
+   calibrated first (at their init of 1 no block weight gets a gradient).
+   One step unsharded on the card in f32 and in bf16 activations, then
+   each of ``SHARD_LAYOUTS`` as 2 ranks sharing the one card over gloo
+   (NCCL refuses two ranks on one card; gloo must take ``all_reduce``,
+   ``broadcast`` and ``all_gather`` on CUDA tensors, ``probe_gloo_cuda``
+   raises naming any it refuses): model 2 with ``attn_seq_shard`` and data
+   2 with FSDP in f32, model 2 in bf16. Each rank's loss, first Adam moment
+   (the clipped gradient times 1 - b1) and Adam step (params after less
+   params before), leaf by leaf, against the unsharded step of its dtype,
+   at ``SHARD_TOLS`` (the CPU tests' gates: f32 rtol 1e-5, ||delta|| /
+   ||m|| 1e-4, ||delta|| / ||step|| 1e-2; bf16 rtol 1e-3 and 0.5 on m, its
+   step not held), the leaf that comes closest named, the chunk branch
+   context-parallel under ``attn_seq_shard``; eager ms and peak memory per
+   rank. (b) The four ``examples/torch_*.py`` with ``--quick`` on the card,
+   each passing its own asserts (``torch_serve_sharded`` skips its tp half
+   on one card), their kernel launches counted and no plain version on a
+   CUDA tensor. (c) ``launch.dryrun.run_cell`` for stablelm-3b x train_4k x
+   multi (data 2 x model 2) plain, with ``--fsdp`` and with
+   ``--attn-seq-shard``, in three processes on the card's host while (a)
+   and (b) run: every cell ``ok``, FSDP's argument bytes at most 0.55x the
+   plain cell's.
+
+``python3 chip_smoke.py --sharded-cards 4`` runs only phase 26 (a)'s step
+on four cards over NCCL (``sharded_cards``).
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -2293,7 +2323,7 @@ def compare_prefix(ref, run) -> dict:
 
 #: phase 10's depth: the first PREFIX_LAYERS / 2 layers of each of phase
 #: 6's two bit-width segments
-PREFIX_LAYERS = 8
+PREFIX_LAYERS = 4
 
 
 def depth_cut(model, layers: int):
@@ -4085,9 +4115,9 @@ MOE_SLOTS, MOE_MAX_LEN = 8, 512
 #: params, 20.9 GB in f32; the full 14.3 B would not share the card with
 #: its codes and calibration)
 MOE_QWEN_LAYERS = 8
-#: granite-moe-3b-a800m's depth on the card: 16 of its 32 layers, for the
+#: granite-moe-3b-a800m's depth on the card: 8 of its 32 layers, for the
 #: script's time (each layer's work is the same)
-MOE_GRANITE_LAYERS = 16
+MOE_GRANITE_LAYERS = 8
 #: the layer checks' token counts: a decode step, and a prefill in two
 #: groups of moe_group_size 512
 MOE_LAYER_TOKENS = (8, 1024)
@@ -4431,9 +4461,9 @@ def moe_phase(dev) -> dict:
 #: the token-mode engines of phases 22 and 24: slots, max_len, and the new
 #: tokens of a request
 TOKEN_SLOTS, TOKEN_MAX_LEN, TOKEN_NEW = 4, 512, 16
-#: zamba2-2.7b's depth on the card: 24 of its 54 layers (4 groups of 6),
+#: zamba2-2.7b's depth on the card: 12 of its 54 layers (2 groups of 6),
 #: for the script's time
-ZAMBA_LAYERS = 24
+ZAMBA_LAYERS = 12
 #: the cacheless forward past the chunk threshold: the shared block on the
 #: flash kernel (causal), ssd_chunked over 4096 / 256 = 16 chunks
 ZAMBA_LONG = 4096
@@ -4680,9 +4710,9 @@ def zamba_phase(dev) -> dict:
 
     t0 = time.perf_counter()
     out = {}
-    # W8A8 groups 0-1, W4A4 groups 2-3, the shared block at 4 bits
+    # W8A8 group 0, W4A4 group 1, the shared block at 4 bits
     model, out["deploy"] = token_model(dev, ROOT / "build" / "chip_smoke_zamba2_artifact",
-                                       "zamba2-2.7b", ZAMBA_CALIB, [(0, 2, 8), (2, 4, 4)],
+                                       "zamba2-2.7b", ZAMBA_CALIB, [(0, 1, 8), (1, 2, 4)],
                                        layers=ZAMBA_LAYERS)
     cfg = model.plan.cfg
     linears = hybrid_linears(cfg, model.plan.segments)
@@ -5029,6 +5059,13 @@ def seamless_phase(dev) -> dict:
 #: 512), which the engine admits and finishes for xLSTM, as JAX's does
 XLSTM_PAST = (16, 500)
 XLSTM_LONG = 1024
+#: xlstm-1.3b's depth on the card: 24 of its 48 layers (3 groups), for the
+#: script's time: at full depth, with the request above, this phase took
+#: 163.0 s on an H100 80GB HBM3 at 700 W, most of it the request's 516
+#: token steps on both backends
+XLSTM_LAYERS = 24
+#: a token step's GEMMs at that depth: act_quant, int8, int4 (37 a group)
+XLSTM_STEP = (0, 74, 37)
 #: calibration batches: (batches, rows, tokens), a multiple of the mLSTM
 #: chunk (256)
 XLSTM_CALIB = (2, 1, 256)
@@ -5151,12 +5188,13 @@ def xlstm_phase(dev) -> dict:
     t0 = time.perf_counter()
     out = {}
     model, out["deploy"] = token_model(dev, ROOT / "build" / "chip_smoke_xlstm_artifact",
-                                       "xlstm-1.3b", XLSTM_CALIB, [(0, 3, 8), (3, 6, 4)])
+                                       "xlstm-1.3b", XLSTM_CALIB, [(0, 2, 8), (2, 3, 4)],
+                                       layers=XLSTM_LAYERS)
     cfg = model.plan.cfg
     linears = xlstm_linears(cfg, model.plan.segments)
     per_step = {**dict.fromkeys(SOURCES, 0), **gemm_launches(linears, TOKEN_SLOTS)}
     if (per_step["act_quant"], per_step["int8_matmul"], per_step["int4_matmul"]) \
-            != (0, 111, 111):
+            != XLSTM_STEP:
         raise AssertionError(f"xlstm: a token step's planned launches {per_step}")
     # each GEMM shape of a token step (M = 4, split-K) bit-equal to its plain
     # version, on a fresh state
@@ -5510,6 +5548,466 @@ def fused_remat_analysis_phase(dev, dense_streams: list, dense_step: dict) -> di
             "seconds": time.perf_counter() - t0}
 
 
+#: phase 26: stablelm-3b at full width cut to 4 layers, a batch past the
+#: chunk threshold (2048), fake quant with ``remat`` on
+SHARD_LAYERS = 4
+SHARD_BATCH = (2, 4096)
+#: the CPU tests' hyperparameters (tests/test_torch_sharded_train.py):
+#: lr 1e-3 for the weights, so each weight's first step (+-lr) stands far
+#: above its float32 rounding
+SHARD_HP = dict(total_steps=10, lr_weights=1e-3)
+#: the activation scales' calibration batch: row 0's first 512 tokens
+SHARD_CALIB_TOKENS = 512
+#: the references: (quantized, activation dtype) -> gates (the loss's
+#: rtol, each first-Adam-moment leaf's ||delta|| / ||m||, each Adam-step
+#: leaf's ||delta|| / ||step||; None: not held), the CPU tests' where held
+#: (tests/test_torch_sharded_train.py says why each). "wa": fake quant of
+#: weights and activations, the slice's QAT. "w": of the weights only.
+#: With its activations quantized a calibrated step at full width is
+#: chaotic in its rounding: an activation code that a changed float sum
+#: flips moves its token's later codes too, and a first-moment leaf moves
+#: as far as a fault moves it (0.30 of ``lm_head`` from the embedding
+#: table scaled by 1 + 1.2e-7, on the card). So that step is held by its
+#: loss; the weight-only step, whose codes no sum decides, is held leaf by
+#: leaf
+SHARD_REFS = {("wa", "float32"): (1e-5, None, None),
+              ("wa", "bfloat16"): (1e-3, None, None),
+              ("w", "float32"): (1e-5, 1e-4, 1e-2)}
+#: (name, data, model, fsdp, attn_seq_shard, quantized, dtype): 2 ranks
+#: sharing the one card over gloo (NCCL refuses two ranks on one card)
+SHARD_LAYOUTS = (("model2_seq_shard", 1, 2, False, True, "wa", "float32"),
+                 ("data2_fsdp", 2, 1, True, False, "wa", "float32"),
+                 ("model2_bf16", 1, 2, False, False, "wa", "bfloat16"),
+                 ("model2_seq_shard_wonly", 1, 2, False, True, "w", "float32"),
+                 ("data2_fsdp_wonly", 2, 1, True, False, "w", "float32"))
+#: each gate is the larger of its CPU gate and SHARD_NOISE_MARGIN times the
+#: unsharded step's own noise: the largest distance from it of the same
+#: step run from the embedding table scaled by 1 + k e, e about one unit
+#: roundoff of the dtype, for each k of its SHARD_TWINS (the weight-only
+#: step's noise is rounding alone)
+SHARD_TWIN_EPS = {"float32": 1.2e-7, "bfloat16": 3.9e-3}
+SHARD_TWINS = {("wa", "float32"): (1, -1, 2, -2), ("wa", "bfloat16"): (1, -1),
+               ("w", "float32"): (1,)}
+SHARD_NOISE_MARGIN = 4
+#: a held first-moment or step gate past this could not tell a fault from
+#: that noise (a skipped update, a gradient summed onto the wrong FSDP rank
+#: read 1.0 to 1.6 in the CPU tests): the phase fails
+SHARD_GATE_CAP = 0.5
+#: a first-moment leaf below this of the whole tree's norm is rounding
+#: residue (a key bias's exact gradient is 0): it must be residue in both
+#: runs, and its step is not held
+SHARD_RESIDUE = 1e-8
+SHARD_DRYRUN = ({}, {"fsdp": True}, {"attn_seq_shard": True})
+EXAMPLES = ("torch_quickstart", "torch_serve_int4", "torch_serve_sharded",
+            "torch_train_qat_distill")
+
+
+def shard_config(dtype: str = "float32"):
+    """Phase 26's model: stablelm-3b at full width, cut to 4 layers, in
+    ``dtype`` activations."""
+    from repro_torch.configs import get_config
+    return get_config("stablelm-3b").replace(num_layers=SHARD_LAYERS, dtype=dtype)
+
+
+def shard_batch(cfg, batch_shape) -> dict:
+    B, S = batch_shape
+    toks = np.random.default_rng(26).integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def shard_policy(cfg, quantized: str = "wa"):
+    """W8A8 layers 0-1 / W4A4 2-3 ("wa"), or those weights with the
+    activations left unquantized ("w")."""
+    from repro_torch.core.policy import QuantPolicy
+    n = cfg.num_layers
+    return QuantPolicy(num_layers=n, mode="fake", last_k_int4=n // 2,
+                       act_bits_override=0 if quantized == "w" else None)
+
+
+def shard_params(cfg, batch: dict, dev):
+    """fp params from a seeded generator on ``dev``, calibrated as training
+    is (weight scales absmax / l_max, activation scales on row 0's first
+    ``SHARD_CALIB_TOKENS``): at the scales' init of 1 every weight
+    quantizes to 0 and no block weight gets a gradient."""
+    from repro_torch.core import qat
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.models import api
+    policy = shard_policy(cfg)
+    params = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = qat.calibrate_weight_scales(params, qat.default_bits_fn(cfg, policy))
+    fp_plan = ExecutionPlan.build(cfg, None)
+    fwd = lambda p, b: api.forward(p, fp_plan, tokens=torch.as_tensor(b["tokens"],
+                                                                      device=dev))[0]
+    with torch.no_grad():
+        return qat.calibrate_act_scales(params, cfg, policy, fwd, [
+            {"tokens": batch["tokens"][:1, :SHARD_CALIB_TOKENS]}])
+
+
+def timed_step(step, params, opt, batch) -> tuple:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, parts = step(params, opt, batch)
+    torch.cuda.synchronize()
+    return params, opt, {k: float(v) for k, v in parts.items()}, {
+        "eager_ms": (time.perf_counter() - t0) * 1e3,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def shard_rank(layouts: tuple, cfg, batch_shape, ref_dir: str, device: str) -> dict:
+    """One rank of phase 26's layouts (2 ranks each) on the card, over
+    gloo, in turn: gloo must take the step's collectives on CUDA tensors
+    (``probe_gloo_cuda`` raises otherwise), then per layout one sharded
+    step from the unsharded step's starting params: its loss and, where
+    the reference saved them, the distances of its first Adam moment (the
+    clipped gradient times 1 - b1) and Adam step (the params after less
+    the params before) from the reference's, leaf by leaf (each part's
+    squares summed over the ranks that hold it). Every rank's readings,
+    gathered to rank 0."""
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import probe_gloo_cuda
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        if dist.get_backend() == "gloo":
+            probe_gloo_cuda(dev)
+    out = {}
+    for layout in layouts:
+        t0 = time.perf_counter()
+        out[layout[0]] = shard_layout(layout, cfg, batch_shape, Path(ref_dir), dev)
+        out[layout[0]][0]["rank_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def shard_layout(layout: tuple, cfg, batch_shape, ref_dir: Path, dev) -> list:
+    import torch.distributed as dist
+    from repro_torch.configs import TrainHParams
+    from repro_torch.core.tree import tree_leaves_with_path, tree_map
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.distributed import shard_training, training_specs
+    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.launch.mesh import make_train_groups
+    from repro_torch.launch.train import build_train_step, shard_state
+    from repro_torch.models import attention
+    from repro_torch.optim import adam_init
+
+    name, data, model, fsdp, seq, quantized, dtype = layout
+    groups = make_train_groups(data, model)
+    cfg = cfg.replace(attn_seq_shard=seq, dtype=dtype)
+    before = torch.load(ref_dir / "before.pt", mmap=True, map_location="cpu")
+    params = tree_map(lambda t: t.to(dev, copy=True), before)   # the step updates in place
+    specs = training_specs(params, cfg, data=data, fsdp=fsdp)
+    local = shard_state({"params": params, "opt": adam_init(params)}, specs, groups)
+    del params
+    torch.cuda.empty_cache()
+    calls = {"seq_shard_attention": 0}
+    real = attention.seq_shard_attention
+
+    def counted(*a, **kw):
+        calls["seq_shard_attention"] += 1
+        return real(*a, **kw)
+    attention.seq_shard_attention = counted
+    step = build_train_step(ExecutionPlan.build(cfg, shard_policy(cfg, quantized), tp=model),
+                            TrainHParams(**SHARD_HP), groups=groups, specs=specs)
+    p2, o2, parts, run = timed_step(step, local["params"], local["opt"],
+                                    shard_batch(cfg, batch_shape))
+    attention.seq_shard_attention = real
+    ref = torch.load(ref_dir / f"{quantized}_{dtype}.pt", mmap=True, map_location="cpu")
+    axes = dict(tree_leaves_with_path(specs))
+    cut = lambda tree: dict(tree_leaves_with_path(shard_training(tree, specs, groups)))
+
+    def summed(path, *terms):
+        """The terms' sums over this leaf's whole array, not this rank's part."""
+        sq = torch.stack([t.to(torch.float32) for t in terms])
+        for ax in axes[path].axes:
+            all_reduce(sq, groups.mp_group if ax == "model" else groups.dp_group)
+        return [float(v) for v in sq]
+
+    worst, residue = {"m": None, "step": None}, []
+    if "m" in ref:
+        # (||delta||^2, ||m_ref||^2, ||m||^2) a leaf
+        want_m, m_sq = cut(ref["m"]), {}
+        for path, g in tree_leaves_with_path(o2.m):
+            w = want_m[path].to(dev)
+            m_sq[path] = summed(path, torch.sum(torch.square(g - w)),
+                                torch.sum(torch.square(w)), torch.sum(torch.square(g)))
+        whole = float(np.sqrt(sum(v[1] for v in m_sq.values())))
+        residue = sorted("/".join(map(str, p)) for p, v in m_sq.items()
+                         if np.sqrt(v[1]) < SHARD_RESIDUE * whole)
+        worst["m"] = {"rel": 0.0}
+        for path, (d, w, g) in m_sq.items():
+            key = "/".join(map(str, path))
+            if key in residue:
+                if np.sqrt(g) >= SHARD_RESIDUE * whole:
+                    raise AssertionError(f"{name}: {key}'s first Adam moment is residue "
+                                         f"in the unsharded step, {np.sqrt(g)} here")
+                continue
+            rel = float(np.sqrt(d / max(w, 1e-60)))
+            if rel >= worst["m"]["rel"]:
+                worst["m"] = {"leaf": key, "rel": rel}
+    if "params" in ref:
+        # (||p - p_ref||^2, ||p_ref - p_before||^2) a leaf
+        want_p, p0 = cut(ref["params"]), cut(before)
+        worst["step"] = {"rel": 0.0}
+        for path, p in tree_leaves_with_path(p2):
+            key = "/".join(map(str, path))
+            if key in residue:
+                continue
+            w = want_p[path].to(dev)
+            d, s = summed(path, torch.sum(torch.square(p.float() - w.float())),
+                          torch.sum(torch.square(w.float() - p0[path].to(dev).float())))
+            rel = float(np.sqrt(d / max(s, 1e-60)))
+            if rel >= worst["step"]["rel"]:
+                worst["step"] = {"leaf": key, "rel": rel}
+    mine = {"rank": groups.rank, "ref": [quantized, dtype], "loss": parts, **run,
+            "worst_leaf": worst, "residue_leaves": residue,
+            "seq_shard_attention_calls": calls["seq_shard_attention"],
+            "local_rows": int(p2["layers"]["attn"]["wq"]["w"].shape[0]),
+            "wq_cols": int(p2["layers"]["attn"]["wq"]["w"].shape[-1])}
+    del local, p2, o2, step, ref, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    return everyone
+
+
+def step_distance(m, p, m_ref, p_ref, before, start) -> dict:
+    """The largest leaf distances of one step's first Adam moment ``m`` and
+    params after ``p`` from the reference step's (each step: its params
+    after less its own start, ``before`` for the reference), leaving out
+    residue leaves."""
+    from repro_torch.core.tree import tree_leaves_with_path
+    flat = lambda tree: dict(tree_leaves_with_path(tree))
+    mr, pr, mm, pp, b_ref, b_run = map(flat, (m_ref, p_ref, m, p, before, start))
+    norm = lambda t: float(torch.linalg.vector_norm(t.float()))
+    whole = float(np.sqrt(sum(norm(t) ** 2 for t in mr.values())))
+    out = {"m": 0.0, "step": 0.0}
+    for path, w in mr.items():
+        if norm(w) < SHARD_RESIDUE * whole:
+            continue
+        out["m"] = max(out["m"], norm(mm[path] - w) / norm(w))
+        ref_step = pr[path].float() - b_ref[path].float()
+        run_step = pp[path].float() - b_run[path].float()
+        out["step"] = max(out["step"], norm(run_step - ref_step) / max(norm(ref_step), 1e-30))
+    return out
+
+
+def unsharded_reference(dev, batch_shape, ref_dir: Path, keys) -> tuple:
+    """Phase 26's config, its calibrated starting params saved to
+    ``ref_dir / before.pt``, and per reference (quantized, dtype) of
+    ``keys`` the unsharded step on ``dev`` (its loss parts, eager ms and
+    peak) with its first Adam moment and params after (where they are
+    held) saved to ``ref_dir / <quantized>_<dtype>.pt`` for the
+    ranks; then the step's own noise (its twins from the embedding table
+    scaled by 1 + k ``SHARD_TWIN_EPS``) and the gates it sets."""
+    from repro_torch.configs import TrainHParams
+    from repro_torch.core.tree import tree_map
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.optim import adam_init
+    cfg = shard_config()
+    batch = shard_batch(cfg, batch_shape)
+    before = shard_params(cfg, batch, dev)
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)
+    torch.save(cpu(before), ref_dir / "before.pt")
+    out = {}
+    for quantized, dtype in keys:
+        loss_tol, m_tol, step_tol = SHARD_REFS[quantized, dtype]
+        c = cfg.replace(dtype=dtype)
+        step = build_train_step(ExecutionPlan.build(c, shard_policy(c, quantized)),
+                                TrainHParams(**SHARD_HP))
+        params = tree_map(torch.clone, before)       # the step updates in place
+        p_ref, o_ref, parts, run = timed_step(step, params, adam_init(params), batch)
+        saved = {}
+        if m_tol is not None:
+            saved["m"] = cpu(o_ref.m)
+        if step_tol is not None:
+            saved["params"] = cpu(p_ref)
+        torch.save(saved, ref_dir / f"{quantized}_{dtype}.pt")
+        del saved
+        noise = {"loss": 0.0, "m": 0.0, "step": 0.0}
+        for k in SHARD_TWINS[quantized, dtype]:
+            start = tree_map(torch.clone, before)
+            start["embed"].mul_(1 + k * SHARD_TWIN_EPS[dtype])
+            twin = tree_map(torch.clone, start)
+            p_t, o_t, parts_t, _ = timed_step(step, twin, adam_init(twin), batch)
+            far = {"loss": max(abs(parts_t[n] - v) / abs(v) for n, v in parts.items()),
+                   **step_distance(o_t.m, p_t, o_ref.m, p_ref, before, start)}
+            noise = {n: max(v, far[n]) for n, v in noise.items()}
+            del start, twin, p_t, o_t
+        gate = lambda tol, n: None if tol is None else max(tol, SHARD_NOISE_MARGIN * n)
+        gates = {"loss": gate(loss_tol, noise["loss"]), "m": gate(m_tol, noise["m"]),
+                 "step": gate(step_tol, noise["step"])}
+        if max(gates["m"] or 0.0, gates["step"] or 0.0) > SHARD_GATE_CAP:
+            raise AssertionError(f"phase 26 {quantized} {dtype}: the unsharded step's own "
+                                 f"noise {noise} sets gates {gates} past {SHARD_GATE_CAP}")
+        out[f"{quantized}_{dtype}"] = {"loss": parts, **run, "noise": noise, "gates": gates}
+        del params, p_ref, o_ref, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, out
+
+
+def check_ranks(name: str, ranks: list, ref: dict) -> None:
+    """Every rank's loss, first Adam moment and Adam step against the
+    unsharded step's, at the gates of its reference ``ref``."""
+    gates = ref["gates"]
+    for r in ranks:
+        for k, v in r["loss"].items():
+            want = ref["loss"][k]
+            if not abs(v - want) <= gates["loss"] * abs(want):
+                raise AssertionError(f"{name} rank {r['rank']}: {k} {v} vs unsharded "
+                                     f"{want} (gate {gates['loss']})")
+        for what in ("m", "step"):
+            if gates[what] is not None and r["worst_leaf"][what]["rel"] > gates[what]:
+                raise AssertionError(f"{name}: {what} off: {r['worst_leaf'][what]} "
+                                     f"(gate {gates[what]})")
+    print(f"phase 26 {name}: rank 0 {ranks[0]['rank_seconds']:.1f} s, eager ms "
+          f"{[round(r['eager_ms'], 1) for r in ranks]}, peak GB "
+          f"{[round(r['peak_gb'], 2) for r in ranks]}, loss {ranks[0]['loss']}, worst "
+          f"leaves {ranks[0]['worst_leaf']}, residue {ranks[0]['residue_leaves']}, "
+          f"gates {gates}, noise {ref['noise']}", flush=True)
+
+
+def sharded_train(dev) -> dict:
+    """Phase 26 (a): the unsharded step on the card for each reference,
+    then 2 ranks sharing it (one spawn) running each layout in turn, held
+    to its reference."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    ref_dir = ROOT / "build" / "phase26_ref"
+    cfg, refs = unsharded_reference(dev, SHARD_BATCH, ref_dir, list(SHARD_REFS))
+    out = {"unsharded": refs}
+    print(f"phase 26 unsharded: {time.perf_counter() - t0:.1f} s, {refs}", flush=True)
+    t1 = time.perf_counter()
+    runs = spawn_ranks(shard_rank, 1, 2, SHARD_LAYOUTS, cfg, SHARD_BATCH, str(ref_dir),
+                       dev.type, device=dev.type, backend="gloo")
+    out["spawn_seconds"] = time.perf_counter() - t1
+    shutil.rmtree(ref_dir)
+    for name, _, _, _, seq, quantized, dtype in SHARD_LAYOUTS:
+        check_ranks(name, runs[name], refs[f"{quantized}_{dtype}"])
+        if seq and not all(r["seq_shard_attention_calls"] for r in runs[name]):
+            raise AssertionError(f"{name}: the chunk branch did not run context-parallel")
+        out[name] = {"ranks": runs[name]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def examples_phase() -> dict:
+    """Phase 26 (b): the four ``examples/torch_*.py`` with ``--quick`` on
+    the card (their default device), each passing its own asserts; the
+    kernels they launch."""
+    import importlib.util
+    from repro_torch.kernels import build
+    out = {}
+    build.reset_counts()
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        mod.main(["--quick"])
+        out[name] = {"seconds": time.perf_counter() - t0}
+        print(f"phase 26 {name}: {out[name]['seconds']:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(build.LAUNCHES)
+    out["plain_on_cuda"] = {k: v for k, v in build.PLAIN_ON_CUDA.items() if v}
+    if out["plain_on_cuda"]:
+        raise AssertionError(f"examples: plain versions ran on CUDA tensors: "
+                             f"{out['plain_on_cuda']}")
+    return out
+
+
+def sharded_dryrun(pool) -> "callable":
+    """Phase 26 (c): the dry run's stablelm-3b x train_4k x multi cell
+    (data 2 x model 2) plain, with --fsdp and with --attn-seq-shard, on the
+    card's host, each in a process of ``pool`` (each analysis is one Python
+    thread; they run while the card trains). Returns the function that
+    waits for them: every cell ``ok``, FSDP's argument bytes at most 0.55x
+    the plain cell's."""
+    from repro_torch.launch import dryrun
+    out_dir = str(ROOT / "chiprun_out" / "dryrun_torch")
+    tags = ["_".join(extra) or "plain" for extra in SHARD_DRYRUN]
+    futures = [pool.submit(dryrun.run_cell, "stablelm-3b", "train_4k", "multi", out_dir,
+                           tag="" if not extra else tag, extra=extra)
+               for extra, tag in zip(SHARD_DRYRUN, tags)]
+
+    def results() -> dict:
+        cells = {}
+        for tag, f in zip(tags, futures):
+            r = f.result()
+            if r["status"] != "ok":
+                raise AssertionError(f"dry run {tag}: {r['status']} {r.get('reason')}")
+            cells[tag] = {"argument_bytes": r["memory"]["argument_bytes"],
+                          "total_bytes": r["memory"]["total_bytes"],
+                          "collective_bytes": r["op_analysis"]["collective_bytes"],
+                          "roofline_terms_s": r["roofline_terms_s"],
+                          "seconds": r["lower_s"] + r["compile_s"]}
+            print(f"phase 26 dry run {tag}: {cells[tag]['seconds']:.1f} s", flush=True)
+        ratio = cells["fsdp"]["argument_bytes"] / cells["plain"]["argument_bytes"]
+        if ratio > 0.55:
+            raise AssertionError(f"dry run: FSDP argument bytes {ratio:.3f}x the plain cell's")
+        return {"cells": cells, "fsdp_argument_ratio": ratio}
+    return results
+
+
+#: ``--sharded-cards 4``: phase 26 (a)'s step over NCCL, a card a rank
+NCCL_BATCH = (4, 4096)
+NCCL_LAYOUTS = (("data2_model2_fsdp_seq_shard", 2, 2, True, True, "wa", "float32"),
+                ("data2_model2_fsdp_seq_shard_wonly", 2, 2, True, True, "w", "float32"),
+                ("model4_wonly", 1, 4, False, False, "w", "float32"),
+                ("data4_fsdp_wonly", 4, 1, True, False, "w", "float32"))
+
+
+def sharded_cards(cards: int) -> dict:
+    """``python3 chip_smoke.py --sharded-cards 4``: phase 26 (a)'s step on
+    four cards over NCCL (a card a rank; 4 x 4096 tokens) at data 2 x model
+    2 with FSDP and ``attn_seq_shard`` (weights and activations quantized,
+    and weights only), at model 4 and at data 4 with FSDP (weights only),
+    each held to the unsharded step on card 0 at phase 26's gates. Needs
+    ``cards`` cards."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_ranks
+    if cards != 4 or torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--sharded-cards runs 4 ranks a card each; host has "
+                           f"{torch.cuda.device_count()} cards")
+    ref_dir = ROOT / "build" / "phase26_nccl_ref"
+    cfg, refs = unsharded_reference(torch.device("cuda", 0), NCCL_BATCH, ref_dir,
+                                    [("wa", "float32"), ("w", "float32")])
+    t0 = time.perf_counter()
+    runs = spawn_ranks(shard_rank, 2, 2, NCCL_LAYOUTS, cfg, NCCL_BATCH, str(ref_dir),
+                       "cuda", device="cuda")
+    out = {"unsharded": refs, "spawn_seconds": time.perf_counter() - t0}
+    shutil.rmtree(ref_dir)
+    for name, *_, quantized, dtype in NCCL_LAYOUTS:
+        check_ranks(name, runs[name], refs[f"{quantized}_{dtype}"])
+        out[name] = runs[name]
+    return out
+
+
+def sharded_phase(dev) -> dict:
+    import concurrent.futures
+    import multiprocessing
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(SHARD_DRYRUN), mp_context=multiprocessing.get_context("spawn")) as pool:
+        dryrun_results = sharded_dryrun(pool)
+        out = {"train": sharded_train(dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["examples"] = examples_phase()
+        out["dryrun"] = dryrun_results()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5762,6 +6260,22 @@ def main() -> int:
             emit({"phase": "analysis_vs_card", "step": tag, **row})
     for cell, r in p25["analysis"]["dryrun_cells"].items():
         emit({"phase": "dryrun_cell", "cell": cell, **r})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p26 = sharded_phase(dev)
+    seconds["sharded_train_examples_dryrun"] = time.perf_counter() - t0
+    emit({"phase": "sharded_train", "layout": "unsharded", **p26["train"]["unsharded"],
+          "spawn_seconds": p26["train"]["spawn_seconds"]})
+    for name, *_ in SHARD_LAYOUTS:
+        for r in p26["train"][name]["ranks"]:
+            emit({"phase": "sharded_train", "layout": name, **r})
+    emit({"phase": "examples", **{k: v for k, v in p26["examples"].items()}})
+    for cell, r in p26["dryrun"]["cells"].items():
+        emit({"phase": "sharded_dryrun_cell", "cell": cell, **r})
+    emit({"phase": "sharded_seconds", "train": p26["train"]["seconds"],
+          "fsdp_argument_ratio": p26["dryrun"]["fsdp_argument_ratio"],
+          "seconds": seconds["sharded_train_examples_dryrun"]})
     dec_rows.append(seamless["noncausal_flash_row"])
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
@@ -5807,6 +6321,7 @@ def main() -> int:
                         "seamless_decode": seamless["decode"]["launches"],
                         "xlstm_token": xl["serve"]["launches"],
                         "fused_kv8": fused["launches"],
+                        "examples": p26["examples"]["launches"],
                         f"xlstm_prefill_{XLSTM_LONG}": xl["long_forward"]["launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
@@ -5863,6 +6378,7 @@ def main() -> int:
                        ("seamless_decode", SEAMLESS_DEC_KERNELS),
                        ("xlstm_token", HYBRID_KERNELS),
                        ("fused_kv8", DECODER_KERNELS),
+                       ("examples", ("int8_matmul", "int4_matmul", "decode_attention")),
                        (f"xlstm_prefill_{XLSTM_LONG}", GEMM_KERNELS)):
         idle = [k for k in need if not launches_by_path[path][k]
                 and (k != "act_quant" or planned.get(path, 1))]
@@ -5905,6 +6421,7 @@ def main() -> int:
                                   "fleet": fleet, "moe": moe, "zamba2": zamba,
                                   "seamless": seamless, "xlstm": xl,
                                   "fused_remat_analysis": p25,
+                                  "sharded_examples_dryrun": p26,
                                   "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})
@@ -5915,5 +6432,27 @@ def main() -> int:
     return 0
 
 
+def main_sharded_cards(cards: int) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    print(card_line(), flush=True)
+    out = sharded_cards(cards)
+    emit({"phase": "sharded_cards", "layout": "unsharded", **out["unsharded"],
+          "spawn_seconds": out["spawn_seconds"]})
+    for name, *_ in NCCL_LAYOUTS:
+        for r in out[name]:
+            emit({"phase": "sharded_cards", "layout": name, **r})
+    report = ROOT / "chiprun_out" / "chip_smoke_sharded_cards.json"
+    report.parent.mkdir(exist_ok=True)
+    report.write_text(json.dumps(out, indent=2, default=str))
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-cards"]:
+        sys.exit(main_sharded_cards(int(sys.argv[2])))
     sys.exit(main())

@@ -16,7 +16,10 @@ Scale gradient modes
 
 Both modes pass the gradient of ``x`` straight through inside the clip range
 and give zero outside. A scale used by several calls accumulates one ``ds``
-per call, as autograd sums the gradients of a shared input.
+per call, as autograd sums the gradients of a shared input. ``count``
+multiplies ``n``: a rank that holds 1 / ``count`` of ``x`` (a row-parallel
+linear's input or weight cut along K over ``count`` ranks) gives its share
+of the whole tensor's ``ds``, and the shares sum to it in either mode.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so integer codes
 are bit-identical to the JAX package's. Scales are per-tensor (scalar) or
@@ -78,11 +81,11 @@ class LSQQuantize(torch.autograd.Function):
     (x, s)."""
 
     @staticmethod
-    def forward(ctx, x, s, bits: int, grad_mode: str):
+    def forward(ctx, x, s, bits: int, grad_mode: str, count: int = 1):
         if grad_mode not in ("mse", "ste"):
             raise ValueError(f"unknown grad_mode {grad_mode!r}")
         ctx.save_for_backward(x, s)
-        ctx.bits, ctx.grad_mode = bits, grad_mode
+        ctx.bits, ctx.grad_mode, ctx.count = bits, grad_mode, count
         qmin, qmax = qrange(bits)
         # JAX promotes bf16 / f32 to f32 whatever the ranks; PyTorch would
         # keep bf16 against a 0-d f32 scale, so promote explicitly
@@ -104,7 +107,7 @@ class LSQQuantize(torch.autograd.Function):
         axes = reduce_axes_for_scale(x.dim(), tuple(s.shape))
         # torch.sum over dim=() would reduce every axis
         red = (lambda t: torch.sum(t, dim=axes)) if axes else (lambda t: t)
-        n = x.numel() / max(s.numel(), 1)
+        n = x.numel() / max(s.numel(), 1) * ctx.count
         if ctx.grad_mode == "ste":
             elem = torch.where(in_range, zq - z, torch.clamp(z, qmin, qmax))
             ds = red(g.to(f32) * elem).reshape(s.shape)
@@ -114,21 +117,23 @@ class LSQQuantize(torch.autograd.Function):
             # descends the quantization MSE, averaged per element
             q = sf * zq
             ds = 2.0 * red((q - xf) * zq).reshape(s.shape) / _f32(n, x)
-        return dx, ds.to(s.dtype), None, None
+        return dx, ds.to(s.dtype), None, None, None
 
 
 def lsq_quantize(x: torch.Tensor, s: torch.Tensor, bits: int,
-                 grad_mode: str) -> torch.Tensor:
-    """Fake-quantize ``x`` with learned scale ``s`` (broadcastable against x)."""
-    return LSQQuantize.apply(x, s, int(bits), grad_mode)
+                 grad_mode: str, count: int = 1) -> torch.Tensor:
+    """Fake-quantize ``x`` with learned scale ``s`` (broadcastable against x);
+    ``count``: the ranks ``x`` is cut over (``ds`` is this rank's share)."""
+    return LSQQuantize.apply(x, s, int(bits), grad_mode, int(count))
 
 
 def fake_quant(x: torch.Tensor, s: torch.Tensor, bits: Optional[int],
-               grad_mode: str = "mse", enabled: bool = True) -> torch.Tensor:
+               grad_mode: str = "mse", enabled: bool = True,
+               count: int = 1) -> torch.Tensor:
     """QAT fake-quantization entry point (identity when disabled or bits is None)."""
     if not enabled or bits is None:
         return x
-    return lsq_quantize(x, s, int(bits), grad_mode)
+    return lsq_quantize(x, s, int(bits), grad_mode, count)
 
 
 def quantize_to_int(x: torch.Tensor, s: torch.Tensor, bits: int) -> torch.Tensor:

@@ -26,7 +26,9 @@ deployed integer weights and the KV heads over ``tp`` ranks
 (``_validate_tp``: JAX's rules, in JAX's order; MoE experts shard as the
 FFN does) and runs the plain integer path, whose row-parallel int32 sums
 keep every stream byte-identical to tp=1; ``make_group`` checks the ranks
-when a model is placed, not at build.
+when a model is placed, not at build. A fake-quant (training) plan takes
+``tp`` as the model ranks of a sharded training step (``with_groups``);
+it trains the transformer families and refuses the token-mode ones by name.
 """
 from __future__ import annotations
 
@@ -126,6 +128,9 @@ def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
         raise ValueError(
             f"tp={tp}: the hand-written kernels are single-device; shard on "
             "backend='reference' (the plain integer path)")
+    if policy is not None and policy.mode == "fake":
+        _validate_train_tp(cfg, tp)
+        return
     if cfg.family in TOKEN_ONLY_FAMILIES:
         raise ValueError(
             f"tp={tp}: no sharding rules for family {cfg.family!r}'s fp "
@@ -165,6 +170,29 @@ def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
                     f"tp={tp} with int4 segments: packed codes shard the K/2 "
                     f"nibble-pair rows, so {dim_name}={dim} must divide by "
                     f"2*tp={2 * tp}")
+
+
+def _validate_train_tp(cfg: ModelConfig, tp: int) -> None:
+    """A fake-quant (training) plan at ``tp`` model ranks: the sharded
+    training step (``launch/train.build_train_step`` with ``TrainGroups``)
+    trains the transformer families; every dim its rules cut must divide."""
+    if cfg.family in TOKEN_ONLY_FAMILIES:
+        raise ValueError(
+            f"tp={tp}: training family {cfg.family!r} ({cfg.name}) over model "
+            "ranks arrives with a later slice of the port (its Mamba2 / "
+            "xLSTM / encoder-decoder layers have no model-parallel rules "
+            "yet); train it at model 1, over data ranks")
+    dims = [("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads)]
+    if cfg.family == "moe":
+        dims += [("expert_d_ff", cfg.expert_d_ff),
+                 ("shared_expert_d_ff", cfg.shared_expert_d_ff)]
+    else:
+        dims.append(("d_ff", cfg.d_ff))
+    for dim_name, dim in dims:
+        if dim % tp:
+            raise ValueError(
+                f"tp={tp} does not divide {dim_name}={dim}: the sharded "
+                "training step cuts heads and FFN widths over the model ranks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,6 +341,16 @@ class ExecutionPlan:
                    segments=tuple(segments), default_sampling=sampling,
                    prefix_cache=prefix_cache, prefill_batch=prefill_batch,
                    act_bits=act_bits, mode=mode, kv_paging=kv_paging, tp=tp)
+
+    def with_groups(self, groups) -> "ExecutionPlan":
+        """This plan with a sharded training step's ``TrainGroups`` on every
+        segment's ``QuantSpec`` (the forward reads them there)."""
+        if groups.model != self.tp:
+            raise ValueError(f"a plan built at tp={self.tp} runs over "
+                             f"model={groups.model} ranks")
+        segs = tuple((s, e, dataclasses.replace(sp, groups=groups))
+                     for s, e, sp in self.segments)
+        return dataclasses.replace(self, segments=segs)
 
     @property
     def use_kernels(self) -> bool:

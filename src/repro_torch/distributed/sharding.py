@@ -27,6 +27,15 @@ Training (the JAX package's ``spec_for`` / ``param_specs`` /
 leaf, a tuple with one entry a dim, an axis name, a tuple of axis names or
 None, which is what JAX's ``PartitionSpec`` holds. ``mesh`` is any layout
 with ``axis_names`` and a ``shape`` dict (``launch.mesh.make_production_mesh``).
+
+The sharded training step places by those rules (``training_specs``: each
+cut dim a :class:`TrainAxis`): "model" cuts over a ``TrainGroups``' model
+ranks (fused projections part by part), "data" (FSDP) the layer stack over
+its data ranks. ``shard_training`` / ``gather_training`` move a param,
+gradient or Adam-moment tree between its full logical arrays and one
+rank's slices, leaf by leaf. A vocabulary-sharded ``embed`` / ``lm_head``
+whose rows do not divide over the model ranks is padded to ``ceil(V /
+model)`` rows a rank (zeros past ``V``); gathering drops the padding.
 """
 from __future__ import annotations
 
@@ -41,7 +50,9 @@ from ..core.tree import tree_leaves_with_path, tree_map_with_path
 __all__ = ["FusedAxis", "serving_param_specs", "serving_state_specs",
            "shard_serving", "gather_serving", "spec_for", "param_specs",
            "set_mesh_axis_sizes", "batch_spec", "safe_batch_spec",
-           "state_specs"]
+           "state_specs", "TrainAxis", "TrainSpec", "training_specs",
+           "shard_training",
+           "gather_training"]
 
 #: (regex on the joined path, the spec of the LAST dims, left-padded with
 #: None for stacked layer leaves): JAX's ``_RULES``, "model" the tp axis
@@ -304,3 +315,134 @@ def state_specs(state_tree, mesh) -> dict:
                 break
         return tuple(sp)
     return tree_map_with_path(spec, state_tree)
+
+
+# ------------------------------------------------ the sharded training step
+#: leaves sharded over the vocabulary: padded where their rows do not divide
+_VOCAB = re.compile(r"(^|/)(embed|lm_head)$")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainAxis:
+    """One cut dim of a training leaf: the mesh ``axis`` ("model" or
+    "data"), the dim's logical ``size``, and a fused projection's parts'
+    relative widths (each part cut on its own, as ``FusedAxis``)."""
+    axis: str
+    size: int
+    parts: tuple = (1,)
+
+    def local(self, n: int) -> int:
+        """The dim's size on one of ``n`` ranks (``ceil(size / n)``)."""
+        return -(-self.size // n)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    """A training leaf's cuts: one entry a dim, a :class:`TrainAxis` or
+    None (a tree leaf of its own, where a bare tuple would be a subtree)."""
+    dims: tuple
+
+    @property
+    def axes(self) -> tuple:
+        """The mesh axes the leaf is cut over, sorted."""
+        return tuple(sorted({ta.axis for ta in self.dims if ta is not None}))
+
+
+def training_specs(params, cfg=None, *, data: int = 1,
+                   fsdp: bool = False) -> dict:
+    """Per leaf, a :class:`TrainSpec`: per dim a :class:`TrainAxis` or
+    None. The "model" cuts are JAX's ``_RULES`` (``spec_for``); with
+    ``fsdp`` a stacked leaf (rank above 2) whose layer count divides over
+    ``data`` also cuts its layer dim over "data" (``param_specs``' rule).
+    A fused ``wqkv`` splits by the config's head counts (``cfg``)."""
+    def spec(path, leaf):
+        s = _path_str(path)
+        tail = spec_for(path, leaf)
+        if fsdp and leaf.dim() > 2 and tail[0] is None \
+                and leaf.shape[0] % data == 0:
+            tail = ("data",) + tail[1:]
+        fused = _FUSED.search(s)
+        out = []
+        for dim, ax in enumerate(tail):
+            if ax is None:
+                out.append(None)
+                continue
+            parts = (1,)
+            if ax == "model" and fused:
+                if fused.group(2) == "w13":
+                    parts = (1, 1)
+                elif cfg is None:
+                    raise ValueError(f"{s}: a fused wqkv shards q, k and v "
+                                     "by heads; pass the model config")
+                else:
+                    parts = (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)
+            out.append(TrainAxis(ax, leaf.shape[dim], parts))
+        return TrainSpec(tuple(out))
+    return tree_map_with_path(spec, params)
+
+
+def _axis_rank(groups, axis: str) -> tuple[int, int]:
+    if axis == "model":
+        return groups.mp_rank, groups.model
+    if axis == "data":
+        return groups.dp_rank, groups.data
+    raise ValueError(f"training axis {axis!r}: the port's layouts have "
+                     "'data' and 'model'")
+
+
+def shard_training(tree, specs, groups):
+    """This rank's slice of every cut leaf of ``tree`` (params, gradients
+    or one Adam moment: ``specs``' structure), copied so the full arrays
+    can be freed; uncut leaves pass through."""
+    flat = dict(tree_leaves_with_path(specs))
+
+    def cut(path, leaf):
+        for dim, ta in enumerate(flat[path].dims):
+            if ta is None:
+                continue
+            rank, n = _axis_rank(groups, ta.axis)
+            sizes = _parts(ta.size, ta.parts) if len(ta.parts) > 1 else [ta.size]
+            pieces = torch.split(leaf, sizes, dim=dim)
+            out = []
+            for piece in pieces:
+                if piece.shape[dim] % n:
+                    if not _VOCAB.search(_path_str(path)):
+                        raise ValueError(
+                            f"{_path_str(path)}: dim {dim} of size "
+                            f"{piece.shape[dim]} does not divide over "
+                            f"{ta.axis}={n}")
+                    pad = list(piece.shape)
+                    pad[dim] = ta.local(n) * n - piece.shape[dim]
+                    piece = torch.cat([piece, piece.new_zeros(pad)], dim=dim)
+                w = piece.shape[dim] // n
+                out.append(piece.narrow(dim, rank * w, w))
+            leaf = torch.cat(out, dim=dim) if len(out) > 1 else out[0]
+        # a copy (a narrow along dim 0 would keep the whole storage alive)
+        return (leaf.clone(memory_format=torch.contiguous_format)
+                if flat[path].axes else leaf)
+    return tree_map_with_path(cut, tree)
+
+
+def gather_training(tree, specs, groups):
+    """The inverse of :func:`shard_training` over ``groups``' ranks: every
+    cut leaf all-gathered back to its full logical array (vocabulary
+    padding dropped), on every rank."""
+    from .collectives import all_gather
+    flat = dict(tree_leaves_with_path(specs))
+
+    def join(path, leaf):
+        for dim, ta in reversed(list(enumerate(flat[path].dims))):
+            if ta is None:
+                continue
+            group = groups.mp_group if ta.axis == "model" else groups.dp_group
+            ranks = all_gather(leaf, group)
+            if len(ta.parts) == 1:
+                leaf = torch.cat(ranks, dim=dim).narrow(dim, 0, ta.size)
+                continue
+            n = len(ranks)
+            local = [s // n for s in _parts(ta.size, ta.parts)]
+            split = [torch.split(r, local, dim=dim) for r in ranks]
+            leaf = torch.cat([torch.cat([r[i] for r in split], dim=dim)
+                              for i in range(len(local))], dim=dim)
+        return leaf
+    return tree_map_with_path(join, tree)

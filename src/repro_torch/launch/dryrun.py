@@ -11,9 +11,12 @@ them):
   policy, its gradients (``optim.value_and_grad``; accumulated over
   ``--microbatch`` slices as JAX's scan does) and Adam (``optim.
   adam_update``); ``--distill`` adds the fp teacher and MINI (or the
-  hidden-state loss). On ``multi`` the batch splits over four data-parallel
-  ranks and the gradients are averaged with ``distributed.compression.
-  compressed_grad_mean``.
+  hidden-state loss). On ``multi`` the step is rank 0's of the sharded
+  step over data 2 x model 2 (``TrainGroups``): tensor parallel by JAX's
+  rules, the batch split over the data ranks, their gradients averaged;
+  ``--fsdp`` cuts the layer stacks and their Adam moments over the data
+  ranks too, ``--attn-seq-shard`` runs the chunk branch context-parallel.
+  The fp teacher is whole on every rank (JAX shards it as the student).
 * **prefill**: ``models.api.forward`` on the deployed integer tree.
 * **decode**: one token over ``api.decode_state`` (and
   ``api.decode_extra_inputs``) at the shape's length.
@@ -24,9 +27,9 @@ port's tp path (the reference backend's plain integer GEMMs, int32 partial
 sums all-reduced) and training data-parallel over 4. A tp or dp group of
 four is torch's ``fake`` process group, so one process plays rank 0 and
 its collectives are counted, not run. A cell the port cannot build is
-written with ``status: "skipped"`` and the port's reason: ``--fsdp`` and
-``--attn-seq-shard`` (not ported), a tp plan that ``_validate_tp`` refuses,
-or JAX's own ``shape_applicable``.
+written with ``status: "skipped"`` and the port's reason: a tp plan that
+``_validate_tp`` refuses (the token-mode families' train cells over model
+ranks arrive with a later slice), or JAX's own ``shape_applicable``.
 
 Each JSON has the JAX dry run's schema with three changes: ``op_analysis``
 holds what ``hlo_analysis`` held (plus each kernel's ``launches`` and the
@@ -103,50 +106,67 @@ def fake_group(world: int):
 def _train_cell(cfg, shape, mesh, *, policy, distill: bool, extra: dict):
     from ..configs import TrainHParams, input_specs
     from ..deploy import ExecutionPlan
-    from ..distributed import compressed_grad_mean
+    from ..distributed import training_specs
     from ..models import api
     from ..optim import adam_init, adam_update, linear_warmup_decay, value_and_grad
-    from .train import _plan_mode, build_train_step
+    from .mesh import make_train_groups
+    from .train import (_mean_over_data, _norm_reduce, _plan_mode, _rows_of,
+                        build_train_step, shard_state)
 
-    dp = mesh.shape["data"]
-    B = shape.global_batch // dp if shape.global_batch % dp == 0 else shape.global_batch
-    local = type(shape)(shape.name, shape.seq_len, B, shape.kind)
-    plan = ExecutionPlan.build(cfg, policy, mode=_plan_mode(cfg))
+    data, model = mesh.shape["data"], mesh.shape["model"]
+    if extra.get("attn_seq_shard"):
+        cfg = cfg.replace(attn_seq_shard=True, dp_axes=("data",))
+    plan = ExecutionPlan.build(cfg, policy, mode=_plan_mode(cfg), tp=model)
     params = api.init_model(cfg, torch.Generator(), META)
-    opt = adam_init(params)
-    batch = input_specs(cfg, local)
+    state = {"params": params, "opt": adam_init(params)}
+    groups = specs = None
+    if data * model > 1:
+        groups = make_train_groups(data, model)
+        specs = training_specs(params, cfg, data=data, fsdp=bool(extra.get("fsdp")))
+        state = shard_state(state, specs, groups)
+    batch = input_specs(cfg, shape)
     teacher = teacher_plan = None
     if distill:
         teacher = api.init_model(cfg, torch.Generator(), META)
         teacher_plan = ExecutionPlan.build(cfg, None, mode=_plan_mode(cfg))
     hp = TrainHParams()
-    loss_fn = build_train_step(plan, hp, teacher, teacher_plan).loss_fn
+    train_step = build_train_step(plan, hp, teacher, teacher_plan, groups=groups,
+                                  specs=specs)
     n_micro = int(extra.get("microbatch") or 1)
     lr = {"weights": hp.lr_weights, "act_scale": hp.lr_act_scale,
           "weight_scale": hp.lr_weight_scale}
     sched = linear_warmup_decay(10000)
 
     def step(params, opt, batch):
-        if n_micro > 1:     # JAX's accumulation: the mean of the slices' grads
-            grads = loss = None
-            for i in range(n_micro):
-                part = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
-                        for k, v in batch.items()}
-                l_i, _, g_i = value_and_grad(loss_fn, params, part)
-                grads = g_i if grads is None else _add(grads, g_i)
-                loss = l_i if loss is None else loss + l_i
-            grads = _scale(grads, 1.0 / n_micro)
-            loss = loss / n_micro
-        else:
-            loss, _, grads = value_and_grad(loss_fn, params, batch)
-        if dp > 1:
-            grads, _ = compressed_grad_mean(grads, method="none")
+        if n_micro == 1:
+            return train_step(params, opt, batch)
+        # JAX's accumulation: the mean of the slices' grads
+        if groups is not None:
+            batch = _rows_of(batch, groups)
+        grads = loss = None
+        for i in range(n_micro):
+            part = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
+                    for k, v in batch.items()}
+            l_i, _, g_i = value_and_grad(train_step.loss_fn, params, part)
+            grads = g_i if grads is None else _add(grads, g_i)
+            loss = l_i if loss is None else loss + l_i
+        grads = _scale(grads, 1.0 / n_micro)
+        parts = {"loss/train": loss / n_micro}
+        norm_reduce = None
+        if groups is not None:
+            grads, parts = _mean_over_data(grads, parts, specs, groups)
+            norm_reduce = _norm_reduce(specs, groups)
         params, opt = adam_update(params, grads, opt, lr_by_group=lr,
-                                  schedule_fn=sched, grad_clip=hp.grad_clip)
-        return params, opt, loss
+                                  schedule_fn=sched, grad_clip=hp.grad_clip,
+                                  norm_reduce=norm_reduce)
+        return params, opt, parts
 
-    args = (params, opt, batch)
-    return step, args, storage_bytes(params, opt, batch, teacher)
+    # the argument bytes are one rank's: its slices and its rows (the step
+    # takes the whole batch, as a rank's data loader would offer it)
+    rows = type(shape)(shape.name, shape.seq_len, shape.global_batch // data, shape.kind)
+    args = (state["params"], state["opt"], batch)
+    return step, args, storage_bytes(state["params"], state["opt"],
+                                     input_specs(cfg, rows), teacher)
 
 
 def _add(a, b):
@@ -202,13 +222,6 @@ def _build_cell(arch: str, shape_name: str, mesh, *, policy_kind: str,
     from ..configs import SHAPES, shape_applicable
     from ..core.policy import QuantPolicy
 
-    if extra.get("fsdp"):
-        return None, ("fsdp: the port has no FSDP (ZeRO) sharding of weights "
-                      "and Adam state; param_specs(fsdp_axes=...) gives the "
-                      "rule, nothing places by it")
-    if extra.get("attn_seq_shard"):
-        return None, ("attn_seq_shard: context-parallel chunked attention is "
-                      "not ported")
     cfg = _cfg_for(arch, extra)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)

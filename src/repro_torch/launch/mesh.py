@@ -13,17 +13,25 @@ of the weights and KV heads, and meets the others in one int32 all-reduce
 per row-parallel linear. On the CPU the ranks talk over gloo; on the card
 over NCCL, one card a rank.
 
+A sharded training step runs ``data x model`` ranks (``TrainGroups``):
+rank ``r`` is data rank ``r // model`` and model rank ``r % model``, so the
+model ranks of one data rank are adjacent; each has a model group (the
+tensor- and context-parallel collectives) and a data group (the gradient
+mean and FSDP's per-layer broadcasts).
+
 ``make_production_mesh`` is the dry run's layout, device-free: where the
 JAX package targets (16, 16) and (2, 16, 16) TPU v5e meshes, the port's
 cells run on one H100 (``single``) or four (``multi``: serving at tp 4,
-training data-parallel over 4). On the ``meta`` device (the dry run's
-analysis) a tp group is torch's ``fake`` process group: one process plays
-rank 0 and its collectives move nothing.
+training on data 2 x model 2, as JAX trains every cell on both axes). On
+the ``meta`` device (the dry run's analysis) a group is torch's ``fake``
+process group: one process plays rank 0 and its collectives move nothing.
 
-``spawn_tp(fn, tp, *args)`` starts ``tp`` ranks with
+``spawn_ranks(fn, data, model, *args)`` starts ``data * model`` ranks with
 ``torch.multiprocessing`` and a ``torch.distributed.FileStore`` in a
 temporary directory (no port, no network), runs ``fn(*args)`` in each and
-returns rank 0's result.
+returns rank 0's result; ``spawn_tp(fn, tp, *args)`` is its ``data = 1``
+case. Both run on the card (NCCL, one card a rank) unless the caller asks
+for the CPU (gloo).
 """
 from __future__ import annotations
 
@@ -36,7 +44,8 @@ from typing import Callable
 import torch
 
 __all__ = ["MeshLayout", "make_mesh_for_devices", "ProductionMesh",
-           "make_production_mesh", "TPGroup", "make_tp_group", "spawn_tp"]
+           "make_production_mesh", "TPGroup", "make_tp_group", "TrainGroups",
+           "make_train_groups", "spawn_ranks", "spawn_tp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,10 +113,12 @@ class ProductionMesh:
 def make_production_mesh(*, multi: bool = False, serving: bool = False
                          ) -> ProductionMesh:
     """One H100 (``single``) or four (``multi``). Serving cells put the
-    four on "model" (the port's tp path); training cells on "data" (data
-    parallelism, the gradient mean over the four)."""
-    n = 4 if multi else 1
-    shape = {"data": 1, "model": n} if serving else {"data": n, "model": 1}
+    four on "model" (the port's tp path); training cells split them 2 x 2
+    over "data" and "model", as JAX's (16, 16) mesh trains on both axes."""
+    if not multi:
+        shape = {"data": 1, "model": 1}
+    else:
+        shape = {"data": 1, "model": 4} if serving else {"data": 2, "model": 2}
     return ProductionMesh("multi" if multi else "single", ("data", "model"), shape)
 
 
@@ -150,13 +161,62 @@ def make_tp_group(tp: int, device) -> TPGroup:
     return TPGroup(tp=tp, rank=dist.get_rank())
 
 
-def _rank_main(rank: int, tp: int, store_dir: str, backend: str,
-               fn: Callable, args: tuple) -> None:
+@dataclasses.dataclass(frozen=True)
+class TrainGroups:
+    """This process's place in a ``data x model`` training layout: its
+    global ``rank``, its data and model ranks, and the two process groups
+    it meets the others in (``dp_group``: the ranks of its model rank,
+    ``mp_group``: those of its data rank)."""
+    data: int
+    model: int
+    rank: int
+    dp_group: object
+    mp_group: object
+    dp_rank: int
+    mp_rank: int
+
+    def dp_global_rank(self, dp_rank: int) -> int:
+        """The global rank of data rank ``dp_rank`` in this model rank's
+        data group."""
+        return dp_rank * self.model + self.mp_rank
+
+
+def make_train_groups(data: int, model: int) -> TrainGroups:
+    """The groups of a ``data x model`` layout over the default process
+    group (``data * model`` ranks; gloo, NCCL or the dry run's ``fake``).
+    Every rank creates every group, in one order, as ``new_group`` asks."""
     import torch.distributed as dist
-    if backend == "nccl":
-        torch.cuda.set_device(rank)
-    store = dist.FileStore(os.path.join(store_dir, "store"), tp)
-    dist.init_process_group(backend, store=store, rank=rank, world_size=tp)
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"data={data} x model={model} needs a process group of "
+            f"{data * model} ranks, this process has none (start the ranks "
+            "with repro_torch.launch.mesh.spawn_ranks)")
+    world = dist.get_world_size()
+    if world != data * model:
+        raise RuntimeError(f"data={data} x model={model} needs "
+                           f"{data * model} ranks, the process group has {world}")
+    rank = dist.get_rank()
+    dp_rank, mp_rank = divmod(rank, model)
+    mp_group = dp_group = None
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)])
+        if d == dp_rank:
+            mp_group = g
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)])
+        if m == mp_rank:
+            dp_group = g
+    return TrainGroups(data=data, model=model, rank=rank, dp_group=dp_group,
+                       mp_group=mp_group, dp_rank=dp_rank, mp_rank=mp_rank)
+
+
+def _rank_main(rank: int, world: int, store_dir: str, backend: str,
+               fn: Callable, args: tuple, cards: int) -> None:
+    import torch.distributed as dist
+    if backend == "nccl" or cards:
+        torch.cuda.set_device(rank % cards if cards else rank)
+    store = dist.FileStore(os.path.join(store_dir, "store"), world)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
     try:
         out = fn(*args)
         if rank == 0:
@@ -166,19 +226,47 @@ def _rank_main(rank: int, tp: int, store_dir: str, backend: str,
         dist.destroy_process_group()
 
 
-def spawn_tp(fn: Callable, tp: int, *args, device="cpu"):
-    """Run ``fn(*args)`` on ``tp`` freshly spawned ranks in one process
-    group (gloo on the CPU, NCCL on the card) and return rank 0's result.
-    ``fn`` must be importable by name (a module-level function). A rank
-    that raises makes this raise once every rank has ended."""
+def spawn_ranks(fn: Callable, data: int, model: int, *args, device="cuda",
+                backend=None):
+    """Run ``fn(*args)`` on ``data * model`` freshly spawned ranks in one
+    process group and return rank 0's result. ``fn`` must be importable by
+    name (a module-level function) and builds its ``TrainGroups`` with
+    ``make_train_groups(data, model)``. On the card each rank takes its
+    own card over NCCL, and a host with fewer cards raises; ``backend=
+    "gloo"`` instead runs every rank over gloo on the cards there are
+    (ranks share a card, which NCCL refuses). On the CPU the ranks run
+    over gloo. A rank that raises makes this raise once every rank has
+    ended. Arguments travel by ``torch.multiprocessing``'s pickler, so CPU
+    tensors among them are shared, not copied."""
     import torch.multiprocessing as mp
+    world = data * model
     dev = torch.device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() < tp:
-        raise RuntimeError(f"tp={tp} needs {tp} devices, host has "
-                           f"{torch.cuda.device_count()}")
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    with tempfile.TemporaryDirectory(prefix="repro_torch_tp_") as d:
-        mp.start_processes(_rank_main, args=(tp, d, backend, fn, args),
-                           nprocs=tp, join=True, start_method="spawn")
+    cards = 0
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        if backend != "gloo" and cards < world:
+            raise RuntimeError(f"data={data} x model={model} needs {world} "
+                               f"devices, host has {cards}")
+        if cards == 0:
+            raise RuntimeError("no CUDA device (pass device='cpu' to run the "
+                               "ranks on the CPU)")
+        backend = backend or "nccl"
+    else:
+        backend = "gloo"
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as d:
+        mp.start_processes(_rank_main, args=(world, d, backend, fn, args,
+                                             cards if backend == "gloo" else 0),
+                           nprocs=world, join=True, start_method="spawn")
         with open(os.path.join(d, "result.pkl"), "rb") as f:
             return pickle.load(f)
+
+
+def spawn_tp(fn: Callable, tp: int, *args, device="cuda"):
+    """Run ``fn(*args)`` on ``tp`` freshly spawned ranks in one process
+    group (NCCL on the cards, one card a rank; gloo on the CPU) and return
+    rank 0's result: ``spawn_ranks`` with one data rank. A host with fewer
+    than ``tp`` cards raises unless the caller asks for the CPU."""
+    have = torch.cuda.device_count()
+    if torch.device(device).type == "cuda" and have < tp:
+        raise RuntimeError(f"tp={tp} needs {tp} devices, host has {have}")
+    return spawn_ranks(fn, 1, tp, *args, device=device)

@@ -19,6 +19,20 @@ teacher runs under ``torch.no_grad``) followed by ``optim.adam_update``. The fak
 forward is plain PyTorch, as the JAX package computes it outside any
 kernel.
 
+A sharded step (``build_train_step(..., groups=, specs=)``, ``run_training
+(..., groups=, fsdp=)``) is one rank's of ``data x model`` ranks
+(``launch.mesh.TrainGroups``, started by ``launch.mesh.spawn_ranks``): the
+params and the Adam moments hold the rank's slices by JAX's training rules
+(``distributed.training_specs`` / ``shard_training``: tensor parallel over
+"model", with FSDP the layer stacks over "data"), the rank takes its data
+rank's rows of each batch, the forward meets the other ranks in
+``distributed.collectives`` (``cfg.attn_seq_shard``: context-parallel
+chunked attention), the gradients of the leaves the data ranks replicate
+are averaged over them (``compressed_grad_mean``, ``none``), and the clip's
+global norm counts each leaf once. Checkpoints hold the gathered tree, so
+the unsharded port and JAX load them. The fp teacher runs whole on every
+rank, on its rows. The CLI has no sharding flag, as JAX's has none.
+
 ``python -m repro_torch.launch.train [--reduced] [--device cpu] ...`` runs
 on the card unless ``--device cpu`` is passed.
 """
@@ -57,9 +71,17 @@ def check_trainable(cfg) -> None:
             "run_training with batches that carry src_embeds")
 
 
-def build_train_step(plan, hparams, teacher=None, teacher_plan=None):
+def build_train_step(plan, hparams, teacher=None, teacher_plan=None, *,
+                     groups=None, specs=None):
     """Returns ``train_step(params, opt, batch) -> (params, opt, metrics)``;
     ``train_step.loss_fn(params, batch) -> (loss, parts)`` is its loss.
+
+    With ``groups`` (a ``launch.mesh.TrainGroups``; ``plan`` built at
+    ``tp=groups.model``) the step is this rank's of a sharded step:
+    ``params`` and ``opt`` hold its slices by ``specs`` (``distributed.
+    training_specs`` of the full tree), ``batch`` is the whole batch (its
+    rows divide over the data ranks), and the metrics are the whole
+    batch's.
 
     ``plan``/``teacher_plan`` are ``ExecutionPlan``s (student QAT plan and
     fp teacher plan). ``params`` and ``opt`` are updated in place. Every
@@ -75,6 +97,12 @@ def build_train_step(plan, hparams, teacher=None, teacher_plan=None):
     from ..optim import adam_update, linear_warmup_decay, value_and_grad
 
     cfg = plan.cfg
+    sharded = groups is not None
+    if sharded:
+        if specs is None:
+            raise ValueError("a sharded step needs the training specs its "
+                             "params were cut by (distributed.training_specs)")
+        plan = plan.with_groups(groups)
     sched = linear_warmup_decay(hparams.total_steps, hparams.warmup_frac)
     lr_by_group = {"weights": hparams.lr_weights,
                    "act_scale": hparams.lr_act_scale,
@@ -107,16 +135,87 @@ def build_train_step(plan, hparams, teacher=None, teacher_plan=None):
                               hparams.alpha, hparams.beta)
 
     def train_step(params, opt, batch):
+        norm_reduce = None
+        if sharded:
+            batch = _rows_of(batch, groups)
         _, parts, grads = value_and_grad(loss_fn, params, batch)
+        if sharded:
+            grads, parts = _mean_over_data(grads, parts, specs, groups)
+            norm_reduce = _norm_reduce(specs, groups)
         params, opt = adam_update(params, grads, opt,
                                   lr_by_group=lr_by_group, schedule_fn=sched,
                                   b1=hparams.adam_b1, b2=hparams.adam_b2,
                                   eps=hparams.adam_eps,
-                                  grad_clip=hparams.grad_clip)
+                                  grad_clip=hparams.grad_clip,
+                                  norm_reduce=norm_reduce)
         return params, opt, {k: v.detach() for k, v in parts.items()}
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def _rows_of(batch: dict, groups) -> dict:
+    """This data rank's contiguous share of every batch array's rows."""
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        if v.shape[0] % groups.data:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"divide over data={groups.data} ranks")
+        n = v.shape[0] // groups.data
+        out[k] = v[groups.dp_rank * n:(groups.dp_rank + 1) * n]
+    return out
+
+
+def _mean_over_data(grads, parts: dict, specs, groups):
+    """The whole batch's gradients and loss parts from the data ranks'
+    equal shares: each leaf the data ranks replicate is averaged over them
+    (``compressed_grad_mean``, ``none``); an FSDP leaf arrives summed on its
+    owner (``collectives.fsdp_take``) and is divided by their count."""
+    from ..core.tree import tree_leaves_with_path, tree_map_with_path
+    from ..distributed import compressed_grad_mean
+    from ..distributed.collectives import all_reduce
+    if groups.data == 1:
+        return grads, parts
+    spec_of = dict(tree_leaves_with_path(specs))
+    flat = dict(tree_leaves_with_path(grads))
+    replicated = {i: g for i, (path, g) in enumerate(flat.items())
+                  if "data" not in spec_of[path].axes}
+    mean, _ = compressed_grad_mean(replicated, group=groups.dp_group, method="none")
+    n = torch.full((), groups.data, dtype=torch.float32)
+    by_path = {}
+    for i, (path, g) in enumerate(flat.items()):
+        if i in mean:
+            by_path[path] = mean[i]
+        else:
+            by_path[path] = (g / n.to(g.device)).to(g.dtype)
+    grads = tree_map_with_path(lambda path, _: by_path[path], grads)
+    parts = {k: all_reduce(v.detach().clone(), groups.dp_group) / groups.data
+             for k, v in parts.items()}
+    return grads, parts
+
+
+def _norm_reduce(specs, groups):
+    """``adam_update``'s ``norm_reduce`` for a sharded step: the squares of
+    the leaves cut over the same axes summed here, then over those axes'
+    groups; a replicated leaf counts once."""
+    from ..core.tree import tree_leaves_with_path
+    from ..distributed.collectives import all_reduce
+    leaf_axes = [spec.axes for _, spec in tree_leaves_with_path(specs)]
+    group_of = {"model": groups.mp_group, "data": groups.dp_group}
+
+    def reduce(squares):
+        totals = {}
+        for sq, ax in zip(squares, leaf_axes):
+            totals[ax] = sq if ax not in totals else totals[ax] + sq
+        total = None
+        for ax, t in totals.items():
+            t = t.clone()
+            for a in ax:
+                all_reduce(t, group_of[a])
+            total = t if total is None else total + t
+        return total
+    return reduce
 
 
 class StragglerWatchdog:
@@ -138,7 +237,8 @@ class StragglerWatchdog:
 def run_training(cfg, policy, hparams, data_fn, *, ckpt_dir: str,
                  ckpt_every: int = 50, distill_teacher=None, teacher_cfg=None,
                  log_every: int = 10, max_steps=None, on_step=None,
-                 device=None, params=None, opt=None):
+                 device=None, params=None, opt=None, groups=None,
+                 fsdp: bool = False):
     """The loop: resume -> step -> checkpoint; SIGTERM-safe.
 
     Params come from ``api.init_model`` with a generator seeded 0 on
@@ -148,14 +248,22 @@ def run_training(cfg, policy, hparams, data_fn, *, ckpt_dir: str,
     precedence over both. ``data_fn(step0)`` returns an iterator of the
     batches from step ``step0`` on (0, or the restored step); it is closed
     when the loop ends if it has a ``close``. Returns ``(state, metrics)`` with ``state =
-    {'params', 'opt'}``."""
+    {'params', 'opt'}``.
+
+    With ``groups`` (a ``launch.mesh.TrainGroups``; every rank calls this)
+    the loop runs the sharded step: the full params (and opt) are cut by
+    ``distributed.training_specs`` (``fsdp``: the layer stacks over the
+    data ranks too), ``data_fn`` yields whole batches, checkpoints are
+    gathered and written by rank 0, and ``state`` holds this rank's
+    slices."""
     from ..checkpoint import CheckpointManager
     from ..deploy import ExecutionPlan
     from ..models import api
     from ..optim import adam_init
 
     dev = resolve_device(device)
-    plan = ExecutionPlan.build(cfg, policy, mode=_plan_mode(cfg))
+    tp = 1 if groups is None else groups.model
+    plan = ExecutionPlan.build(cfg, policy, mode=_plan_mode(cfg), tp=tp)
     teacher_plan = (ExecutionPlan.build(teacher_cfg, None,
                                         mode=_plan_mode(teacher_cfg))
                     if teacher_cfg is not None else None)
@@ -170,9 +278,22 @@ def run_training(cfg, policy, hparams, data_fn, *, ckpt_dir: str,
         state = restored
         print(f"[train] resumed from step {step0}", flush=True)
     step0 = step0 or 0
+    specs = None
+    if groups is not None:
+        from ..distributed import training_specs
+        specs = training_specs(state["params"], cfg, data=groups.data, fsdp=fsdp)
+        state = shard_state(state, specs, groups)
+
+    def save(step, state, metrics):
+        if groups is not None:
+            state = gather_state(state, specs, groups)
+            if groups.rank:
+                return
+        mgr.save(step, state, {k: float(v) for k, v in metrics.items()})
 
     step_fn = build_train_step(plan, hparams, teacher=distill_teacher,
-                               teacher_plan=teacher_plan)
+                               teacher_plan=teacher_plan, groups=groups,
+                               specs=specs)
     data_iter = data_fn(step0)
     stop = {"now": False}
 
@@ -200,8 +321,7 @@ def run_training(cfg, policy, hparams, data_fn, *, ckpt_dir: str,
             if on_step is not None:
                 on_step(step, state, metrics)
             if ckpt_every and (step + 1) % ckpt_every == 0 or stop["now"]:
-                mgr.save(step + 1, state,
-                         {k: float(v) for k, v in metrics.items()})
+                save(step + 1, state, metrics)
             if stop["now"]:
                 print("[train] SIGTERM: checkpointed, exiting", flush=True)
                 break
@@ -210,6 +330,27 @@ def run_training(cfg, policy, hparams, data_fn, *, ckpt_dir: str,
             signal.signal(signal.SIGTERM, old)
         getattr(data_iter, "close", lambda: None)()
     return state, {k: float(v) for k, v in metrics.items()}
+
+
+def shard_state(state: dict, specs, groups) -> dict:
+    """``{'params', 'opt'}`` cut to this rank's slices (the Adam moments as
+    their leaves)."""
+    from ..distributed import shard_training
+    from ..optim import AdamState
+    opt = state["opt"]
+    return {"params": shard_training(state["params"], specs, groups),
+            "opt": AdamState(step=opt.step, m=shard_training(opt.m, specs, groups),
+                             v=shard_training(opt.v, specs, groups))}
+
+
+def gather_state(state: dict, specs, groups) -> dict:
+    """The inverse of :func:`shard_state`: the full tree, on every rank."""
+    from ..distributed import gather_training
+    from ..optim import AdamState
+    opt = state["opt"]
+    return {"params": gather_training(state["params"], specs, groups),
+            "opt": AdamState(step=opt.step, m=gather_training(opt.m, specs, groups),
+                             v=gather_training(opt.v, specs, groups))}
 
 
 def main(argv=None):

@@ -24,6 +24,16 @@ zeros before each plain attention and narrows the result: every
 contraction then runs at tp=1's shapes, so its per-head bits cannot depend
 on how many heads a rank holds (a batched contraction over heads may split
 its sums differently at another head count). tp=1 runs exactly as it did.
+
+A sharded training step (``spec.groups``, ``model > 1``) attends over its
+model rank's heads as they are (its bits are held to a tolerance, not to
+tp=1's), and with ``seq_shard`` (``cfg.attn_seq_shard``) its chunk branch
+is context-parallel, as JAX's ``chunked_attention`` with
+``seq_shard_axes``: every model rank takes a stripe of ``chunk / model``
+rows of each ``chunk``-row query block, with all heads, against all keys
+and values (``seq_shard_attention``); the outputs go back head-sharded to
+``wo``. The MINI taps are gathered over the heads first, since their
+relation heads cut across the ranks' shards.
 """
 from __future__ import annotations
 
@@ -85,6 +95,57 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int,
     return flash_attention_plain(q, k, v, causal=causal, bq=chunk, bk=chunk)
 
 
+def _stripe_attention(q, k, v, *, causal: bool, chunk: int, row0: int):
+    """q (B, nb, r, H, dh): rows ``row0 .. row0 + r`` of each of the ``nb``
+    ``chunk``-row query blocks; k/v (B, S, Hkv, dh), every row. Each
+    block's rows attend the keys up to its end (all keys if not causal) in
+    one f32 softmax under the finite ``NEG_INF`` mask: the same function as
+    the plain flash version's online softmax over key blocks -> (B, nb, r,
+    H, dh) in q's dtype."""
+    B, nb, r, H, dh = q.shape
+    groups = H // k.shape[2]
+    kf = _repeat_kv(k, groups).to(torch.float32)
+    vf = _repeat_kv(v, groups).to(torch.float32)
+    scale = torch.sqrt(torch.full((), float(dh), dtype=torch.float32,
+                                  device=q.device))
+    outs = []
+    for b in range(nb):
+        end = (b + 1) * chunk if causal else k.shape[1]
+        qb = q[:, b].to(torch.float32)
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, kf[:, :end]) / scale
+        if causal:
+            qi = b * chunk + row0 + torch.arange(r, device=q.device)[:, None]
+            ki = torch.arange(end, device=q.device)[None, :]
+            s = torch.where((ki <= qi)[None, None], s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", pr, vf[:, :end]))
+    return torch.stack(outs, dim=1).to(q.dtype)
+
+
+def seq_shard_attention(q, k, v, *, causal: bool, chunk: int, groups):
+    """Context-parallel chunked attention over ``groups``' model ranks
+    (JAX's ``chunked_attention`` with ``seq_shard_axes``). q (B, S, h, dh)
+    and k/v (B, S, hkv, dh) hold this rank's heads, every row; S a
+    multiple of ``chunk``, ``chunk`` of the ranks. The rank's stripe of
+    every query block, all heads (an all-to-all), attends every key and
+    value (gathered over the heads, their gradients summed); the output
+    returns head-sharded (the all-to-all back): (B, S, h, dh)."""
+    from ..distributed.collectives import all_to_all_model, gather_from_model
+    B, S, h, dh = q.shape
+    n = groups.model
+    if chunk % n:
+        raise ValueError(f"attn_seq_shard: chunk {chunk} does not split into "
+                         f"model={n} stripes")
+    r, nb = chunk // n, S // chunk
+    qs = all_to_all_model(q.reshape(B, nb, n, r, h, dh), 2, 4, groups)
+    kk = gather_from_model(k, 2, groups, sum_grad=True)
+    vv = gather_from_model(v, 2, groups, sum_grad=True)
+    out = _stripe_attention(qs.reshape(B, nb, r, n * h, dh), kk, vv,
+                            causal=causal, chunk=chunk, row0=groups.mp_rank * r)
+    out = all_to_all_model(out.reshape(B, nb, 1, r, n * h, dh), 4, 2, groups)
+    return out.reshape(B, S, h, dh)
+
+
 def cached_decode_attention(q, k_cache, v_cache, k_new, v_new, length):
     """Decode attention: q (B,Sq,H,dh) over cache (B,Smax,H,dh) masked to
     ``length`` plus the Sq new tokens (causal among themselves), fp32
@@ -137,7 +198,7 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
                     cache: Optional[dict] = None,
                     kv_input: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None, chunk: int = 0,
-                    want_taps: bool = False):
+                    want_taps: bool = False, seq_shard: bool = False):
     """One attention sublayer (the residual is the caller's). ``p`` holds
     wq / wk / wv / wo, or the fused ``wqkv`` and wo (``fused_proj``, which
     the JAX package gives only the transformer blocks: never a
@@ -164,6 +225,8 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
     chunk: the block of ``chunked_attention`` (0: off). The cacheless path
         takes it, as the JAX package does, when ``Sq > chunk``, ``Sq %
         chunk == 0`` and no ``kv_len`` is given.
+    seq_shard: in a sharded training step, the chunk branch runs
+        context-parallel (``seq_shard_attention``).
     """
     B, Sq, _ = x.shape
     src = x if kv_input is None else kv_input
@@ -178,10 +241,14 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         q = _split_heads(qlinear(x, p["wq"], spec), n_heads)
         k = _split_heads(qlinear(src, p["wk"], spec), n_kv)
         v = _split_heads(qlinear(src, p["wv"], spec), n_kv)
+    mp = spec.groups if spec.groups is not None and spec.groups.model > 1 else None
     taps = None
     if want_taps:
         taps = {"q": q.reshape(B, Sq, -1), "k": k.reshape(B, k.shape[1], -1),
                 "v": v.reshape(B, v.shape[1], -1)}
+        if mp is not None:
+            from ..distributed.collectives import gather_from_model
+            taps = {key: gather_from_model(t, 2, mp) for key, t in taps.items()}
     if rope and kv_input is None:
         positions = torch.arange(Sq, device=x.device)[None, :]
         if cache is not None:
@@ -193,7 +260,9 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
     groups = n_heads // n_kv
     new_kv = None
     tp, rank = spec.tp, 0
-    if tp > 1:
+    if mp is not None:          # training: the rank's heads, as they are
+        tp = 1
+    elif tp > 1:
         import torch.distributed as dist
         rank = dist.get_rank()
     attend = lambda fn, *a, **kw: rank_attention(fn, rank, tp, *a, **kw)
@@ -236,8 +305,12 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         new_kv = (k, v)
     elif (chunk and Sq > chunk and Sq % chunk == 0 and kv_len is None
           and kv_input is None):
-        out = attend(chunked_attention, q, k, v, causal=causal, chunk=chunk,
-                     use_kernel=spec.use_kernels)
+        if seq_shard and mp is not None:
+            out = seq_shard_attention(q, k, v, causal=causal, chunk=chunk,
+                                      groups=mp)
+        else:
+            out = attend(chunked_attention, q, k, v, causal=causal, chunk=chunk,
+                         use_kernel=spec.use_kernels)
     else:
         out = attend(full_attention, q, _repeat_kv(k, groups), _repeat_kv(v, groups),
                      causal=causal and kv_input is None,

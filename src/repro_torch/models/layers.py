@@ -33,7 +33,7 @@ from ..core.quantizer import fake_quant, quantize_to_int
 from ..kernels.int4_matmul import gelu_tanh
 from ..kernels.int8_matmul import int_matmul_exact
 
-__all__ = ["QuantSpec", "qlinear", "rmsnorm", "layernorm", "gelu_f32",
+__all__ = ["QuantSpec", "qlinear", "fake_matmul", "rmsnorm", "layernorm", "gelu_f32",
            "act_fn", "rope_tables", "apply_rope", "remat"]
 
 
@@ -47,6 +47,9 @@ class QuantSpec:
     use_kernels: bool = False   # int mode: hand-written kernels vs plain int path
     fuse_epilogue: bool = False  # int4 kernels: fold bias+act into the matmul
     tp: int = 1                 # tensor-parallel ranks a row-parallel sum spans
+    #: a sharded training step's ``TrainGroups`` (None: one device, or the
+    #: serving tp path over the default group)
+    groups: object = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def enabled(self) -> bool:
@@ -71,16 +74,33 @@ def qlinear(x: torch.Tensor, p: dict, spec: QuantSpec,
         return _qlinear_int(x, p, spec, act=act,
                             reduce=row_parallel and spec.tp > 1)
     assert act is None, "fused act requires the deployed int4 kernel path"
-    w = p["w"]
-    if spec.mode == "fake" and spec.enabled:
-        w = fake_quant(w, p["s_w"], spec.w_bits, spec.grad_mode)
-        if spec.a_bits:
-            x = fake_quant(x, p["s_a"], spec.a_bits, spec.grad_mode)
-    out = x @ w.to(x.dtype)
+    out = fake_matmul(x, p, spec, row_parallel)
     b = p.get("b")
     if b is not None:
         out = out + b.to(out.dtype)
     return out
+
+
+def fake_matmul(x: torch.Tensor, p: dict, spec: QuantSpec,
+                row_parallel: bool = False) -> torch.Tensor:
+    """``Q_a[x] @ Q_w[w]`` (mode 'fake'; ``x @ w`` unquantized), a linear's
+    or the experts' (E, C, K) @ (E, K, N); under sharded training on this
+    model rank's slices, as the module docstring says (no bias)."""
+    g = spec.groups if spec.groups is not None and spec.groups.model > 1 else None
+    if g is not None:
+        from ..distributed.collectives import copy_to_model, reduce_from_model
+    w = p["w"]
+    if spec.mode == "fake" and spec.enabled:
+        s_w, s_a, count = p["s_w"], p["s_a"], 1
+        if g is not None and row_parallel:
+            s_w, s_a, count = copy_to_model(s_w, g), copy_to_model(s_a, g), g.model
+        w = fake_quant(w, s_w, spec.w_bits, spec.grad_mode, count=count)
+        if spec.a_bits:
+            x = fake_quant(x, s_a, spec.a_bits, spec.grad_mode, count=count)
+    if g is not None and not row_parallel:
+        x = copy_to_model(x, g)
+    out = torch.matmul(x, w.to(x.dtype))
+    return reduce_from_model(out, g) if g is not None and row_parallel else out
 
 
 def _qlinear_int(x: torch.Tensor, p: dict, spec: QuantSpec,
@@ -137,7 +157,8 @@ def _qlinear_int(x: torch.Tensor, p: dict, spec: QuantSpec,
         acc = int_matmul_exact(x8, w8)
         if reduce:
             import torch.distributed as dist
-            dist.all_reduce(acc)        # int32: exact in any order
+            group = None if spec.groups is None else spec.groups.mp_group
+            dist.all_reduce(acc, group=group)     # int32: exact in any order
         out = (acc.to(torch.float32) * (s_a * s_w)).to(x.dtype)
     if b is not None:
         out = out + b.to(out.dtype)

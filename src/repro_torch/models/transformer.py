@@ -39,11 +39,14 @@ from ..configs.base import ModelConfig
 from ..core import calibration
 from ..core.packing import unpack_int4
 from ..core.policy import QuantPolicy
-from ..core.quantizer import fake_quant
 from ..core.tree import slice_stack, tree_map
+from ..distributed.collectives import (copy_to_model, fsdp_take,
+                                       gather_from_model, mean_from_data,
+                                       reduce_from_model)
 from ..kernels.int8_matmul import expert_matmul_exact
 from .attention import attention_block
-from .layers import QuantSpec, act_fn, layernorm, qlinear, remat, rmsnorm
+from .layers import (QuantSpec, act_fn, fake_matmul, layernorm, qlinear, remat,
+                     rmsnorm)
 
 
 def segments_from_policy(policy: QuantPolicy, use_kernels: bool = False,
@@ -123,12 +126,8 @@ def _expert_matmul(x_ecd: torch.Tensor, p: dict, spec: QuantSpec,
             w8 = w8.narrow(-2, 0, k)
         w = (w8.to(torch.float32) * p["s_w"]).to(x_ecd.dtype)
         return torch.matmul(x_ecd, w)
-    w = p["w"]
-    if spec.mode == "fake" and spec.enabled:
-        w = fake_quant(w, p["s_w"], spec.w_bits, spec.grad_mode)
-        if spec.a_bits:
-            x_ecd = fake_quant(x_ecd, p["s_a"], spec.a_bits, spec.grad_mode)
-    return torch.matmul(x_ecd, w.to(x_ecd.dtype))
+    # sharded training: w1 / w3 column-parallel on expert_d_ff, w2 row-parallel
+    return fake_matmul(x_ecd, p, spec, row_parallel)
 
 
 def top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -165,14 +164,19 @@ def _shared_expert(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return gate * ffn_apply(x, p["shared"], sub, spec)
 
 
-def _aux_loss(gates: torch.Tensor, first: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _aux_loss(gates: torch.Tensor, first: torch.Tensor, cfg: ModelConfig,
+              groups=None) -> torch.Tensor:
     """Switch-style load-balance loss: ``coef * E * sum(frac * prob)``, frac
     the share of tokens whose first choice is each expert, prob the mean
-    gate; means over every axis but the experts'."""
+    gate; means over every axis but the experts'. A sharded step's data
+    ranks hold equal parts of the batch: their means are averaged into the
+    whole batch's (``mean_from_data``), as JAX's loss sees the whole batch."""
     E = cfg.num_experts
     lead = tuple(range(gates.dim() - 1))
     frac = torch.mean(F.one_hot(first, E).to(torch.float32), dim=lead)
     prob = torch.mean(gates, dim=lead)
+    if groups is not None and groups.data > 1:
+        frac, prob = mean_from_data(frac, groups), mean_from_data(prob, groups)
     return cfg.router_aux_coef * E * torch.sum(frac * prob)
 
 
@@ -239,7 +243,7 @@ def moe_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, spec: QuantSpec):
     out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
     if "shared" in p:
         out = (out.reshape(B, S, d) + _shared_expert(x, p, cfg, spec)).reshape(G, Sg, d)
-    return out.reshape(B, S, d), _aux_loss(gates, top_idx[..., 0], cfg)
+    return out.reshape(B, S, d), _aux_loss(gates, top_idx[..., 0], cfg, spec.groups)
 
 
 def moe_apply_sorted(x: torch.Tensor, p: dict, cfg: ModelConfig, spec: QuantSpec):
@@ -292,7 +296,8 @@ def moe_apply_sorted(x: torch.Tensor, p: dict, cfg: ModelConfig, spec: QuantSpec
         out = out + y_tok[:, j]
     if "shared" in p:
         out = out + _shared_expert(xf, p, cfg, spec)
-    return out.reshape(B, S, d).to(x.dtype), _aux_loss(gates, top_idx[:, 0], cfg)
+    return out.reshape(B, S, d).to(x.dtype), _aux_loss(gates, top_idx[:, 0], cfg,
+                                                       spec.groups)
 
 
 def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
@@ -316,11 +321,12 @@ def block_apply(x, p, cfg: ModelConfig, spec: QuantSpec, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def attn(h):
-        return attention_block(
+        out = attention_block(
             h, p["attn"], n_heads=n_heads, n_kv=n_kv,
             hd=cfg.hd, spec=spec, causal=cfg.causal, rope=cfg.rope,
             rope_theta=cfg.rope_theta, cache=cache, kv_len=kv_len,
-            chunk=chunk, want_taps=True)
+            chunk=chunk, want_taps=want_taps, seq_shard=cfg.attn_seq_shard)
+        return out if want_taps else (*out, None)
 
     def ffn(h):
         nonlocal aux
@@ -500,11 +506,21 @@ def init_lm(cfg: ModelConfig, g: torch.Generator, device) -> dict:
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            patch_embeds: Optional[torch.Tensor] = None,
-           patch_mask: Optional[torch.Tensor] = None, offset: int = 0):
+           patch_mask: Optional[torch.Tensor] = None, offset: int = 0,
+           groups=None):
     # F.embedding, not indexing: its backward sums the rows of repeated
     # tokens in a fixed order (indexing's accumulates in parallel on the
     # CPU), so training runs repeat bit for bit
-    x = F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
+    if groups is not None and groups.model > 1:
+        # vocab-parallel: this rank's rows, the others' tokens zero, the
+        # one nonzero row of each token summed over the model ranks (exact)
+        tab = params["embed"]
+        local = tokens - groups.mp_rank * tab.shape[0]
+        inside = (local >= 0) & (local < tab.shape[0])
+        x = F.embedding(torch.where(inside, local, 0), tab) * inside[..., None]
+        x = reduce_from_model(x, groups).to(cfg.torch_dtype)
+    else:
+        x = F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
     if patch_embeds is not None:
         # the anyres stub: the k-th masked position takes patch row k
         # (clipped to the last row when more positions are masked)
@@ -612,28 +628,38 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
     if patch_embeds is not None:
         patch_embeds = torch.as_tensor(patch_embeds, device=dev)
         patch_mask = torch.as_tensor(patch_mask, dtype=torch.bool, device=dev)
-    x = _embed(params, cfg, tokens, patch_embeds, patch_mask)
+    groups = segments[0][2].groups
+    x = _embed(params, cfg, tokens, patch_embeds, patch_mask, groups=groups)
     layers = params["layers"]
     # deployed int mode: layers arrive as a per-segment list (packed
     # weights cannot live in one stacked array across bit-width segments)
     presliced = isinstance(layers, (list, tuple))
+    # FSDP: the stacked leaves cut over the data ranks hold L / data layers
+    # here; each layer is broadcast from its owner where it is used
+    fsdp = groups is not None and groups.data > 1 and not presliced
     taps = None
     moe = cfg.family == "moe"
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     last = segments[-1][1] - 1
     for si, (start, end, spec) in enumerate(segments):
-        seg = layers[si] if presliced else slice_stack(layers, start, end)
+        seg = (layers[si] if presliced
+               else layers if fsdp else slice_stack(layers, start, end))
         auxs = []
         for i in range(end - start):
-            lp = tree_map(lambda a: a[i], seg)
+            if fsdp:
+                take = lambda j=start + i: fsdp_layer(layers, j, cfg.num_layers, groups)
+            else:
+                lp = tree_map(lambda a: a[i], seg)
+                take = lambda lp=lp: lp
             cache_l = None if caches is None else layer_cache(caches, start + i)
             tap = want_taps and start + i == last
             if tap or caches is not None:
-                out = block_apply(x, lp, cfg, spec, cache=cache_l,
+                out = block_apply(x, take(), cfg, spec, cache=cache_l,
                                   want_taps=tap, want_aux=moe)
-            else:   # JAX checkpoints every layer but the tapped one
-                out = remat(cfg.remat, lambda h, lp=lp, spec=spec: block_apply(
-                    h, lp, cfg, spec, want_aux=moe), x)
+            else:   # JAX checkpoints every layer but the tapped one; the
+                # layer is taken inside, so FSDP's broadcast is recomputed too
+                out = remat(cfg.remat, lambda h, take=take, spec=spec: block_apply(
+                    h, take(), cfg, spec, want_aux=moe), x)
             x, new_kv = out[0], out[1]
             if tap:
                 taps = out[2]
@@ -648,13 +674,30 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
         new_caches = {**caches, "len": caches["len"] + x.shape[1]}
     x = _norm(x, params["final_norm"], cfg.norm)
     head = params.get("lm_head")
-    if head is None:
-        logits = x @ params["embed"].T.to(x.dtype)
+    head = params["embed"].T if head is None else head
+    if groups is not None and groups.model > 1:
+        # column-parallel over the vocabulary, the logits gathered (their
+        # padding past the table's rows dropped) for the replicated losses
+        logits = copy_to_model(x, groups) @ head.to(x.dtype)
+        logits = gather_from_model(logits, -1, groups).narrow(-1, 0, cfg.padded_vocab)
     else:
         logits = x @ head.to(x.dtype)
     logits = mask_padded_vocab(logits, cfg)
     return ((logits, new_caches) + ((taps,) if want_taps else ())
             + ((aux_total,) if want_aux else ()))
+
+
+def fsdp_layer(layers: dict, j: int, num_layers: int, groups) -> dict:
+    """Layer ``j`` of a stacked tree whose leaves an FSDP step cuts over the
+    data ranks: a cut leaf (``num_layers / data`` rows here) is taken from
+    the rank that owns row ``j`` (``collectives.fsdp_take``), an uncut one
+    indexed."""
+    def one(a):
+        if a.shape[0] == num_layers:
+            return a[j]
+        owner, i = divmod(j, a.shape[0])
+        return fsdp_take(a, i, owner, groups)
+    return tree_map(one, layers)
 
 
 def lm_caches(cfg: ModelConfig, batch: int, max_len: int,

@@ -16,7 +16,7 @@ training holds params, grads, m and v once each this way.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -72,9 +72,13 @@ def value_and_grad(loss_fn, params, *args):
 @torch.no_grad()
 def adam_update(params, grads, state: AdamState, *, lr_by_group: dict,
                 schedule_fn: Callable, b1=0.9, b2=0.999, eps=1e-8,
-                grad_clip: float = 0.0):
+                grad_clip: float = 0.0, norm_reduce: Optional[Callable] = None):
     """Returns (params, new_state), both updated in place but the step.
-    ``lr_by_group``: group name -> base lr."""
+    ``lr_by_group``: group name -> base lr. ``norm_reduce`` (a sharded
+    step's): the leaves' sums of squares, in tree order -> the whole
+    model's, each sharded leaf's summed over the ranks that hold its
+    parts and each replicated one counted once; the clip's global norm is
+    its square root."""
     step = state.step + 1
     sched = schedule_fn(step)
     flat = list(tree_leaves_with_path(params))
@@ -86,8 +90,9 @@ def adam_update(params, grads, state: AdamState, *, lr_by_group: dict,
 
     factor = None
     if grad_clip:
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in gl))
+        squares = [torch.sum(torch.square(g.to(torch.float32))) for g in gl]
+        gnorm = torch.sqrt(sum(squares) if norm_reduce is None
+                           else norm_reduce(squares))
         # a tensor numerator: float / tensor would multiply by a reciprocal
         clip = torch.full((), grad_clip, dtype=torch.float32, device=gnorm.device)
         factor = torch.clamp(clip / torch.clamp_min(gnorm, 1e-12), max=1.0)

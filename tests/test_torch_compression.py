@@ -29,6 +29,17 @@ from repro_torch.distributed import compressed_grad_mean
 from repro_torch.distributed.compression import METHODS
 from repro_torch.launch.mesh import spawn_tp
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 STEPS = 3
 #: leaves whose cross-rank partial sums are exact in any order
 ORDER_FREE = ("list/1", "only0")
@@ -128,7 +139,7 @@ def _formula(n: int, method: str) -> list:
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["ranks2", "ranks4"])
 def ranks(request):
-    return request.param, spawn_tp(_rank_main, request.param)
+    return request.param, spawn_tp(_rank_main, request.param, device="cpu")
 
 
 @pytest.mark.parametrize("method", METHODS)

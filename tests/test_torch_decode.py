@@ -45,6 +45,17 @@ from repro_torch.serving import (GenerationRequest, SamplingParams,
                                  ServingEngine, VirtualClock, sample_seed,
                                  sample_token)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 VARIANTS = {"mha": {}, "gqa": {"num_kv_heads": 2}}
 
 

@@ -68,10 +68,21 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.op_analysis import analyze
 from repro_torch.models import api
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MESHES = {"tpu_single": (("data", "model"), {"data": 16, "model": 16}),
           "tpu_multi": (("pod", "data", "model"), {"pod": 2, "data": 16, "model": 16}),
-          "h100_multi_train": (("data", "model"), {"data": 4, "model": 1}),
+          "h100_multi_train": (("data", "model"), {"data": 2, "model": 2}),
           "h100_multi_serve": (("data", "model"), {"data": 1, "model": 4})}
 
 
@@ -318,8 +329,8 @@ def test_run_cell_schema_skips_and_the_runner(tmp_path, capsys):
     assert ok["dominant"] in ok["roofline_terms_s"]
     skips = [("stablelm-3b", "long_500k", "single", {}, "full-attention arch"),
              ("xlstm-1.3b", "decode_32k", "multi", {}, "tp=4: no sharding rules"),
-             ("stablelm-3b", "decode_32k", "single", {"fsdp": True}, "fsdp"),
-             ("stablelm-3b", "train_4k", "single", {"attn_seq_shard": True}, "attn_seq_shard")]
+             ("xlstm-1.3b", "train_4k", "multi", {}, "training family 'xlstm'"),
+             ("zamba2-2.7b", "train_4k", "multi", {"fsdp": True}, "later slice")]
     for arch, shape, mesh, extra, why in skips:
         r = dryrun.run_cell(arch, shape, mesh, out, extra=extra)
         assert r["status"] == "skipped" and why in r["reason"], r
@@ -332,3 +343,76 @@ def test_run_cell_schema_skips_and_the_runner(tmp_path, capsys):
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("roofline,")]
     assert len(lines) == 1 + 5
     assert any(ln.startswith("roofline,xlstm-1.3b,long_500k,single,ok,") for ln in lines)
+
+
+# ------------------------------------------------- the sharded train cells
+def _small_stablelm(arch):
+    """stablelm-3b reduced to 2 layers at d 64, its chunk (1024) and
+    threshold (2048) kept so train_4k takes the chunk branch in 4 blocks."""
+    return reduced(get_config("stablelm-3b")).replace(num_layers=2, attn_chunk=1024,
+                                                     attn_chunk_threshold=2048)
+
+
+@pytest.mark.parametrize("extra", [{}, {"fsdp": True}, {"attn_seq_shard": True}],
+                         ids=["plain", "fsdp", "attn_seq_shard"])
+def test_multi_train_cells_build_with_fsdp_and_seq_shard(extra, tmp_path, monkeypatch):
+    """The train_4k x multi cell (data 2 x model 2) is ``ok`` plain, with
+    --fsdp and with --attn-seq-shard (on a 2-layer, d 64 stablelm-3b);
+    FSDP broadcasts the layers (collective-permute), the context-parallel
+    chunk branch adds all-gathers of the heads."""
+    import repro_torch.configs as configs
+    monkeypatch.setattr(configs, "get_config", _small_stablelm)
+    r = dryrun.run_cell("stablelm-3b", "train_4k", "multi", str(tmp_path), extra=extra)
+    assert r["status"] == "ok" and r["chips"] == 4, r
+    coll = r["op_analysis"]["collective_bytes"]
+    assert coll["all-reduce"] > 0 and coll["all-gather"] > 0
+    assert ("collective-permute" in coll) == bool(extra.get("fsdp"))
+    shapes = [c["operands"] for c in r["top_collectives"] if c["op"] == "all-gather"]
+    assert any(len(op.split(",")) == 6 for op in shapes) == bool(extra.get("attn_seq_shard"))
+
+
+def test_fsdp_cell_keeps_at_most_055_of_the_argument_bytes():
+    """stablelm-3b x train_4k x multi at full size: FSDP cuts the layer
+    stacks and both Adam moments over the 2 data ranks; the vocabulary
+    tables (2-D) stay cut over "model" only: 0.5465x."""
+    mesh = make_production_mesh(multi=True)
+    got = {}
+    for fsdp in (False, True):
+        with dryrun.fake_group(mesh.chips):
+            built, why = dryrun._build_cell("stablelm-3b", "train_4k", mesh,
+                                            policy_kind="mkq50", distill=False,
+                                            grad_mode="mse", extra={"fsdp": fsdp})
+        assert built is not None, why
+        got[fsdp] = built[2]
+    assert got[True] <= 0.55 * got[False], got[True] / got[False]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused_proj"])
+def test_tp_step_collective_bytes_follow_the_formula(fused):
+    """Rank 0 of data 2 x model 2, a reduced stablelm-3b (2 layers, d 64,
+    f32, ``remat`` off), b = B / 2 rows of S tokens, e = 4 bytes; the
+    analyzer counts an all-reduce twice its bytes, an all-gather its input:
+
+    all-reduce = 2 e (b S d (2 + L (2 + c)) + 2 L (d + 1) + P + 2)
+      the embedding's rows summed over the vocabulary shards and the lm_head
+      input's dx (2); per layer the row-parallel outputs of wo and w2 (2)
+      and the dx of the c column-parallel inputs (wq wk wv w1 w3: 5; fused
+      wqkv w13: 2); the row-parallel scales' shares (s_w (1, d), s_a ()) of
+      wo and w2; the P local params' gradients averaged over the data
+      ranks; the loss over them and the clip's norm over "model" (2);
+    all-gather = b S (V / 2) e: the logits.
+    """
+    cfg = reduced(get_config("stablelm-3b")).replace(num_layers=2, fused_proj=fused)
+    B, S = 4, 32
+    pol = QuantPolicy(num_layers=2, mode="fake", last_k_int4=1)
+    with dryrun.fake_group(4):
+        step, args, _ = dryrun._train_cell(cfg, ShapeSpec("t", S, B, "train"),
+                                           make_production_mesh(multi=True), policy=pol,
+                                           distill=False, extra={})
+        got = analyze(step, *args)["collective_bytes"]
+    b, d, L, e, V = B // 2, cfg.d_model, cfg.num_layers, 4, cfg.padded_vocab
+    c = 2 if fused else 5
+    P = sum(t.numel() for _, t in tree_leaves_with_path(args[0]))
+    assert got == {"all-reduce": 2 * e * (b * S * d * (2 + L * (2 + c)) + 2 * L * (d + 1)
+                                          + P + 2),
+                   "all-gather": b * S * (V // 2) * e}

@@ -51,6 +51,17 @@ from repro_torch.models.attention import attention_block
 from repro_torch.models.layers import QuantSpec
 from repro_torch.serving import ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCH = "seamless-m4t-medium"
 N = lambda tree: jax.tree.map(np.asarray, tree)
 POLICY = dict(num_layers=2, mode="int", last_k_int4=1)

@@ -57,6 +57,17 @@ from repro_torch.models import api, attention, transformer
 from repro_torch.models.layers import QuantSpec
 from repro_torch.serving import GenerationRequest, ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("stablelm-3b", "llava-next-mistral-7b")
 S_LONG = 128                 # > attn_chunk_threshold (64), 4 chunks of 32

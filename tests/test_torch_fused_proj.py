@@ -38,6 +38,17 @@ from repro_torch.models import api
 from repro_torch.models.transformer import fuse_projections
 from repro_torch.serving import GenerationRequest, ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCHS = ("stablelm-3b", "qwen2.5-32b", "granite-moe-3b-a800m",
          "qwen2-moe-a2.7b", "zamba2-2.7b")
 SERVED = ("stablelm-3b", "qwen2.5-32b", "qwen2-moe-a2.7b")
@@ -298,7 +309,7 @@ def test_fused_tp2_serves_bit_equal_to_tp1(tmp_path):
                 for arch, p in paths.items()}
     finally:
         torch.set_num_threads(threads)
-    got = spawn_tp(_tp_rank, 2, paths)
+    got = spawn_tp(_tp_rank, 2, paths, device="cpu")
     for arch in SERVED:
         assert got[arch][0] == want[arch][0], arch
         assert torch.equal(got[arch][1], want[arch][1]), arch

@@ -48,6 +48,17 @@ from repro_torch.deploy.plan import plan_from_meta, plan_to_meta
 from repro_torch.models import api, hybrid
 from repro_torch.serving import GenerationRequest, ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCH = "zamba2-2.7b"
 N = lambda tree: jax.tree.map(np.asarray, tree)
 CALIB = [{"tokens": np.random.default_rng(0).integers(1, 256, (2, 16)).astype(np.int32)}]

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, no ``repro``, and no silent CPU fallback.
 
-Every Python file under ``src/repro_torch`` and ``chip_smoke.py`` is parsed
-and its imports checked (``repro_torch`` itself is allowed). Entry points
-default to the card and raise on a host without CUDA unless the caller
-passes ``device="cpu"``.
+Every Python file under ``src/repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) is parsed and its imports checked
+(``repro_torch`` itself is allowed). Entry points default to the card and
+raise on a host without CUDA unless the caller passes ``device="cpu"``.
 """
 import ast
 from pathlib import Path
@@ -13,7 +13,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -76,7 +77,11 @@ def test_the_scan_sees_the_whole_port_and_catches_imports(tmp_path):
                  "src/repro_torch/launch/op_analysis.py",
                  "src/repro_torch/launch/dryrun.py",
                  "src/repro_torch/benchmarks/roofline.py",
-                 "src/repro_torch/benchmarks/run.py"):
+                 "src/repro_torch/benchmarks/run.py",
+                 "src/repro_torch/distributed/collectives.py",
+                 "examples/torch_quickstart.py", "examples/torch_serve_int4.py",
+                 "examples/torch_serve_sharded.py",
+                 "examples/torch_train_qat_distill.py"):
         assert must in rel
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.core import qat\n"
@@ -236,3 +241,29 @@ def test_dryrun_and_op_analysis_take_meta_explicitly(no_cuda, capsys):
     assert analyze(step, *args)["launches"]["int8_matmul"] == 14
     assert run.main(["--quick", "--only", "table2"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def _tp_noop():
+    return None
+
+
+def test_rank_spawners_default_to_the_card(no_cuda):
+    """``spawn_tp`` and ``spawn_ranks`` run NCCL ranks on the cards unless
+    the caller asks for the CPU: without a device they raise on a host
+    with no CUDA, before any process starts."""
+    from repro_torch.launch.mesh import spawn_ranks, spawn_tp
+    with pytest.raises(RuntimeError, match="needs 2 devices, host has 0"):
+        spawn_tp(_tp_noop, 2)
+    with pytest.raises(RuntimeError, match="needs 4 devices, host has 0"):
+        spawn_ranks(_tp_noop, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn_ranks(_tp_noop, 1, 2, backend="gloo")
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_serve_int4",
+                                  "torch_serve_sharded", "torch_train_qat_distill"])
+def test_examples_default_to_the_card(no_cuda, name, monkeypatch):
+    import importlib
+    monkeypatch.syspath_prepend(str(ROOT / "examples"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(name).main(["--quick"])

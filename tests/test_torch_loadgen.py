@@ -45,6 +45,17 @@ from repro_torch.serving import (SLO, ServingEngine, VirtualClock, VirtualCost,
                                  run_load, run_trials, trace_arrivals)
 from repro_torch.serving import loadgen
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 WORKLOADS = {
     "mixed": Workload(n_requests=12, rate_rps=30.0, vocab=256, prompt_len=(3, 14),
                       new_tokens=(2, 6), shared_prefix_frac=0.3, sampled_frac=0.3,

@@ -66,6 +66,17 @@ from repro_torch.models import transformer as tt
 from repro_torch.models.layers import QuantSpec
 from repro_torch.serving import GenerationRequest, ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCHS = ("qwen2-moe-a2.7b", "granite-moe-3b-a800m")
 #: (mode, w_bits, a_bits) of the layer-level cases
 MODES = (("none", 0, 0), ("fake", 8, 8), ("fake", 4, 4), ("int", 8, 8),

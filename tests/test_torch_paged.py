@@ -60,6 +60,17 @@ from repro_torch.serving import (PREFIX_BLOCK, BlockPool, GenerationRequest,
                                  PagedKVCache, SamplingParams, ServingEngine,
                                  blocks_needed)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 POLICY = dict(num_layers=4, mode="int", last_k_int4=2)
 CALIB = [{"tokens": np.random.default_rng(0).integers(1, 256, (4, 16)).astype(np.int32)}
          for _ in range(2)]

@@ -40,6 +40,17 @@ from repro_torch.deploy import ExecutionPlan, params_from_numpy
 from repro_torch.launch.train import build_train_step
 from repro_torch.optim import value_and_grad
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCHS = ("stablelm-3b", "granite-moe-3b-a800m", "seamless-m4t-medium",
          "zamba2-2.7b", "xlstm-1.3b")
 

@@ -26,6 +26,17 @@ import torch
 
 from repro_torch.launch import serve
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 BASE = ["--reduced", "--device", "cpu", "--requests", "5", "--slots", "2"]
 
 

@@ -28,6 +28,17 @@ from repro_torch.core.autosearch import (cached_probe_scorer, load_search_policy
                                          search_mixed_precision)
 from repro_torch.core.policy import QuantPolicy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

@@ -167,7 +167,7 @@ def grid(tmp_path_factory):
     tp2_path = str(tmp / "saved_at_tp2")
     out = {"paths": paths, "tp2_path": tp2_path}
     for tp in (2, 1, 4):          # tp=2 writes the artifact the others read
-        out[tp] = spawn_tp(_grid_rank, tp, paths, fp_path, tp2_path)
+        out[tp] = spawn_tp(_grid_rank, tp, paths, fp_path, tp2_path, device="cpu")
     return out
 
 
@@ -283,7 +283,7 @@ def moe_grid(tmp_path_factory):
                                    backend="reference", kv_bits=8)
         paths[case] = str(tmp / case)
         deploy(_fp_params(cfg), plan, CALIB, device="cpu").save(paths[case])
-    return {tp: spawn_tp(_moe_rank, tp, paths) for tp in (1, 2, 4)}
+    return {tp: spawn_tp(_moe_rank, tp, paths, device="cpu") for tp in (1, 2, 4)}
 
 
 @pytest.mark.parametrize("case", MOE_CASES)
@@ -450,6 +450,15 @@ def test_plan_build_accepts_the_tp_plans_jax_accepts(row):
                                                    act_bits=act_bits, tp=tp))
         want = _outcome(lambda: JExecutionPlan.build(jcfg, jpol, backend=jbackend,
                                                      act_bits=act_bits, tp=tp))
+        if mode == "fake" and backend == "reference" and tp > 1:
+            # the port's fake-quant plan takes tp as the model ranks of its
+            # sharded training step; JAX trains under GSPMD with no tp plan
+            # and refuses one. The port refuses only a tp its dims (4 heads,
+            # d_ff 128) do not divide
+            assert "DEPLOYED integer" in want, (tp, want)
+            assert (got is None) == (4 % tp == 0), (tp, got)
+            assert got is None or "does not divide" in got, (tp, got)
+            continue
         assert (got is None) == (want is None), (tp, got, want)
         if want is not None:
             phrase = [p for p in KEY_PHRASES if p in want]

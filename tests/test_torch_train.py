@@ -52,6 +52,17 @@ from repro_torch.optim import (AdamState, adam_init, adam_update,
                                group_for_path, linear_warmup_decay,
                                value_and_grad)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 N = lambda tree: jax.tree.map(np.asarray, tree)
 
 

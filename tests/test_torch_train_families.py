@@ -44,6 +44,17 @@ from repro_torch.deploy import ExecutionPlan, params_from_numpy
 from repro_torch.launch import train
 from repro_torch.optim import adam_init
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 N = lambda tree: jax.tree.map(np.asarray, tree)
 ARCHS = ("xlstm-1.3b", "zamba2-2.7b", "seamless-m4t-medium")
 

@@ -61,6 +61,17 @@ from repro_torch.models import xlstm as tx
 from repro_torch.models.layers import QuantSpec
 from repro_torch.serving import GenerationRequest, ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: its ops are small, and
+    at one thread a test worker does not contend with the suite's others
+    for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCH = "xlstm-1.3b"
 N = lambda tree: jax.tree.map(np.asarray, tree)
 POLICY = dict(num_layers=4, mode="int", last_k_int4=2)
