@@ -287,9 +287,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    1.0 beside the flood, two replicas at least 1.8x one engine's virtual
    capacity with byte-identical streams;
 21. the MoE family: (a) granite-moe-3b-a800m at full width, its depth cut
-   to 8 of 32 layers for the script's time (``MOE_GRANITE_LAYERS``; d
+   to 4 of 32 layers for the script's time (``MOE_GRANITE_LAYERS``; d
    1536, 24 heads of 64 on 8 KV heads, 40 experts of d_ff 512, top-8; W8A8
-   layers 0-3, W4A4 4-7, bf16 activations) from a seeded
+   layers 0-1, W4A4 2-3, bf16 activations) from a seeded
    generator on the card -> ``deploy`` with 4 calibration batches ->
    ``save`` -> ``load``, serving 8 greedy requests (prompts of 5-256
    tokens, 4-12 new tokens) and one sampled (n = 2) on 8 slots at kv8
@@ -308,7 +308,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    64; the experts on wgmma at 1024 rows), layer 0's flash output within
    phase 12's tolerances and the first GEMM of each shape bit-equal; (e)
    qwen2-moe-a2.7b at full width (shared expert with its sigmoid gate, QKV
-   bias), its depth cut to 8 of 24 layers (``MOE_QWEN_LAYERS``), deployed
+   bias), its depth cut to 4 of 24 layers (``MOE_QWEN_LAYERS``), deployed
    on the card (not saved), serving 4 requests at kv8 dense with (a)'s
    checks and (b)'s layer check at its shapes. Phases 5, 8 and 12 also run
    the attention kernels at GQA groups 3, 5 and 8 ((24, 8, 64), (40, 8,
@@ -364,11 +364,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    output reported. Then the non-causal flash kernel alone at the encoder's
    shape beside its plain version, SDPA (``is_causal=False``) and its
    bound;
-24. xlstm-1.3b at full width, its depth cut to 24 of 48 layers for the
-   script's time (``XLSTM_LAYERS``; 3 groups of 7 mLSTM + 1 sLSTM, d 2048,
+24. xlstm-1.3b at full width, its depth cut to 16 of 48 layers for the
+   script's time (``XLSTM_LAYERS``; 2 groups of 7 mLSTM + 1 sLSTM, d 2048,
    4 heads, the mLSTM's head width 1024, vocab 50304; bf16 activations,
-   an f32 recurrent state at 4 slots half the full depth's 2.83 GB) under
-   the serve CLI's policy: W8A8 groups 0-1, W4A4 group 2. fp params
+   an f32 recurrent state at 4 slots a third of the full depth's 2.83 GB)
+   under the serve CLI's policy: W8A8 group 0, W4A4 group 1. fp params
    from a seeded generator on the card -> ``deploy`` with 2 calibration
    batches of 256 tokens (the mLSTM chunk) -> ``save`` under ``build/`` ->
    ``load``. The first call of each integer GEMM shape of a token step (up
@@ -379,13 +379,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the engine admits and finishes for this family as JAX's does, and 8
    greedy requests (prompts of 16-48 tokens, 16 new tokens; freed slots
    refilled): every request finishes, every step's logits finite, every
-   token step launches exactly the 111 GEMMs ``xlstm_linears`` derives
-   (int8 74, int4 37, all split-K: no act_quant, no attention kernel), no
+   token step launches exactly the 74 GEMMs ``xlstm_linears`` derives
+   (int8 37, int4 37, all split-K: no act_quant, no attention kernel), no
    plain version on a CUDA tensor; the streams equal the same artifact's
    under the reference backend on the card. A token step's eager and
    CUDA-graph (device) ms. One cacheless forward of 1024 tokens
    (``mlstm_chunked`` over 4 chunks, the sLSTM loop over 1024 steps)
-   launching exactly 111 act_quant and 111 GEMMs (wgmma), the first call
+   launching exactly 74 act_quant and 74 GEMMs (wgmma), the first call
    of each GEMM shape bit-equal to its plain version, the logits bit-equal
    to the reference plan's; eager ms and peak memory. Then 2 training
    steps of 2 x 256 tokens on the model cut to its first group (8 layers),
@@ -419,8 +419,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` on the single layout
    (their JSON under ``chiprun_out/dryrun_torch/``);
 26. (a) the sharded QAT step (``launch/train.build_train_step`` with
-   ``TrainGroups``): stablelm-3b at full width, its depth cut to 4 layers
-   (``SHARD_LAYERS``), fake quant W8A8 layers 0-1 / W4A4 2-3, ``remat`` on,
+   ``TrainGroups``): stablelm-3b at full width, its depth cut to 2 layers
+   (``SHARD_LAYERS``), fake quant W8A8 layer 0 / W4A4 layer 1, ``remat`` on,
    a batch of 2 x 4096 (past the chunk threshold: the chunk branch), the
    CPU tests' hyperparameters (``SHARD_HP``), weight and activation scales
    calibrated first (at their init of 1 no block weight gets a gradient).
@@ -443,10 +443,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    multi (data 2 x model 2) plain, with ``--fsdp`` and with
    ``--attn-seq-shard``, in three processes on the card's host while (a)
    and (b) run: every cell ``ok``, FSDP's argument bytes at most 0.55x the
-   plain cell's.
+   plain cell's;
+27. the sharded QAT step of the token-mode families, phase 26 (a)'s method
+   at full width (``FAMILY_SHARDS``): xlstm-1.3b cut to 16 layers (2
+   groups) on 2 x 256 tokens, zamba2-2.7b cut to 12 (2 groups) on 2 x
+   2048, seamless-m4t-medium cut to 2 + 2 on 2 x 1024 frames
+   (``src_embeds`` from a seeded generator) and 2 x 1024 tokens; f32,
+   ``remat`` on, scales calibrated (the token-mode families' one
+   activation scale). Two ranks sharing the card over gloo, one spawn for
+   the three: per family rank 0 computes the unsharded steps (rank 1 loads
+   the kernels a first step needs meanwhile, on the reduced configs), then
+   both run model 2 (weights and activations quantized, and weights only)
+   and data 2 with FSDP (weights only, each group stack cut to one group a
+   rank). The quantized step is held by its loss at 4x its noise (twins
+   from the embedding table and from every activation scale times 1 + k
+   e, their forwards alone), the weight-only steps leaf by leaf (first
+   moment, Adam step) at the CPU tests' gates or 4x two twin steps'
+   noise; the model-2 layout's gathered starting tree bit-equal to the
+   full one. The zamba2 tree the model-2 quantized step trained is then
+   gathered, deployed on its learned scales (bf16, the kernel backend) and
+   serves 4 requests of 16 + 16 tokens in token mode: every token step
+   launches the integer GEMMs ``hybrid_linears`` derives, and the streams
+   equal the reference backend's. Each run's seconds and peak memory
+   beside the card.
 
 ``python3 chip_smoke.py --sharded-cards 4`` runs only phase 26 (a)'s step
-on four cards over NCCL (``sharded_cards``).
+on four cards over NCCL (``sharded_cards``); ``python3 chip_smoke.py
+--families`` runs only phase 27.
 
 The line before the last holds the seven kernels; the last line of standard
 output is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -4111,13 +4134,13 @@ def fleet_phase(dev, dense_streams: list, single: dict) -> dict:
 
 # ----------------------------------------------------------------- phase 21
 MOE_SLOTS, MOE_MAX_LEN = 8, 512
-#: qwen2-moe-a2.7b's depth on the card: 8 of its 24 layers (5.2 B fp
-#: params, 20.9 GB in f32; the full 14.3 B would not share the card with
-#: its codes and calibration)
-MOE_QWEN_LAYERS = 8
-#: granite-moe-3b-a800m's depth on the card: 8 of its 32 layers, for the
-#: script's time (each layer's work is the same)
-MOE_GRANITE_LAYERS = 8
+#: qwen2-moe-a2.7b's depth on the card: 4 of its 24 layers (8 until PR 30,
+#: 5.2 B fp params, 20.9 GB in f32; the full 14.3 B would not share the
+#: card with its codes and calibration), for the script's time
+MOE_QWEN_LAYERS = 4
+#: granite-moe-3b-a800m's depth on the card: 4 of its 32 layers (8 until
+#: PR 30), for the script's time (each layer's work is the same)
+MOE_GRANITE_LAYERS = 4
 #: the layer checks' token counts: a decode step, and a prefill in two
 #: groups of moe_group_size 512
 MOE_LAYER_TOKENS = (8, 1024)
@@ -5059,13 +5082,13 @@ def seamless_phase(dev) -> dict:
 #: 512), which the engine admits and finishes for xLSTM, as JAX's does
 XLSTM_PAST = (16, 500)
 XLSTM_LONG = 1024
-#: xlstm-1.3b's depth on the card: 24 of its 48 layers (3 groups), for the
+#: xlstm-1.3b's depth on the card: 16 of its 48 layers (2 groups), for the
 #: script's time: at full depth, with the request above, this phase took
-#: 163.0 s on an H100 80GB HBM3 at 700 W, most of it the request's 516
-#: token steps on both backends
-XLSTM_LAYERS = 24
+#: 163.0 s on an H100 80GB HBM3 at 700 W, at 24 layers 88.1-112.6 s, most
+#: of it the request's 516 token steps on both backends
+XLSTM_LAYERS = 16
 #: a token step's GEMMs at that depth: act_quant, int8, int4 (37 a group)
-XLSTM_STEP = (0, 74, 37)
+XLSTM_STEP = (0, 37, 37)
 #: calibration batches: (batches, rows, tokens), a multiple of the mLSTM
 #: chunk (256)
 XLSTM_CALIB = (2, 1, 256)
@@ -5188,7 +5211,7 @@ def xlstm_phase(dev) -> dict:
     t0 = time.perf_counter()
     out = {}
     model, out["deploy"] = token_model(dev, ROOT / "build" / "chip_smoke_xlstm_artifact",
-                                       "xlstm-1.3b", XLSTM_CALIB, [(0, 2, 8), (2, 3, 4)],
+                                       "xlstm-1.3b", XLSTM_CALIB, [(0, 1, 8), (1, 2, 4)],
                                        layers=XLSTM_LAYERS)
     cfg = model.plan.cfg
     linears = xlstm_linears(cfg, model.plan.segments)
@@ -5548,9 +5571,10 @@ def fused_remat_analysis_phase(dev, dense_streams: list, dense_step: dict) -> di
             "seconds": time.perf_counter() - t0}
 
 
-#: phase 26: stablelm-3b at full width cut to 4 layers, a batch past the
-#: chunk threshold (2048), fake quant with ``remat`` on
-SHARD_LAYERS = 4
+#: phase 26: stablelm-3b at full width cut to 2 layers (4 until PR 30: cut
+#: for the script's time), a batch past the chunk threshold (2048), fake
+#: quant with ``remat`` on
+SHARD_LAYERS = 2
 SHARD_BATCH = (2, 4096)
 #: the CPU tests' hyperparameters (tests/test_torch_sharded_train.py):
 #: lr 1e-3 for the weights, so each weight's first step (+-lr) stands far
@@ -5602,11 +5626,11 @@ EXAMPLES = ("torch_quickstart", "torch_serve_int4", "torch_serve_sharded",
             "torch_train_qat_distill")
 
 
-def shard_config(dtype: str = "float32"):
-    """Phase 26's model: stablelm-3b at full width, cut to 4 layers, in
+def shard_config(dtype: str = "float32", layers: int = SHARD_LAYERS):
+    """Phase 26's model: stablelm-3b at full width, cut to ``layers``, in
     ``dtype`` activations."""
     from repro_torch.configs import get_config
-    return get_config("stablelm-3b").replace(num_layers=SHARD_LAYERS, dtype=dtype)
+    return get_config("stablelm-3b").replace(num_layers=layers, dtype=dtype)
 
 
 def shard_batch(cfg, batch_shape) -> dict:
@@ -5644,14 +5668,19 @@ def shard_params(cfg, batch: dict, dev):
 
 
 def timed_step(step, params, opt, batch) -> tuple:
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    """One step: (params, opt, loss parts, its eager ms and the card's peak
+    GB; 0 on a host without a card, where only the logic is tried)."""
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, opt, parts = step(params, opt, batch)
-    torch.cuda.synchronize()
+    if cuda:
+        torch.cuda.synchronize()
     return params, opt, {k: float(v) for k, v in parts.items()}, {
         "eager_ms": (time.perf_counter() - t0) * 1e3,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0}
 
 
 def shard_rank(layouts: tuple, cfg, batch_shape, ref_dir: str, device: str) -> dict:
@@ -5679,13 +5708,76 @@ def shard_rank(layouts: tuple, cfg, batch_shape, ref_dir: str, device: str) -> d
     return out
 
 
+def held_distances(p2, o2, ref: dict, before, specs, groups, dev, label: str) -> tuple:
+    """A sharded step's distances from the reference ``ref`` (full trees,
+    its first Adam moment "m" and params after "params" where it holds
+    them), leaf by leaf, each part's squares summed over the ranks that
+    hold it: the first moment's ||delta|| / ||m_ref|| and the Adam step's
+    ||p - p_ref|| / ||p_ref - p_before||, the worst leaf of each, and the
+    residue leaves (below ``SHARD_RESIDUE`` of the whole first moment's
+    norm: they must be residue here too, and their step is not held)."""
+    from repro_torch.core.tree import tree_leaves_with_path, tree_map
+    from repro_torch.distributed import shard_training
+    from repro_torch.distributed.collectives import all_reduce
+    axes = dict(tree_leaves_with_path(specs))
+    # cut on the card: a CPU copy of a 1.3 B-parameter tree's slices took
+    # seconds a tree
+    cut = lambda tree: dict(tree_leaves_with_path(
+        shard_training(tree_map(lambda t: t.to(dev), tree), specs, groups)))
+
+    def summed(path, *terms):
+        """The terms' sums over this leaf's whole array, not this rank's part."""
+        sq = torch.stack([t.to(torch.float32) for t in terms])
+        for ax in axes[path].axes:
+            all_reduce(sq, groups.mp_group if ax == "model" else groups.dp_group)
+        return [float(v) for v in sq]
+
+    worst, residue = {"m": None, "step": None}, []
+    if "m" in ref:
+        # (||delta||^2, ||m_ref||^2, ||m||^2) a leaf
+        want_m, m_sq = cut(ref["m"]), {}
+        for path, g in tree_leaves_with_path(o2.m):
+            w = want_m[path]
+            m_sq[path] = summed(path, torch.sum(torch.square(g - w)),
+                                torch.sum(torch.square(w)), torch.sum(torch.square(g)))
+        whole = float(np.sqrt(sum(v[1] for v in m_sq.values())))
+        residue = sorted("/".join(map(str, p)) for p, v in m_sq.items()
+                         if np.sqrt(v[1]) < SHARD_RESIDUE * whole)
+        worst["m"] = {"rel": 0.0}
+        for path, (d, w, g) in m_sq.items():
+            key = "/".join(map(str, path))
+            if key in residue:
+                if np.sqrt(g) >= SHARD_RESIDUE * whole:
+                    raise AssertionError(f"{label}: {key}'s first Adam moment is residue "
+                                         f"in the unsharded step, {np.sqrt(g)} here")
+                continue
+            rel = float(np.sqrt(d / max(w, 1e-60)))
+            if rel >= worst["m"]["rel"]:
+                worst["m"] = {"leaf": key, "rel": rel}
+        del want_m
+    if "params" in ref:
+        # (||p - p_ref||^2, ||p_ref - p_before||^2) a leaf
+        want_p, p0 = cut(ref["params"]), cut(before)
+        worst["step"] = {"rel": 0.0}
+        for path, p in tree_leaves_with_path(p2):
+            key = "/".join(map(str, path))
+            if key in residue:
+                continue
+            w = want_p[path]
+            d, s = summed(path, torch.sum(torch.square(p.float() - w.float())),
+                          torch.sum(torch.square(w.float() - p0[path].float())))
+            rel = float(np.sqrt(d / max(s, 1e-60)))
+            if rel >= worst["step"]["rel"]:
+                worst["step"] = {"leaf": key, "rel": rel}
+    return worst, residue
+
+
 def shard_layout(layout: tuple, cfg, batch_shape, ref_dir: Path, dev) -> list:
     import torch.distributed as dist
     from repro_torch.configs import TrainHParams
-    from repro_torch.core.tree import tree_leaves_with_path, tree_map
+    from repro_torch.core.tree import tree_map
     from repro_torch.deploy import ExecutionPlan
-    from repro_torch.distributed import shard_training, training_specs
-    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed import training_specs
     from repro_torch.launch.mesh import make_train_groups
     from repro_torch.launch.train import build_train_step, shard_state
     from repro_torch.models import attention
@@ -5713,52 +5805,7 @@ def shard_layout(layout: tuple, cfg, batch_shape, ref_dir: Path, dev) -> list:
                                     shard_batch(cfg, batch_shape))
     attention.seq_shard_attention = real
     ref = torch.load(ref_dir / f"{quantized}_{dtype}.pt", mmap=True, map_location="cpu")
-    axes = dict(tree_leaves_with_path(specs))
-    cut = lambda tree: dict(tree_leaves_with_path(shard_training(tree, specs, groups)))
-
-    def summed(path, *terms):
-        """The terms' sums over this leaf's whole array, not this rank's part."""
-        sq = torch.stack([t.to(torch.float32) for t in terms])
-        for ax in axes[path].axes:
-            all_reduce(sq, groups.mp_group if ax == "model" else groups.dp_group)
-        return [float(v) for v in sq]
-
-    worst, residue = {"m": None, "step": None}, []
-    if "m" in ref:
-        # (||delta||^2, ||m_ref||^2, ||m||^2) a leaf
-        want_m, m_sq = cut(ref["m"]), {}
-        for path, g in tree_leaves_with_path(o2.m):
-            w = want_m[path].to(dev)
-            m_sq[path] = summed(path, torch.sum(torch.square(g - w)),
-                                torch.sum(torch.square(w)), torch.sum(torch.square(g)))
-        whole = float(np.sqrt(sum(v[1] for v in m_sq.values())))
-        residue = sorted("/".join(map(str, p)) for p, v in m_sq.items()
-                         if np.sqrt(v[1]) < SHARD_RESIDUE * whole)
-        worst["m"] = {"rel": 0.0}
-        for path, (d, w, g) in m_sq.items():
-            key = "/".join(map(str, path))
-            if key in residue:
-                if np.sqrt(g) >= SHARD_RESIDUE * whole:
-                    raise AssertionError(f"{name}: {key}'s first Adam moment is residue "
-                                         f"in the unsharded step, {np.sqrt(g)} here")
-                continue
-            rel = float(np.sqrt(d / max(w, 1e-60)))
-            if rel >= worst["m"]["rel"]:
-                worst["m"] = {"leaf": key, "rel": rel}
-    if "params" in ref:
-        # (||p - p_ref||^2, ||p_ref - p_before||^2) a leaf
-        want_p, p0 = cut(ref["params"]), cut(before)
-        worst["step"] = {"rel": 0.0}
-        for path, p in tree_leaves_with_path(p2):
-            key = "/".join(map(str, path))
-            if key in residue:
-                continue
-            w = want_p[path].to(dev)
-            d, s = summed(path, torch.sum(torch.square(p.float() - w.float())),
-                          torch.sum(torch.square(w.float() - p0[path].to(dev).float())))
-            rel = float(np.sqrt(d / max(s, 1e-60)))
-            if rel >= worst["step"]["rel"]:
-                worst["step"] = {"leaf": key, "rel": rel}
+    worst, residue = held_distances(p2, o2, ref, before, specs, groups, dev, name)
     mine = {"rank": groups.rank, "ref": [quantized, dtype], "loss": parts, **run,
             "worst_leaf": worst, "residue_leaves": residue,
             "seq_shard_attention_calls": calls["seq_shard_attention"],
@@ -5793,7 +5840,43 @@ def step_distance(m, p, m_ref, p_ref, before, start) -> dict:
     return out
 
 
-def unsharded_reference(dev, batch_shape, ref_dir: Path, keys) -> tuple:
+def twin_noise(step, before, batch, parts: dict, held, ks, eps: float,
+               scale_ks=()) -> dict:
+    """An unsharded step's own noise: the largest distance from it of the
+    same step run from ``before`` with its embedding table (each k of
+    ``ks``) or its activation scales (each k of ``scale_ks``) times 1 + k
+    ``eps``. The loss's relative distance; with ``held`` = (first Adam
+    moment, params after) of the step, also ``step_distance``'s, from a
+    whole twin step, else from the twin's forward alone."""
+    from repro_torch.core.tree import tree_map, tree_map_with_path
+    from repro_torch.optim import adam_init
+    noise = {"loss": 0.0, "m": 0.0, "step": 0.0}
+    for kind, k in [("embed", k) for k in ks] + [("s_a", k) for k in scale_ks]:
+        f = 1 + k * eps
+        if kind == "embed":         # the twin's embedding table alone differs
+            start = {**before, "embed": before["embed"] * f}
+        else:                       # its activation scales alone
+            start = tree_map_with_path(lambda path, t: t * f if path[-1] == "s_a" else t,
+                                       before)
+        if held is None:
+            with torch.no_grad():
+                parts_t = {n: float(v) for n, v in step.loss_fn(start, batch)[1].items()}
+        else:
+            twin = tree_map(torch.clone, start)
+            p_t, o_t, parts_t, _ = timed_step(step, twin, adam_init(twin), batch)
+            far = step_distance(o_t.m, p_t, *held, before, start)
+            noise = {n: max(v, far.get(n, 0.0)) for n, v in noise.items()}
+            del twin, p_t, o_t
+        noise["loss"] = max(noise["loss"], max(abs(parts_t[n] - v) / abs(v)
+                                               for n, v in parts.items()))
+        del start
+        gc.collect()
+        torch.cuda.empty_cache()
+    return noise
+
+
+def unsharded_reference(dev, batch_shape, ref_dir: Path, keys,
+                        layers: int = SHARD_LAYERS) -> tuple:
     """Phase 26's config, its calibrated starting params saved to
     ``ref_dir / before.pt``, and per reference (quantized, dtype) of
     ``keys`` the unsharded step on ``dev`` (its loss parts, eager ms and
@@ -5806,7 +5889,7 @@ def unsharded_reference(dev, batch_shape, ref_dir: Path, keys) -> tuple:
     from repro_torch.deploy import ExecutionPlan
     from repro_torch.launch.train import build_train_step
     from repro_torch.optim import adam_init
-    cfg = shard_config()
+    cfg = shard_config(layers=layers)
     batch = shard_batch(cfg, batch_shape)
     before = shard_params(cfg, batch, dev)
     ref_dir.mkdir(parents=True, exist_ok=True)
@@ -5827,16 +5910,9 @@ def unsharded_reference(dev, batch_shape, ref_dir: Path, keys) -> tuple:
             saved["params"] = cpu(p_ref)
         torch.save(saved, ref_dir / f"{quantized}_{dtype}.pt")
         del saved
-        noise = {"loss": 0.0, "m": 0.0, "step": 0.0}
-        for k in SHARD_TWINS[quantized, dtype]:
-            start = tree_map(torch.clone, before)
-            start["embed"].mul_(1 + k * SHARD_TWIN_EPS[dtype])
-            twin = tree_map(torch.clone, start)
-            p_t, o_t, parts_t, _ = timed_step(step, twin, adam_init(twin), batch)
-            far = {"loss": max(abs(parts_t[n] - v) / abs(v) for n, v in parts.items()),
-                   **step_distance(o_t.m, p_t, o_ref.m, p_ref, before, start)}
-            noise = {n: max(v, far[n]) for n, v in noise.items()}
-            del start, twin, p_t, o_t
+        held = (o_ref.m, p_ref) if m_tol is not None else None
+        noise = twin_noise(step, before, batch, parts, held, SHARD_TWINS[quantized, dtype],
+                           SHARD_TWIN_EPS[dtype])
         gate = lambda tol, n: None if tol is None else max(tol, SHARD_NOISE_MARGIN * n)
         gates = {"loss": gate(loss_tol, noise["loss"]), "m": gate(m_tol, noise["m"]),
                  "step": gate(step_tol, noise["step"])}
@@ -5844,7 +5920,7 @@ def unsharded_reference(dev, batch_shape, ref_dir: Path, keys) -> tuple:
             raise AssertionError(f"phase 26 {quantized} {dtype}: the unsharded step's own "
                                  f"noise {noise} sets gates {gates} past {SHARD_GATE_CAP}")
         out[f"{quantized}_{dtype}"] = {"loss": parts, **run, "noise": noise, "gates": gates}
-        del params, p_ref, o_ref, step
+        del params, p_ref, o_ref, step, held
         gc.collect()
         torch.cuda.empty_cache()
     del before
@@ -5853,25 +5929,31 @@ def unsharded_reference(dev, batch_shape, ref_dir: Path, keys) -> tuple:
     return cfg, out
 
 
-def check_ranks(name: str, ranks: list, ref: dict) -> None:
+def check_ranks(name: str, ranks: list, ref: dict, phase: str = "26",
+                failures=None) -> None:
     """Every rank's loss, first Adam moment and Adam step against the
-    unsharded step's, at the gates of its reference ``ref``."""
+    unsharded step's, at the gates of its reference ``ref``; each miss
+    raises, or joins ``failures`` when it is a list."""
     gates = ref["gates"]
-    for r in ranks:
-        for k, v in r["loss"].items():
-            want = ref["loss"][k]
-            if not abs(v - want) <= gates["loss"] * abs(want):
-                raise AssertionError(f"{name} rank {r['rank']}: {k} {v} vs unsharded "
-                                     f"{want} (gate {gates['loss']})")
-        for what in ("m", "step"):
-            if gates[what] is not None and r["worst_leaf"][what]["rel"] > gates[what]:
-                raise AssertionError(f"{name}: {what} off: {r['worst_leaf'][what]} "
-                                     f"(gate {gates[what]})")
-    print(f"phase 26 {name}: rank 0 {ranks[0]['rank_seconds']:.1f} s, eager ms "
+    print(f"phase {phase} {name}: rank 0 {ranks[0]['rank_seconds']:.1f} s, eager ms "
           f"{[round(r['eager_ms'], 1) for r in ranks]}, peak GB "
           f"{[round(r['peak_gb'], 2) for r in ranks]}, loss {ranks[0]['loss']}, worst "
           f"leaves {ranks[0]['worst_leaf']}, residue {ranks[0]['residue_leaves']}, "
           f"gates {gates}, noise {ref['noise']}", flush=True)
+
+    def fail(msg):
+        if failures is None:
+            raise AssertionError(msg)
+        failures.append(msg)
+    for r in ranks:
+        for k, v in r["loss"].items():
+            want = ref["loss"][k]
+            if not abs(v - want) <= gates["loss"] * abs(want):
+                fail(f"{name} rank {r['rank']}: {k} {v} vs unsharded {want} (rel "
+                     f"{abs(v - want) / abs(want)}, gate {gates['loss']})")
+        for what in ("m", "step"):
+            if gates[what] is not None and r["worst_leaf"][what]["rel"] > gates[what]:
+                fail(f"{name}: {what} off: {r['worst_leaf'][what]} (gate {gates[what]})")
 
 
 def sharded_train(dev) -> dict:
@@ -5958,8 +6040,10 @@ def sharded_dryrun(pool) -> "callable":
     return results
 
 
-#: ``--sharded-cards 4``: phase 26 (a)'s step over NCCL, a card a rank
+#: ``--sharded-cards 4``: phase 26 (a)'s step over NCCL, a card a rank, on
+#: 4 layers (FSDP cuts them over data 4)
 NCCL_BATCH = (4, 4096)
+NCCL_LAYERS = 4
 NCCL_LAYOUTS = (("data2_model2_fsdp_seq_shard", 2, 2, True, True, "wa", "float32"),
                 ("data2_model2_fsdp_seq_shard_wonly", 2, 2, True, True, "w", "float32"),
                 ("model4_wonly", 1, 4, False, False, "w", "float32"),
@@ -5980,7 +6064,8 @@ def sharded_cards(cards: int) -> dict:
                            f"{torch.cuda.device_count()} cards")
     ref_dir = ROOT / "build" / "phase26_nccl_ref"
     cfg, refs = unsharded_reference(torch.device("cuda", 0), NCCL_BATCH, ref_dir,
-                                    [("wa", "float32"), ("w", "float32")])
+                                    [("wa", "float32"), ("w", "float32")],
+                                    layers=NCCL_LAYERS)
     t0 = time.perf_counter()
     runs = spawn_ranks(shard_rank, 2, 2, NCCL_LAYOUTS, cfg, NCCL_BATCH, str(ref_dir),
                        "cuda", device="cuda")
@@ -6005,6 +6090,371 @@ def sharded_phase(dev) -> dict:
         out["examples"] = examples_phase()
         out["dryrun"] = dryrun_results()
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ----------------------------------------------------------------- phase 27
+#: phase 27: the token-mode families at full width, each depth cut so its
+#: stack divides over data 2: arch -> (config edits, target tokens a row,
+#: source frames a row). xlstm-1.3b takes 256 tokens (its mLSTM chunk), not
+#: 2048: its sLSTM steps token by token on the host, some 460,000 launches
+#: a 2048-token step (10.7-21.4 s unsharded, 20-62 s a rank, on an H100
+#: 80GB HBM3 at 700 W)
+FAMILY_SHARDS = {"xlstm-1.3b": ({"num_layers": 16}, 256, 0),
+                 "zamba2-2.7b": ({"num_layers": 12}, 2048, 0),
+                 "seamless-m4t-medium": ({"num_layers": 4, "enc_layers": 2,
+                                          "dec_layers": 2}, 1024, 1024)}
+FAMILY_ROWS = 2
+#: (name, data, model, fsdp, the references it is held to): 2 ranks
+#: sharing the one card over gloo. The quantized step runs at model 2 alone,
+#: where the row-parallel inputs' activation scales take their LSQ share:
+#: a rank's step took 20-28 s for xlstm-1.3b on the card
+FAMILY_LAYOUTS = (("model2", 1, 2, False, ("wa", "w")),
+                  ("data2_fsdp", 2, 1, True, ("w",)))
+#: phase 26's references and gates in f32 ("wa": weights and activations
+#: quantized, held by its loss, its twins' losses from a forward alone;
+#: "w": weights only, held leaf by leaf, two twin steps: with one, xlstm's
+#: model-2 first moment read 2.8e-3 at 512 tokens against a gate of 1.05e-3,
+#: H100 80GB HBM3 at 700 W)
+FAMILY_REFS = {"wa": SHARD_REFS["wa", "float32"], "w": SHARD_REFS["w", "float32"]}
+FAMILY_TWINS = {"wa": SHARD_TWINS["wa", "float32"], "w": (1, -1)}
+#: the quantized step's further twins: every activation scale times 1 + k e
+#: moves each layer's inputs by about one unit roundoff against their
+#: scales, as a sharded step's other summation order moves them at every
+#: layer (the embedding twins move the first layer's alone): at model 2
+#: zamba2-2.7b's and seamless-m4t-medium's losses read 2.4e-5 and 2.2e-5
+#: off, their embedding twins 4.8e-6 and 3.3e-6, their weight-only steps
+#: within 2.7e-5 a leaf (H100 80GB HBM3, 700 W)
+FAMILY_SCALE_TWINS = (1, -1)
+#: the trained zamba2-2.7b tree served: requests of prompt + new tokens
+FAMILY_SERVE = (4, 16, 16)
+
+
+def family_config(arch: str):
+    """Phase 27's model: ``arch`` at full width, its depth cut
+    (``FAMILY_SHARDS``), f32 activations."""
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(dtype="float32", **FAMILY_SHARDS[arch][0])
+
+
+def family_policy(cfg, quantized: str = "wa"):
+    """The first half of the units (groups, or decoder layers) W8A8, the
+    rest W4A4 ("wa"), or those weights with fp activations ("w")."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy.plan import _segment_units
+    n = _segment_units(cfg)
+    return QuantPolicy(num_layers=n, mode="fake", last_k_int4=n // 2,
+                       act_bits_override=0 if quantized == "w" else None)
+
+
+def family_batch(cfg, arch: str) -> dict:
+    """``FAMILY_ROWS`` rows of tokens (and the encoder-decoder's
+    ``src_embeds``) from a seeded generator."""
+    _, S, S_src = FAMILY_SHARDS[arch]
+    rng = np.random.default_rng(27)
+    toks = rng.integers(0, cfg.vocab_size, (FAMILY_ROWS, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if S_src:
+        batch["src_embeds"] = rng.standard_normal(
+            (FAMILY_ROWS, S_src, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def family_inputs(batch: dict, dev, rows=None, tokens=None) -> dict:
+    """The forward's inputs of ``batch`` on ``dev``, cut to ``rows`` rows
+    and ``tokens`` positions."""
+    return {k: torch.as_tensor(v[:rows, :tokens], device=dev)
+            for k, v in batch.items() if k != "labels"}
+
+
+def family_params(cfg, batch: dict, dev):
+    """fp params from a seeded generator on ``dev``, calibrated as training
+    is (weight scales abs-max / l_max, the token-mode families' one
+    activation scale on row 0's first ``SHARD_CALIB_TOKENS``)."""
+    from repro_torch.core import qat
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.models import api
+    policy = family_policy(cfg)
+    params = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = qat.calibrate_weight_scales(params, qat.default_bits_fn(cfg, policy))
+    fp_plan = ExecutionPlan.build(cfg, None)
+    fwd = lambda p, b: api.forward(p, fp_plan, **family_inputs(b, dev))[0]
+    with torch.no_grad():
+        return qat.calibrate_act_scales(params, cfg, policy, fwd, [
+            {k: v[:1, :SHARD_CALIB_TOKENS] for k, v in batch.items()}])
+
+
+def family_reference(arch: str, dev, ref_dir: Path) -> tuple:
+    """Phase 26's ``unsharded_reference`` for ``arch``: its calibrated
+    starting params saved to ``ref_dir / before.pt``, then per reference of
+    ``FAMILY_REFS`` the unsharded step on ``dev`` (loss parts, eager ms,
+    peak), its first Adam moment and params after saved where held, its
+    twins' noise and the gates it sets."""
+    from repro_torch.configs import TrainHParams
+    from repro_torch.core.tree import tree_map
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.optim import adam_init
+    cfg = family_config(arch)
+    batch = family_batch(cfg, arch)
+    before = family_params(cfg, batch, dev)
+    n_params = sum(int(t.numel()) for t in _leaves(before))
+    ref_dir.mkdir(parents=True, exist_ok=True)
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)
+    torch.save(cpu(before), ref_dir / "before.pt")
+    out = {"params": n_params}
+    for quantized, (loss_tol, m_tol, step_tol) in FAMILY_REFS.items():
+        step = build_train_step(ExecutionPlan.build(cfg, family_policy(cfg, quantized)),
+                                TrainHParams(**SHARD_HP))
+        params = tree_map(torch.clone, before)       # the step updates in place
+        p_ref, o_ref, parts, run = timed_step(step, params, adam_init(params), batch)
+        if not all(np.isfinite(v) for v in parts.values()):
+            raise AssertionError(f"phase 27 {arch} {quantized}: loss {parts}")
+        # only what the twins are held to stays on the card (1.3 B params:
+        # each tree is 5.3 GB)
+        held = (o_ref.m, p_ref) if m_tol is not None else None
+        if held is not None:
+            torch.save({"m": cpu(held[0]), "params": cpu(held[1])},
+                       ref_dir / f"{quantized}.pt")
+        else:
+            torch.save({}, ref_dir / f"{quantized}.pt")
+        del params, p_ref, o_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        noise = twin_noise(step, before, batch, parts, held, FAMILY_TWINS[quantized],
+                           SHARD_TWIN_EPS["float32"],
+                           FAMILY_SCALE_TWINS if held is None else ())
+        gate = lambda tol, n: None if tol is None else max(tol, SHARD_NOISE_MARGIN * n)
+        gates = {"loss": gate(loss_tol, noise["loss"]), "m": gate(m_tol, noise["m"]),
+                 "step": gate(step_tol, noise["step"])}
+        if max(gates["m"] or 0.0, gates["step"] or 0.0) > SHARD_GATE_CAP:
+            raise AssertionError(f"phase 27 {arch} {quantized}: the unsharded step's own "
+                                 f"noise {noise} sets gates {gates} past {SHARD_GATE_CAP}")
+        out[quantized] = {"loss": parts, **run, "noise": noise, "gates": gates}
+        del held, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, batch, out
+
+
+def family_warm_up(dev) -> None:
+    """One unsharded step of each family's reduced config on ``dev``: the
+    kernels a first training step loads (some 18 s a process beside an
+    H100 80GB HBM3), loaded while the other rank computes the first
+    reference."""
+    from repro_torch.configs import TrainHParams, reduced
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import api
+    from repro_torch.optim import adam_init
+    for arch in FAMILY_SHARDS:
+        cfg = reduced(family_config(arch))
+        params = api.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        step = build_train_step(ExecutionPlan.build(cfg, family_policy(cfg)),
+                                TrainHParams(**SHARD_HP))
+        rows = {k: v[:, :16] for k, v in family_batch(cfg, arch).items()}
+        timed_step(step, params, adam_init(params), rows)
+    torch.cuda.empty_cache()
+
+
+def family_layouts(arch: str, cfg, batch: dict, ref_dir: Path, dev, layouts: dict,
+                   serve_path: str) -> dict:
+    """This rank's part of ``arch``'s layouts (``layouts``: name ->
+    ``TrainGroups``), in turn: at the first the gathered starting tree
+    equal to the full one (the round trip), then per reference a sharded
+    step from the unsharded step's starting params, held as phase 26 holds
+    its (``held_distances``). Under ``serve_path`` rank 0 saves the
+    gathered params after zamba2's model-2 "wa" step. Every rank's
+    readings, gathered to rank 0."""
+    import torch.distributed as dist
+    from repro_torch.configs import TrainHParams
+    from repro_torch.core.tree import tree_leaves_with_path, tree_map
+    from repro_torch.deploy import ExecutionPlan
+    from repro_torch.distributed import gather_training, shard_training, training_specs
+    from repro_torch.launch.train import build_train_step, gather_state, shard_state
+    from repro_torch.optim import adam_init
+    out = {}
+    before = torch.load(ref_dir / "before.pt", mmap=True, map_location="cpu")
+    for li, (name, data, model, fsdp, quantizations) in enumerate(FAMILY_LAYOUTS):
+        t_layout = time.perf_counter()
+        groups = layouts[name]
+        specs = training_specs(before, cfg, data=data, fsdp=fsdp)
+        axes = dict(tree_leaves_with_path(specs))
+        t0 = time.perf_counter()
+        local = shard_training(tree_map(lambda t: t.to(dev), before), specs, groups)
+        round_trip = None
+        if li == 0:
+            back = gather_training(local, specs, groups)
+            round_trip = all(torch.equal(a, b.to(dev)) for (_, a), (_, b) in zip(
+                tree_leaves_with_path(back), tree_leaves_with_path(before)))
+            del back
+        round_trip_s = time.perf_counter() - t0
+        cut_rows = sorted({int(t.shape[0]) for path, t in tree_leaves_with_path(local)
+                           if "data" in axes[path].axes})
+        del local
+        torch.cuda.empty_cache()
+        readings = []
+        for quantized in quantizations:
+            params = tree_map(lambda t: t.to(dev, copy=True), before)
+            state = shard_state({"params": params, "opt": adam_init(params)}, specs, groups)
+            del params
+            torch.cuda.empty_cache()
+            step = build_train_step(
+                ExecutionPlan.build(cfg, family_policy(cfg, quantized), tp=model),
+                TrainHParams(**SHARD_HP), groups=groups, specs=specs)
+            p2, o2, parts, run = timed_step(step, state["params"], state["opt"], batch)
+            ref = torch.load(ref_dir / f"{quantized}.pt", mmap=True, map_location="cpu")
+            worst, residue = held_distances(p2, o2, ref, before, specs, groups, dev,
+                                            f"{arch} {name}")
+            if serve_path and name == "model2" and quantized == "wa":
+                full = gather_state({"params": p2, "opt": o2}, specs, groups)["params"]
+                if groups.rank == 0:
+                    torch.save(tree_map(lambda t: t.cpu(), full), serve_path)
+                del full
+            readings.append({"ref": quantized, "rank": groups.rank, "loss": parts, **run,
+                             "worst_leaf": worst, "residue_leaves": residue})
+            del state, p2, o2, step, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        mine = {"rank": groups.rank, "round_trip_bit_equal": round_trip,
+                "round_trip_s": round_trip_s, "data_cut_rows": cut_rows,
+                "readings": readings, "rank_seconds": time.perf_counter() - t_layout}
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, mine)
+        out[name] = everyone
+    del before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_rank(archs: tuple, ref_root: str, device: str, serve_path: str) -> dict:
+    """One of phase 27's 2 ranks sharing the card over gloo (one spawn for
+    every family): per family rank 0 computes the unsharded references
+    (``family_reference``; rank 1 warms up meanwhile, before the first),
+    then both run its layouts (``family_layouts``). Rank 0's results."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import probe_gloo_cuda
+    from repro_torch.launch.mesh import make_train_groups
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        probe_gloo_cuda(dev)
+    rank = dist.get_rank()
+    # the latency of one small all-reduce over gloo on this device
+    tiny = torch.ones(256, device=dev)
+    dist.all_reduce(tiny)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dist.all_reduce(tiny)
+    out = {"gloo_all_reduce_ms": (time.perf_counter() - t0) * 1e3 / 20}
+    layouts = {name: make_train_groups(data, model)
+               for name, data, model, *_ in FAMILY_LAYOUTS}
+    for i, arch in enumerate(archs):
+        ref_dir = Path(ref_root) / arch
+        t0 = time.perf_counter()
+        refs = None
+        if rank == 0:
+            _, _, refs = family_reference(arch, dev, ref_dir)
+            print(f"phase 27 {arch} unsharded: {time.perf_counter() - t0:.1f} s, {refs}",
+                  flush=True)
+        elif i == 0:
+            family_warm_up(dev)
+        dist.barrier()
+        ref_s = time.perf_counter() - t0
+        cfg = family_config(arch)
+        t1 = time.perf_counter()
+        res = family_layouts(arch, cfg, family_batch(cfg, arch), ref_dir, dev, layouts,
+                             serve_path if arch == "zamba2-2.7b" else "")
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(ref_dir)
+        out[arch] = {"unsharded": refs, "reference_seconds": ref_s,
+                     "layouts_seconds": time.perf_counter() - t1, **res}
+    return out
+
+
+def serve_trained(dev, path: Path) -> dict:
+    """The zamba2-2.7b tree phase 27's model-2 step trained, deployed on its
+    learned scales (W8A8 group 0, W4A4 group 1, bf16 activations, the
+    kernel backend) and served in token mode: ``FAMILY_SERVE`` requests,
+    every token step launching the integer kernels ``hybrid_linears``
+    derives, the streams equal to the reference backend's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.deploy import ExecutionPlan, deploy
+    from repro_torch.serving import GenerationRequest
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-2.7b").replace(num_layers=FAMILY_SHARDS["zamba2-2.7b"][0]
+                                             ["num_layers"])
+    G = cfg.num_layers // cfg.attn_every
+    plan = ExecutionPlan.build(cfg, QuantPolicy(num_layers=G, mode="int",
+                                                last_k_int4=G // 2), backend="cuda")
+    trained = torch.load(path, map_location="cpu")
+    model = deploy(trained, plan, None, recalibrate=False, device=dev)
+    del trained
+    n, prompt, new = FAMILY_SERVE
+    rng = np.random.default_rng(27)
+    reqs = [GenerationRequest(prompt=rng.integers(1, cfg.vocab_size, prompt).astype(np.int32),
+                              max_new_tokens=new) for _ in range(n)]
+    per_step = {**dict.fromkeys(SOURCES, 0),
+                **gemm_launches(hybrid_linears(cfg, plan.segments), TOKEN_SLOTS)}
+    serve = serve_token_mode(model, reqs, per_step)
+    ref = serve_token_mode(reference_twin(model), reqs)
+    parted = first_divergence(serve["streams"], ref["streams"])
+    if any(p is not None for p in parted):
+        raise AssertionError(f"phase 27: the trained zamba2's kernel streams part from "
+                             f"the reference backend's at steps {parted}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**{k: v for k, v in serve.items() if k != "streams"},
+            "streams_equal_reference": len(parted), "seconds": time.perf_counter() - t0}
+
+
+def families_phase(dev) -> dict:
+    """Phase 27: every token-mode family's sharded step on 2 ranks sharing
+    the card (one spawn), each rank's steps held to the references' gates,
+    the round trip bit-equal, FSDP's stacks cut to one group a data rank;
+    then the trained zamba2 tree served. It fails after all of them with
+    every miss."""
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    serve_path = ROOT / "build" / "phase27_zamba2_trained.pt"
+    runs = spawn_ranks(families_rank, 1, 2, tuple(FAMILY_SHARDS),
+                       str(ROOT / "build" / "phase27_ref"), dev.type, str(serve_path),
+                       device=dev.type, backend="gloo")
+    out = {"gloo_all_reduce_ms": runs["gloo_all_reduce_ms"],
+           "spawn_seconds": time.perf_counter() - t0}
+    failures = []
+    for arch in FAMILY_SHARDS:
+        res = runs[arch]
+        refs = res["unsharded"]
+        for name, data, model, fsdp, quantizations in FAMILY_LAYOUTS:
+            ranks = res[name]
+            if any(r["round_trip_bit_equal"] is False for r in ranks):
+                failures.append(f"{arch} {name}: the gathered tree is not the full one")
+            if fsdp and any(r["data_cut_rows"] != [1] for r in ranks):
+                failures.append(f"{arch} {name}: FSDP cut rows "
+                                f"{[r['data_cut_rows'] for r in ranks]}, not one a rank")
+            for quantized in quantizations:
+                per = [{**next(x for x in r["readings"] if x["ref"] == quantized),
+                        "rank_seconds": r["rank_seconds"]} for r in ranks]
+                check_ranks(f"{arch} {name} {quantized}", per, refs[quantized],
+                            phase="27", failures=failures)
+        if not any(r["round_trip_bit_equal"] for r in res[FAMILY_LAYOUTS[0][0]]):
+            failures.append(f"{arch}: no round trip ran")
+        out[arch] = {**res, "seconds": res["reference_seconds"] + res["layouts_seconds"]}
+    out["serve"] = serve_trained(dev, serve_path)
+    serve_path.unlink()
+    out["seconds"] = time.perf_counter() - t0
+    if failures:
+        raise AssertionError("phase 27: " + "; ".join(failures))
     return out
 
 
@@ -6276,6 +6726,12 @@ def main() -> int:
     emit({"phase": "sharded_seconds", "train": p26["train"]["seconds"],
           "fsdp_argument_ratio": p26["dryrun"]["fsdp_argument_ratio"],
           "seconds": seconds["sharded_train_examples_dryrun"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p27 = families_phase(dev)
+    seconds["sharded_families"] = time.perf_counter() - t0
+    emit_families(p27, card)
     dec_rows.append(seamless["noncausal_flash_row"])
     errors["flash_attention"] = max(
         errors["flash_attention"], *(r["max_abs_err"] for r in flash_rows),
@@ -6322,6 +6778,7 @@ def main() -> int:
                         "xlstm_token": xl["serve"]["launches"],
                         "fused_kv8": fused["launches"],
                         "examples": p26["examples"]["launches"],
+                        "zamba2_trained_token": p27["serve"]["launches"],
                         f"xlstm_prefill_{XLSTM_LONG}": xl["long_forward"]["launches"]}
     # act_quant is a kernel of a path where its plan calls for it: a split-K
     # GEMM (at most 64 rows) quantizes its own activations
@@ -6377,6 +6834,7 @@ def main() -> int:
                        ("seamless_encoder", SEAMLESS_ENC_KERNELS),
                        ("seamless_decode", SEAMLESS_DEC_KERNELS),
                        ("xlstm_token", HYBRID_KERNELS),
+                       ("zamba2_trained_token", HYBRID_KERNELS),
                        ("fused_kv8", DECODER_KERNELS),
                        ("examples", ("int8_matmul", "int4_matmul", "decode_attention")),
                        (f"xlstm_prefill_{XLSTM_LONG}", GEMM_KERNELS)):
@@ -6422,12 +6880,53 @@ def main() -> int:
                                   "seamless": seamless, "xlstm": xl,
                                   "fused_remat_analysis": p25,
                                   "sharded_examples_dryrun": p26,
+                                  "sharded_families": p27,
                                   "seconds": seconds},
                                  indent=2, default=str))
     emit({"kernels": entries})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def emit_families(p27: dict, card: str) -> None:
+    """Phase 27's lines: per family the unsharded references and each
+    layout's ranks (seconds, eager ms and peak memory beside the card),
+    then the trained zamba2's serving."""
+    for arch in FAMILY_SHARDS:
+        res = p27[arch]
+        emit({"phase": "sharded_family", "arch": arch, "layout": "unsharded", "card": card,
+              **res["unsharded"], "reference_seconds": res["reference_seconds"],
+              "layouts_seconds": res["layouts_seconds"], "seconds": res["seconds"]})
+        for name, *_ in FAMILY_LAYOUTS:
+            for r in res[name]:
+                emit({"phase": "sharded_family", "arch": arch, "layout": name,
+                      "card": card, **r})
+    emit({"phase": "sharded_family_serve", "card": card, **p27["serve"]})
+    emit({"phase": "sharded_family_seconds", "card": card, "seconds": p27["seconds"],
+          "spawn_seconds": p27["spawn_seconds"],
+          "gloo_all_reduce_ms": p27["gloo_all_reduce_ms"],
+          **{arch: p27[arch]["seconds"] for arch in FAMILY_SHARDS}})
+
+
+def main_families() -> int:
+    """``python3 chip_smoke.py --families``: phase 27 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.kernels import build
+    card = card_line()
+    print(card, flush=True)
+    build.library()
+    p27 = families_phase(torch.device("cuda"))
+    emit_families(p27, card)
+    report = ROOT / "chiprun_out" / "chip_smoke_families.json"
+    report.parent.mkdir(exist_ok=True)
+    report.write_text(json.dumps(p27, indent=2, default=str))
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 
@@ -6455,4 +6954,6 @@ def main_sharded_cards(cards: int) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-cards"]:
         sys.exit(main_sharded_cards(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--families"]:
+        sys.exit(main_families())
     sys.exit(main())

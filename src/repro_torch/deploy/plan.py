@@ -28,7 +28,9 @@ FFN does) and runs the plain integer path, whose row-parallel int32 sums
 keep every stream byte-identical to tp=1; ``make_group`` checks the ranks
 when a model is placed, not at build. A fake-quant (training) plan takes
 ``tp`` as the model ranks of a sharded training step (``with_groups``);
-it trains the transformer families and refuses the token-mode ones by name.
+it trains every family and refuses, by name, a dim the rules cut that
+``tp`` does not divide (``_validate_train_tp``). Serving the token-mode
+families at ``tp > 1`` stays refused, as JAX refuses it.
 """
 from __future__ import annotations
 
@@ -175,24 +177,27 @@ def _validate_tp(cfg: ModelConfig, policy: Optional[QuantPolicy], backend: str,
 def _validate_train_tp(cfg: ModelConfig, tp: int) -> None:
     """A fake-quant (training) plan at ``tp`` model ranks: the sharded
     training step (``launch/train.build_train_step`` with ``TrainGroups``)
-    trains the transformer families; every dim its rules cut must divide."""
-    if cfg.family in TOKEN_ONLY_FAMILIES:
-        raise ValueError(
-            f"tp={tp}: training family {cfg.family!r} ({cfg.name}) over model "
-            "ranks arrives with a later slice of the port (its Mamba2 / "
-            "xLSTM / encoder-decoder layers have no model-parallel rules "
-            "yet); train it at model 1, over data ranks")
-    dims = [("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads)]
-    if cfg.family == "moe":
-        dims += [("expert_d_ff", cfg.expert_d_ff),
-                 ("shared_expert_d_ff", cfg.shared_expert_d_ff)]
+    cuts heads and FFN widths over the model ranks by JAX's rules; every
+    dim they cut must divide. The hybrid's Mamba2 layers cut their SSM heads
+    (``ssm_expand * d_model / ssm_head_dim``) and its shared block its heads
+    and FFN; the xLSTM cuts its mLSTM and sLSTM heads (``num_heads``)."""
+    heads = [("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads)]
+    if cfg.family == "xlstm":
+        dims = [("num_heads", cfg.num_heads)]
+    elif cfg.family == "moe":
+        dims = heads + [("expert_d_ff", cfg.expert_d_ff),
+                        ("shared_expert_d_ff", cfg.shared_expert_d_ff)]
     else:
-        dims.append(("d_ff", cfg.d_ff))
+        dims = heads + [("d_ff", cfg.d_ff)]
+    if cfg.family == "hybrid":
+        dims = [("ssm_expand*d_model/ssm_head_dim",
+                 cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim)] + dims
     for dim_name, dim in dims:
         if dim % tp:
             raise ValueError(
                 f"tp={tp} does not divide {dim_name}={dim}: the sharded "
-                "training step cuts heads and FFN widths over the model ranks")
+                f"training step of {cfg.name} ({cfg.family}) cuts heads and "
+                "FFN widths over the model ranks")
 
 
 @dataclasses.dataclass(frozen=True)

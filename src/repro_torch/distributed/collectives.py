@@ -16,6 +16,14 @@ context-parallel) or the data group (FSDP).
 * ``all_to_all_model(split_dim, cat_dim)``: each rank's ``split_dim`` cut
   into ``model`` pieces, piece ``j`` to rank ``j``, the received pieces
   joined along ``cat_dim``; backward is the move the other way.
+* ``sum_over_model``: the sum over the model group forward and backward:
+  a statistic each rank computes over its slice of a dim the model ranks
+  cut (the sum of squares of a norm over a cut width), whose gradient is
+  each rank's share and must be summed too.
+* ``model_slice(dim, parts)``: this model rank's slice of each of
+  ``parts`` equal parts of a replicated tensor along ``dim`` (its heads of
+  a replicated leaf or activation); the gradient is summed over the model
+  ranks, so the replicated tensor gets every rank's share once.
 * ``mean_from_data``: the mean over the data group forward, identity
   backward (the data ranks' gradients are averaged after the step): a
   batch statistic of the whole batch from the ranks' equal parts.
@@ -33,9 +41,10 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["copy_to_model", "reduce_from_model", "gather_from_model",
-           "scatter_to_model", "all_to_all_model", "mean_from_data", "fsdp_take",
-           "all_reduce", "all_gather", "probe_gloo_cuda"]
+__all__ = ["copy_to_model", "reduce_from_model", "sum_over_model", "model_slice",
+           "gather_from_model", "scatter_to_model", "all_to_all_model",
+           "mean_from_data", "fsdp_take", "all_reduce", "all_gather",
+           "probe_gloo_cuda"]
 
 #: the collectives the step is built on
 COLLECTIVES = ("all_reduce", "broadcast", "all_gather")
@@ -79,6 +88,17 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return all_reduce(x.clone(), groups.mp_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.groups.mp_group), None
 
 
 class _MeanFromData(torch.autograd.Function):
@@ -170,6 +190,21 @@ def copy_to_model(x: torch.Tensor, groups) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, groups) -> torch.Tensor:
     """The sum over the model group; the gradient passes unchanged."""
     return _ReduceFromModel.apply(x, groups)
+
+
+def sum_over_model(x: torch.Tensor, groups) -> torch.Tensor:
+    """The sum over the model group; the gradient is summed over it too
+    (each rank's is its share)."""
+    return _SumOverModel.apply(x, groups)
+
+
+def model_slice(x: torch.Tensor, dim: int, groups, parts: int = 1) -> torch.Tensor:
+    """This model rank's contiguous slice of each of ``parts`` equal parts
+    of ``x`` along ``dim``, joined in order; ``x`` is replicated and its
+    gradient is summed over the model ranks (``copy_to_model``)."""
+    x = copy_to_model(x, groups)
+    return torch.cat([_own(p, dim, groups.mp_rank, groups.model)
+                      for p in torch.chunk(x, parts, dim=dim)], dim=dim)
 
 
 def mean_from_data(x: torch.Tensor, groups) -> torch.Tensor:

@@ -31,8 +31,12 @@ with ``axis_names`` and a ``shape`` dict (``launch.mesh.make_production_mesh``).
 The sharded training step places by those rules (``training_specs``: each
 cut dim a :class:`TrainAxis`): "model" cuts over a ``TrainGroups``' model
 ranks (fused projections part by part), "data" (FSDP) the layer stack over
-its data ranks. ``shard_training`` / ``gather_training`` move a param,
-gradient or Adam-moment tree between its full logical arrays and one
+its data ranks. The concatenated column-parallel outputs of the token-mode
+families are cut part by part too (``_TRAIN_PARTS``): the mLSTM's ``up``
+is ``[xi | z]`` and the sLSTM's ``w_in`` ``[i | f | z | o]``, so a rank
+holds its heads of every part; gathered, every leaf is JAX's full array.
+``shard_training`` / ``gather_training`` move a param, gradient or
+Adam-moment tree between its full logical arrays and one
 rank's slices, leaf by leaf. A vocabulary-sharded ``embed`` / ``lm_head``
 whose rows do not divide over the model ranks is padded to ``ceil(V /
 model)`` rows a rank (zeros past ``V``); gathering drops the padding.
@@ -322,6 +326,12 @@ def state_specs(state_tree, mesh) -> dict:
 _VOCAB = re.compile(r"(^|/)(embed|lm_head)$")
 
 
+#: concatenated column-parallel outputs the training rules cut part by
+#: part (the port's layers split them after the product): name -> parts
+_TRAIN_PARTS = {"up": 2, "w_in": 4}
+_TRAIN_PARTED = re.compile(r"(^|/)(%s)/" % "|".join(_TRAIN_PARTS))
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainAxis:
     """One cut dim of a training leaf: the mesh ``axis`` ("model" or
@@ -354,7 +364,8 @@ def training_specs(params, cfg=None, *, data: int = 1,
     None. The "model" cuts are JAX's ``_RULES`` (``spec_for``); with
     ``fsdp`` a stacked leaf (rank above 2) whose layer count divides over
     ``data`` also cuts its layer dim over "data" (``param_specs``' rule).
-    A fused ``wqkv`` splits by the config's head counts (``cfg``)."""
+    A fused ``wqkv`` splits by the config's head counts (``cfg``); the
+    mLSTM's ``up`` and the sLSTM's ``w_in`` into their 2 and 4 parts."""
     def spec(path, leaf):
         s = _path_str(path)
         tail = spec_for(path, leaf)
@@ -362,6 +373,7 @@ def training_specs(params, cfg=None, *, data: int = 1,
                 and leaf.shape[0] % data == 0:
             tail = ("data",) + tail[1:]
         fused = _FUSED.search(s)
+        parted = _TRAIN_PARTED.search(s)
         out = []
         for dim, ax in enumerate(tail):
             if ax is None:
@@ -376,6 +388,8 @@ def training_specs(params, cfg=None, *, data: int = 1,
                                      "by heads; pass the model config")
                 else:
                     parts = (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)
+            elif ax == "model" and parted:
+                parts = (1,) * _TRAIN_PARTS[parted.group(2)]
             out.append(TrainAxis(ax, leaf.shape[dim], parts))
         return TrainSpec(tuple(out))
     return tree_map_with_path(spec, params)

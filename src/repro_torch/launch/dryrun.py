@@ -28,8 +28,12 @@ sums all-reduced) and training data-parallel over 4. A tp or dp group of
 four is torch's ``fake`` process group, so one process plays rank 0 and
 its collectives are counted, not run. A cell the port cannot build is
 written with ``status: "skipped"`` and the port's reason: a tp plan that
-``_validate_tp`` refuses (the token-mode families' train cells over model
-ranks arrive with a later slice), or JAX's own ``shape_applicable``.
+``_validate_tp`` refuses (serving the token-mode families at tp 4, as JAX
+refuses it), or JAX's own ``shape_applicable``. Every family's train cells
+build on ``multi``, the token-mode ones (xlstm, hybrid, encdec) through
+their model-parallel layers; under ``--fsdp`` a stack whose leading dim
+does not divide over the data ranks stays whole (zamba2-2.7b's 9 groups),
+as JAX's ``param_specs`` leaves it.
 
 Each JSON has the JAX dry run's schema with three changes: ``op_analysis``
 holds what ``hlo_analysis`` held (plus each kernel's ``launches`` and the

@@ -241,7 +241,7 @@ def attention_block(x: torch.Tensor, p: dict, *, n_heads: int, n_kv: int,
         q = _split_heads(qlinear(x, p["wq"], spec), n_heads)
         k = _split_heads(qlinear(src, p["wk"], spec), n_kv)
         v = _split_heads(qlinear(src, p["wv"], spec), n_kv)
-    mp = spec.groups if spec.groups is not None and spec.groups.model > 1 else None
+    mp = spec.model_groups
     taps = None
     if want_taps:
         taps = {"q": q.reshape(B, Sq, -1), "k": k.reshape(B, k.shape[1], -1),

@@ -17,21 +17,28 @@ returns new arrays). A decode step takes ``enc_out`` instead of
 ``cfg.remat`` each encoder layer and each decoder layer but a tapped one
 runs under activation checkpointing in training (``layers.remat``), at the
 JAX package's ``jax.checkpoint`` places.
+
+A sharded training step (``spec.groups``) runs every attention (self and
+cross) and FFN as the transformer's: the rank's heads and FFN columns,
+the row-parallel ``wo`` / ``w2`` summed over the model ranks, so
+``enc_out`` is replicated and the cross-attention's column-parallel
+``wk`` / ``wv`` take it whole. The embedding and the head are cut over the
+vocabulary, and under FSDP each encoder and decoder layer is taken from
+the data rank that owns it (``transformer.take_layer``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..core.tree import slice_stack, tree_map
+from ..core.tree import tree_map
 from .attention import attention_block
 from .layers import QuantSpec, remat
-from .transformer import (_norm, _normal, ffn_apply, init_attention, init_ffn,
-                          init_norm, layer_cache, mask_padded_vocab,
-                          write_new_kv)
+from .transformer import (_embed, _norm, _normal, ffn_apply, init_attention,
+                          init_ffn, init_norm, layer_cache, lm_head_logits,
+                          rank_heads, take_layer, write_new_kv)
 
 
 def init_encdec(cfg: ModelConfig, g: torch.Generator, device) -> dict:
@@ -59,9 +66,9 @@ def _chunk(cfg: ModelConfig, S: int) -> int:
 
 def _enc_block(x, p, cfg: ModelConfig, spec: QuantSpec):
     a, _ = attention_block(
-        _norm(x, p["ln1"], cfg.norm), p["attn"], n_heads=cfg.num_heads,
-        n_kv=cfg.num_kv_heads, hd=cfg.hd, spec=spec, causal=False,
-        rope=cfg.rope, rope_theta=cfg.rope_theta, chunk=_chunk(cfg, x.shape[1]))
+        _norm(x, p["ln1"], cfg.norm), p["attn"], **rank_heads(cfg, spec), spec=spec,
+        causal=False, rope=cfg.rope, rope_theta=cfg.rope_theta,
+        chunk=_chunk(cfg, x.shape[1]))
     x = x + a
     return x + ffn_apply(_norm(x, p["ln2"], cfg.norm), p["ffn"], cfg, spec)
 
@@ -70,32 +77,33 @@ def _dec_block(x, enc_out, p, cfg: ModelConfig, spec: QuantSpec, cache=None,
                want_taps: bool = False):
     """Self-attention (causal, over ``cache`` when given), cross-attention
     onto ``enc_out``, FFN. Returns (x, new_kv, taps)."""
-    a, new_kv, taps = attention_block(
-        _norm(x, p["ln1"], cfg.norm), p["self"], n_heads=cfg.num_heads,
-        n_kv=cfg.num_kv_heads, hd=cfg.hd, spec=spec, causal=True,
+    heads = rank_heads(cfg, spec)
+    a, new_kv, *taps = attention_block(
+        _norm(x, p["ln1"], cfg.norm), p["self"], **heads, spec=spec, causal=True,
         rope=cfg.rope, rope_theta=cfg.rope_theta, cache=cache,
-        chunk=_chunk(cfg, x.shape[1]), want_taps=True)
+        chunk=_chunk(cfg, x.shape[1]), want_taps=want_taps)
     x = x + a
     c, _ = attention_block(
-        _norm(x, p["ln2"], cfg.norm), p["cross"], n_heads=cfg.num_heads,
-        n_kv=cfg.num_kv_heads, hd=cfg.hd, spec=spec, causal=False, rope=False,
-        kv_input=enc_out)
+        _norm(x, p["ln2"], cfg.norm), p["cross"], **heads, spec=spec, causal=False,
+        rope=False, kv_input=enc_out)
     x = x + c
     x = x + ffn_apply(_norm(x, p["ln3"], cfg.norm), p["ffn"], cfg, spec)
-    return x, new_kv, (taps if want_taps else None)
+    return x, new_kv, (taps[0] if taps else None)
 
 
 def encode(params, cfg: ModelConfig, segments, src_embeds) -> torch.Tensor:
     """The encoder over ``src_embeds`` (B, S_src, d) at the first segment's
     spec, normed: the ``enc_out`` a decode step attends."""
     enc_spec = segments[0][2]
+    groups = segments[0][2].groups
     dev = params["embed"].device
     h = torch.as_tensor(src_embeds, device=dev).to(cfg.torch_dtype)
     enc = params["enc"]
-    n = enc["ln1"]["scale"].shape[0]
-    for i in range(n):      # JAX checkpoints the encoder's body
+    n = enc["ln1"]["scale"].shape[0]         # a norm's stack: never cut
+    for i in range(n):      # JAX checkpoints the encoder's body; FSDP's take
+        # runs inside it, so it is recomputed too
         h = remat(cfg.remat, lambda h, i=i: _enc_block(
-            h, tree_map(lambda a: a[i], enc), cfg, enc_spec), h)
+            h, take_layer(enc, i, n, groups), cfg, enc_spec), h)
     return _norm(h, params["enc_norm"], cfg.norm)
 
 
@@ -108,6 +116,7 @@ def encdec_forward(params, cfg: ModelConfig, segments, *, tokens,
     0 load-balance loss with ``want_aux``. The caches are written in place;
     ``new_caches`` holds the same buffers and ``len + S``."""
     dev = params["embed"].device
+    groups = segments[0][2].groups
     if enc_out is None:
         if src_embeds is None:
             raise ValueError("encdec_forward needs src_embeds (the encoder's "
@@ -116,32 +125,35 @@ def encdec_forward(params, cfg: ModelConfig, segments, *, tokens,
     else:
         enc_out = torch.as_tensor(enc_out, device=dev)
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-    x = F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
+    x = _embed(params, cfg, tokens, groups=groups)
     dec = params["dec"]
     presliced = isinstance(dec, (list, tuple))
+    n_dec = None if presliced else dec["ln1"]["scale"].shape[0]
     last = segments[-1][1] - 1
     taps = None
     for si, (start, end, spec) in enumerate(segments):
-        seg = dec[si] if presliced else slice_stack(dec, start, end)
+        seg = dec[si] if presliced else None
         for i in range(end - start):
-            lp = tree_map(lambda a: a[i], seg)
-            cache_l = None if caches is None else layer_cache(caches, start + i)
-            tap = want_taps and start + i == last
+            j = start + i
+            take = ((lambda i=i, seg=seg: tree_map(lambda a: a[i], seg)) if presliced
+                    else (lambda j=j: take_layer(dec, j, n_dec, groups)))
+            cache_l = None if caches is None else layer_cache(caches, j)
+            tap = want_taps and j == last
             if tap or caches is not None:
-                x, new_kv, t = _dec_block(x, enc_out, lp, cfg, spec,
+                x, new_kv, t = _dec_block(x, enc_out, take(), cfg, spec,
                                           cache=cache_l, want_taps=tap)
             else:   # JAX checkpoints every decoder layer but the tapped one
-                x, new_kv, t = remat(cfg.remat, lambda h, e, lp=lp, spec=spec:
-                                     _dec_block(h, e, lp, cfg, spec), x, enc_out)
+                x, new_kv, t = remat(cfg.remat, lambda h, e, take=take, spec=spec:
+                                     _dec_block(h, e, take(), cfg, spec), x, enc_out)
             if tap:
                 taps = t
             if caches is not None:
-                write_new_kv(caches, start + i, new_kv)
+                write_new_kv(caches, j, new_kv)
     new_caches = None
     if caches is not None:
         new_caches = {**caches, "len": caches["len"] + x.shape[1]}
     x = _norm(x, params["final_norm"], cfg.norm)
-    logits = mask_padded_vocab(x @ params["lm_head"].to(x.dtype), cfg)
+    logits = lm_head_logits(x, params["lm_head"], cfg, groups)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     return ((logits, new_caches) + ((taps,) if want_taps else ())
             + ((aux,) if want_aux else ()))

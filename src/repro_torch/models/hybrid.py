@@ -17,13 +17,20 @@ stateless group (its Mamba2 layers and the shared block) runs under
 activation checkpointing in training (``layers.remat``), where JAX
 checkpoints the group's body. Under ``fused_proj`` the shared block's
 SwiGLU FFN is one ``w13``; its attention stays unfused, as JAX builds it.
+
+A sharded training step (``spec.groups``) runs the Mamba2 layers
+model-parallel (``mamba2.mamba2_block``), the shared block as the
+transformer's (its heads and FFN columns per model rank, one gradient
+summed over its G calls by autograd), the embedding and the head over the
+vocabulary (``transformer._embed`` / ``lm_head_logits``), and under FSDP
+takes each group's Mamba2 layers from the data rank that owns them
+(``transformer.take_layer``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core.policy import QuantPolicy
@@ -31,8 +38,8 @@ from ..core.tree import slice_stack, tree_map
 from .attention import attention_block
 from .layers import QuantSpec, remat, rmsnorm
 from .mamba2 import init_mamba2_block, mamba2_block, mamba2_state_init
-from .transformer import (_normal, ffn_apply, init_attention, init_ffn,
-                          init_norm, mask_padded_vocab)
+from .transformer import (_embed, _normal, ffn_apply, init_attention, init_ffn,
+                          init_norm, lm_head_logits, rank_heads, take_layer)
 
 
 def _groups(cfg: ModelConfig) -> tuple[int, int]:
@@ -92,13 +99,12 @@ def _shared_block(x, p, cfg: ModelConfig, spec: QuantSpec, cache=None,
     a kernel plan)."""
     h = rmsnorm(x, p["ln1"]["scale"])
     chunk = cfg.attn_chunk if x.shape[1] > cfg.attn_chunk_threshold else 0
-    a, new_kv, taps = attention_block(
-        h, p["attn"], n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, hd=cfg.hd,
-        spec=spec, causal=True, rope=True, rope_theta=cfg.rope_theta,
-        cache=cache, chunk=chunk, want_taps=True)
+    a, new_kv, *taps = attention_block(
+        h, p["attn"], **rank_heads(cfg, spec), spec=spec, causal=True, rope=True,
+        rope_theta=cfg.rope_theta, cache=cache, chunk=chunk, want_taps=want_taps)
     x = x + a
     x = x + ffn_apply(rmsnorm(x, p["ln2"]["scale"]), p["ffn"], cfg, spec)
-    return (x, new_kv, taps) if want_taps else (x, new_kv)
+    return (x, new_kv, *taps)
 
 
 def _group(x, gp, shared, cfg: ModelConfig, spec: QuantSpec,
@@ -121,7 +127,8 @@ def hybrid_forward(params, cfg: ModelConfig, segments, *, tokens,
     G, per = _groups(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-    x = F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
+    groups = segments[0][2].groups
+    x = _embed(params, cfg, tokens, groups=groups)
     presliced = isinstance(params["mamba"], (list, tuple))
     shared, shared_spec = params["shared"], segments[-1][2]
     for si, (start, end, spec) in enumerate(segments):
@@ -129,10 +136,13 @@ def hybrid_forward(params, cfg: ModelConfig, segments, *, tokens,
                else slice_stack(params["mamba"], start, end))
         for gi in range(end - start):
             grp = start + gi
-            if states is None:      # JAX checkpoints the group's body
-                x = remat(cfg.remat, lambda h, gi=gi, seg=seg, spec=spec: _group(
-                    h, tree_map(lambda a: a[gi], seg), shared, cfg, spec,
-                    shared_spec), x)
+            if states is None:      # JAX checkpoints the group's body; FSDP's
+                # take runs inside it, so it is recomputed too
+                take = ((lambda gi=gi, seg=seg: tree_map(lambda a: a[gi], seg))
+                        if presliced else
+                        (lambda grp=grp: take_layer(params["mamba"], grp, G, groups)))
+                x = remat(cfg.remat, lambda h, take=take, spec=spec: _group(
+                    h, take(), shared, cfg, spec, shared_spec), x)
                 continue
             for li in range(per):
                 lp = tree_map(lambda a: a[gi, li], seg)
@@ -151,8 +161,8 @@ def hybrid_forward(params, cfg: ModelConfig, segments, *, tokens,
     if want_taps:      # the last shared-attention invocation (attention only)
         h = rmsnorm(x, shared["ln1"]["scale"])
         _, _, taps = attention_block(
-            h, shared["attn"], n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
-            hd=cfg.hd, spec=shared_spec, causal=True, rope=True,
+            h, shared["attn"], **rank_heads(cfg, shared_spec), spec=shared_spec,
+            causal=True, rope=True,
             rope_theta=cfg.rope_theta, want_taps=True)
         taps["hidden"] = x
     new_states = None
@@ -160,7 +170,7 @@ def hybrid_forward(params, cfg: ModelConfig, segments, *, tokens,
         new_states = {**states, "attn": {**states["attn"],
                                          "len": states["attn"]["len"] + x.shape[1]}}
     x = rmsnorm(x, params["final_norm"]["scale"])
-    logits = mask_padded_vocab(x @ params["lm_head"].to(x.dtype), cfg)
+    logits = lm_head_logits(x, params["lm_head"], cfg, groups)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     return ((logits, new_states) + ((taps,) if want_taps else ())
             + ((aux,) if want_aux else ()))

@@ -55,6 +55,13 @@ class QuantSpec:
     def enabled(self) -> bool:
         return self.mode != "none" and self.w_bits > 0
 
+    @property
+    def model_groups(self):
+        """``groups`` where they span more than one model rank, else None:
+        the forward's model-parallel branch."""
+        g = self.groups
+        return g if g is not None and g.model > 1 else None
+
 
 def qlinear(x: torch.Tensor, p: dict, spec: QuantSpec,
             act: Optional[str] = None, row_parallel: bool = False) -> torch.Tensor:
@@ -86,7 +93,7 @@ def fake_matmul(x: torch.Tensor, p: dict, spec: QuantSpec,
     """``Q_a[x] @ Q_w[w]`` (mode 'fake'; ``x @ w`` unquantized), a linear's
     or the experts' (E, C, K) @ (E, K, N); under sharded training on this
     model rank's slices, as the module docstring says (no bias)."""
-    g = spec.groups if spec.groups is not None and spec.groups.model > 1 else None
+    g = spec.model_groups
     if g is not None:
         from ..distributed.collectives import copy_to_model, reduce_from_model
     w = p["w"]

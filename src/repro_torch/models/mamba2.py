@@ -15,9 +15,22 @@ so it is plain PyTorch here. Where JAX's ``jnp.einsum`` promotes mixed
 operands to their common dtype, the operands are promoted here before the
 contraction, after the same roundings (``L``, the carried states) to the
 scores' dtype.
+
+In a sharded training step (``spec.groups``, ``model > 1``) a rank holds
+``H / model`` SSM heads, as JAX's rules cut the block: ``in_z`` and
+``in_x`` column-parallel (the rank's columns of ``d_inner``),
+``out_proj`` row-parallel. ``in_bc`` and ``in_dt`` are replicated: every
+rank computes them whole and takes all of B and C and its heads of dt; the
+conv runs on the rank's ``d_inner`` columns and the ``2N`` B / C ones.
+``a_log``, ``dt_bias``, ``d_skip`` and ``ssm_norm`` are sliced to the
+rank's heads. ``ssm_norm`` stays one RMSNorm over the whole ``d_inner``:
+its sum of squares is summed over the model ranks. A replicated tensor a
+rank uses only in part has its gradient summed over the model ranks
+(``collectives.model_slice`` / ``copy_to_model``), once.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -149,41 +162,71 @@ def _causal_conv(u, w, cache=None):
     return out, new_cache
 
 
+def _rmsnorm_over_model(x, scale, width: int, groups, eps: float = 1e-6):
+    """``rmsnorm`` over a last dim of ``width`` that the model ranks cut:
+    ``x`` and ``scale`` hold this rank's columns, the mean of squares is
+    the whole dim's (summed over the ranks, forward and backward)."""
+    from ..distributed.collectives import sum_over_model
+    xf = x.to(torch.float32)
+    ss = sum_over_model(torch.sum(torch.square(xf), dim=-1, keepdim=True), groups)
+    return ((xf * torch.rsqrt(ss / width + eps)) * scale.to(torch.float32)).to(x.dtype)
+
+
 def mamba2_block(x, p, cfg: ModelConfig, spec: QuantSpec,
                  state: Optional[dict] = None):
     """Pre-norm residual Mamba2 block: ``(x + out, new_state)``. ``state``
     {'ssm': (B, H, P, N), 'conv': (B, K-1, C)} takes the one-token decode
-    recurrence; None the chunked forward (and returns None)."""
+    recurrence; None the chunked forward (and returns None). Under a
+    sharded step's model ranks the rank's heads, as the module docstring
+    says (no decode state)."""
     d = cfg.d_model
     di = cfg.ssm_expand * d
     H = di // cfg.ssm_head_dim
     P = cfg.ssm_head_dim
     N = cfg.ssm_state
     B_, S, _ = x.shape
+    mp = spec.model_groups
 
     h = rmsnorm(x, p["norm"]["scale"])
     z = qlinear(h, p["in_z"], spec)
     xs = qlinear(h, p["in_x"], spec)
-    bc = qlinear(h, p["in_bc"], spec)
-    dt = qlinear(h, p["in_dt"], spec)
+    conv_w, a_log, dt_bias, d_skip = p["conv_w"], p["a_log"], p["dt_bias"], p["d_skip"]
+    if mp is None:
+        bc = qlinear(h, p["in_bc"], spec)
+        dt = qlinear(h, p["in_dt"], spec)
+    else:
+        from ..distributed.collectives import copy_to_model, model_slice
+        rep = dataclasses.replace(spec, groups=None)     # replicated linears
+        bc = copy_to_model(qlinear(h, p["in_bc"], rep), mp)
+        dt = model_slice(qlinear(h, p["in_dt"], rep), -1, mp)
+        cw = copy_to_model(conv_w, mp)
+        dl = di // mp.model
+        conv_w = torch.cat([cw[:, mp.mp_rank * dl:(mp.mp_rank + 1) * dl], cw[:, di:]], -1)
+        a_log, dt_bias, d_skip = (model_slice(t, -1, mp) for t in (a_log, dt_bias, d_skip))
+        di, H = dl, H // mp.model
     conv_in = torch.cat([xs, bc], dim=-1)
     conv_out, new_conv = _causal_conv(
-        conv_in, p["conv_w"], None if state is None else state["conv"])
+        conv_in, conv_w, None if state is None else state["conv"])
     conv_out = F.silu(conv_out.to(torch.float32)).to(x.dtype)
     xs, b, c = torch.split(conv_out, [di, N, N], dim=-1)
     xs = xs.reshape(B_, S, H, P)
-    dt = _softplus(dt.to(torch.float32) + p["dt_bias"])      # (B,S,H)
+    dt = _softplus(dt.to(torch.float32) + dt_bias)           # (B,S,H)
 
     if state is None:
-        y, _ = ssd_chunked(xs, dt, p["a_log"], b, c, cfg.ssm_chunk)
+        y, _ = ssd_chunked(xs, dt, a_log, b, c, cfg.ssm_chunk)
         new_state = None
     else:
-        y, new_ssm = ssd_decode_step(state["ssm"], xs, dt, p["a_log"], b, c)
+        y, new_ssm = ssd_decode_step(state["ssm"], xs, dt, a_log, b, c)
         new_state = {"ssm": new_ssm, "conv": new_conv}
-    y = y.to(x.dtype) + xs * p["d_skip"][None, None, :, None].to(xs.dtype)
+    y = y.to(x.dtype) + xs * d_skip[None, None, :, None].to(xs.dtype)
     y = y.reshape(B_, S, di)
-    y = rmsnorm(y * F.silu(z.to(torch.float32)).to(x.dtype), p["ssm_norm"]["scale"])
-    return x + qlinear(y, p["out_proj"], spec), new_state
+    y = y * F.silu(z.to(torch.float32)).to(x.dtype)
+    if mp is None:
+        y = rmsnorm(y, p["ssm_norm"]["scale"])
+    else:
+        y = _rmsnorm_over_model(y, model_slice(p["ssm_norm"]["scale"], -1, mp),
+                                cfg.ssm_expand * d, mp)
+    return x + qlinear(y, p["out_proj"], spec, row_parallel=True), new_state
 
 
 def mamba2_state_init(cfg: ModelConfig, batch: int, device) -> dict:

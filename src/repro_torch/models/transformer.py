@@ -39,7 +39,7 @@ from ..configs.base import ModelConfig
 from ..core import calibration
 from ..core.packing import unpack_int4
 from ..core.policy import QuantPolicy
-from ..core.tree import slice_stack, tree_map
+from ..core.tree import tree_map
 from ..distributed.collectives import (copy_to_model, fsdp_take,
                                        gather_from_model, mean_from_data,
                                        reduce_from_model)
@@ -634,23 +634,18 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
     # deployed int mode: layers arrive as a per-segment list (packed
     # weights cannot live in one stacked array across bit-width segments)
     presliced = isinstance(layers, (list, tuple))
-    # FSDP: the stacked leaves cut over the data ranks hold L / data layers
-    # here; each layer is broadcast from its owner where it is used
-    fsdp = groups is not None and groups.data > 1 and not presliced
     taps = None
     moe = cfg.family == "moe"
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     last = segments[-1][1] - 1
     for si, (start, end, spec) in enumerate(segments):
-        seg = (layers[si] if presliced
-               else layers if fsdp else slice_stack(layers, start, end))
         auxs = []
         for i in range(end - start):
-            if fsdp:
-                take = lambda j=start + i: fsdp_layer(layers, j, cfg.num_layers, groups)
-            else:
-                lp = tree_map(lambda a: a[i], seg)
-                take = lambda lp=lp: lp
+            # FSDP: the stacked leaves cut over the data ranks hold L / data
+            # layers here; each layer is broadcast from its owner where used
+            take = ((lambda i=i, seg=layers[si]: tree_map(lambda a: a[i], seg))
+                    if presliced else
+                    (lambda j=start + i: take_layer(layers, j, cfg.num_layers, groups)))
             cache_l = None if caches is None else layer_cache(caches, start + i)
             tap = want_taps and start + i == last
             if tap or caches is not None:
@@ -675,16 +670,39 @@ def lm_forward(params, cfg: ModelConfig, segments, *, tokens,
     x = _norm(x, params["final_norm"], cfg.norm)
     head = params.get("lm_head")
     head = params["embed"].T if head is None else head
+    logits = lm_head_logits(x, head, cfg, groups)
+    return ((logits, new_caches) + ((taps,) if want_taps else ())
+            + ((aux_total,) if want_aux else ()))
+
+
+def lm_head_logits(x: torch.Tensor, head: torch.Tensor, cfg: ModelConfig,
+                   groups=None) -> torch.Tensor:
+    """``x @ head`` with the padded-vocab logits masked. Under a sharded
+    step's model ranks the head is column-parallel over the vocabulary and
+    the logits are gathered (their padding past the table's rows dropped)
+    for the replicated losses."""
     if groups is not None and groups.model > 1:
-        # column-parallel over the vocabulary, the logits gathered (their
-        # padding past the table's rows dropped) for the replicated losses
         logits = copy_to_model(x, groups) @ head.to(x.dtype)
         logits = gather_from_model(logits, -1, groups).narrow(-1, 0, cfg.padded_vocab)
     else:
         logits = x @ head.to(x.dtype)
-    logits = mask_padded_vocab(logits, cfg)
-    return ((logits, new_caches) + ((taps,) if want_taps else ())
-            + ((aux_total,) if want_aux else ()))
+    return mask_padded_vocab(logits, cfg)
+
+
+def rank_heads(cfg: ModelConfig, spec: QuantSpec) -> dict:
+    """``attention_block``'s head arguments on this model rank (all heads
+    outside a sharded step's model ranks)."""
+    mp = spec.model_groups
+    n = 1 if mp is None else mp.model
+    return dict(n_heads=cfg.num_heads // n, n_kv=cfg.num_kv_heads // n, hd=cfg.hd)
+
+
+def take_layer(stack: dict, j: int, n: int, groups) -> dict:
+    """Entry ``j`` of a stack of ``n`` (its leading dim): indexed, or under
+    FSDP (``groups.data > 1``) taken from its owner (:func:`fsdp_layer`)."""
+    if groups is not None and groups.data > 1:
+        return fsdp_layer(stack, j, n, groups)
+    return tree_map(lambda a: a[j], stack)
 
 
 def fsdp_layer(layers: dict, j: int, num_layers: int, groups) -> dict:

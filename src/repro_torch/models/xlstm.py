@@ -23,6 +23,22 @@ in place, one layer at a time (the JAX package returns new arrays), so a
 step holds at most one layer's new ``C`` beside the state. With
 ``cfg.remat`` a stateless group runs under activation checkpointing in
 training (``layers.remat``), where JAX checkpoints the group's body.
+
+A sharded training step (``spec.groups``, ``model > 1``) cuts both blocks
+by heads, as JAX's rules cut them. The mLSTM's ``up`` is column-parallel
+part by part (the rank's heads of ``xi`` and of ``z``); the conv runs on
+the rank's ``xi`` columns; ``wq`` / ``wk`` (on the conv output) and
+``wv`` (on ``xi``) are column-parallel over the whole input, so the conv
+output and ``xi`` are gathered first; the replicated ``w_gates`` runs
+whole and the rank takes its heads' input and forget gates; ``headnorm``
+is per head; ``down`` is row-parallel. The sLSTM's ``w_in`` is
+column-parallel part by part (the rank's heads of each gate), ``b`` and
+the recurrent ``r`` are sliced to the rank's heads (the recurrence is
+head-local), ``down`` is row-parallel. A replicated tensor a rank uses
+only in part has its gradient summed over the model ranks
+(``collectives.model_slice``). The embedding and the head are cut over
+the vocabulary, and under FSDP each group's layers are taken from the
+data rank that owns them (``transformer.take_layer``).
 """
 from __future__ import annotations
 
@@ -37,7 +53,8 @@ from ..configs.base import ModelConfig
 from ..core.tree import slice_stack, tree_map
 from .layers import QuantSpec, qlinear, remat, rmsnorm
 from .mamba2 import CONV_K, _causal_conv, _softplus
-from .transformer import _normal, init_linear, init_norm, mask_padded_vocab
+from .transformer import (_embed, _normal, init_linear, init_norm, lm_head_logits,
+                          take_layer)
 
 __all__ = ["mlstm_chunked", "mlstm_decode_step", "mlstm_block", "slstm_block",
            "init_xlstm", "xlstm_forward", "xlstm_states", "CONV_K"]
@@ -189,22 +206,34 @@ def mlstm_block(x, p, cfg: ModelConfig, spec: QuantSpec,
                 state: Optional[dict] = None):
     """Pre-norm residual mLSTM block: ``(x + out, new_state)``. ``state``
     {'C', 'n', 'm', 'conv'} takes the one-token decode recurrence; None the
-    chunked forward (and returns None)."""
+    chunked forward (and returns None). Under a sharded step's model ranks
+    the rank's heads, as the module docstring says (no decode state)."""
     B, S, d = x.shape
     di = cfg.ssm_expand * d
     H = cfg.num_heads
     dh = di // H
+    mp = spec.model_groups
     h = rmsnorm(x, p["norm"]["scale"])
     xz = qlinear(h, p["up"], spec)
     xi, z = torch.chunk(xz, 2, dim=-1)
+    conv_w, headnorm = p["conv_w"], p["headnorm"]
+    if mp is not None:
+        from ..distributed.collectives import gather_from_model, model_slice
+        conv_w, headnorm = model_slice(conv_w, -1, mp), model_slice(headnorm, -1, mp)
+        H = H // mp.model
     conv_out, new_conv = _causal_conv(
-        xi, p["conv_w"], None if state is None else state["conv"])
+        xi, conv_w, None if state is None else state["conv"])
     conv_out = F.silu(conv_out.to(torch.float32)).to(x.dtype)
-    q = qlinear(conv_out, p["wq"], spec).reshape(B, S, H, dh)
-    k = qlinear(conv_out, p["wk"], spec).reshape(B, S, H, dh)
-    v = qlinear(xi, p["wv"], spec).reshape(B, S, H, dh)
-    gates = (conv_out.to(torch.float32) @ p["w_gates"]["w"]
+    conv_in, v_in = conv_out, xi
+    if mp is not None:      # wq / wk / wv take the whole input
+        conv_in, v_in = gather_from_model(conv_out, -1, mp), gather_from_model(xi, -1, mp)
+    q = qlinear(conv_in, p["wq"], spec).reshape(B, S, H, dh)
+    k = qlinear(conv_in, p["wk"], spec).reshape(B, S, H, dh)
+    v = qlinear(v_in, p["wv"], spec).reshape(B, S, H, dh)
+    gates = (conv_in.to(torch.float32) @ p["w_gates"]["w"]
              + p["w_gates"]["b"])                            # (B,S,2H)
+    if mp is not None:      # the rank's heads of i and of f
+        gates = model_slice(gates, -1, mp, parts=2)
     i_pre, f_pre = torch.chunk(gates, 2, dim=-1)
     if state is None:
         y, _ = mlstm_chunked(q, k, v, i_pre, f_pre, cfg.ssm_chunk)
@@ -213,9 +242,9 @@ def mlstm_block(x, p, cfg: ModelConfig, spec: QuantSpec,
         y, (C, n, m) = mlstm_decode_step(
             (state["C"], state["n"], state["m"]), q, k, v, i_pre, f_pre)
         new_state = {"C": C, "n": n, "m": m, "conv": new_conv}
-    y = _headnorm(y, p["headnorm"])
+    y = _headnorm(y, headnorm)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    return x + qlinear(y, p["down"], spec), new_state
+    return x + qlinear(y, p["down"], spec, row_parallel=True), new_state
 
 
 def init_slstm_block(g, cfg: ModelConfig, stacked: Optional[int], device) -> dict:
@@ -238,12 +267,18 @@ def slstm_block(x, p, cfg: ModelConfig, spec: QuantSpec,
     """Scalar-memory LSTM with a per-head block-diagonal recurrence, one
     step a token: ``(x + out, new_state)``. ``state`` {'c', 'n', 'm', 'h'},
     each (B, d) f32, for decode; None starts from zeros (and returns
-    None)."""
+    None). Under a sharded step's model ranks the rank's heads."""
     B, S, d = x.shape
     H = cfg.num_heads
     dh = d // H
+    mp = spec.model_groups
+    b, r = p["b"], p["r"]
+    if mp is not None:      # the rank's heads of each gate
+        from ..distributed.collectives import model_slice
+        b, r = model_slice(b, -1, mp, parts=4), model_slice(r, 1, mp)
+        H, d = H // mp.model, d // mp.model
     hin = rmsnorm(x, p["norm"]["scale"])
-    wx = qlinear(hin, p["w_in"], spec).to(torch.float32) + p["b"]  # (B,S,4d)
+    wx = qlinear(hin, p["w_in"], spec).to(torch.float32) + b      # (B,S,4d)
     zi, zf, zz, zo = torch.chunk(wx, 4, dim=-1)
     if state is None:
         f32 = dict(dtype=torch.float32, device=x.device)
@@ -253,10 +288,14 @@ def slstm_block(x, p, cfg: ModelConfig, spec: QuantSpec,
         h = torch.zeros((B, d), **f32)
     else:
         c, n, m, h = (state[k] for k in ("c", "n", "m", "h"))
-    r = p["r"].to(torch.float32)                             # (4,H,dh,dh)
+    # the recurrent matrices laid out once as (H, dh, 4 dh) for a batched
+    # product over the heads: an einsum a step would copy (and keep for the
+    # backward) its own permuted r every token
+    rr = r.to(torch.float32).permute(1, 2, 0, 3).reshape(H, dh, 4 * dh)
     ys = []
     for t in range(S):
-        rec = torch.einsum("bhd,ghde->gbhe", h.reshape(B, H, dh), r).reshape(4, B, d)
+        rec = torch.bmm(h.reshape(B, H, dh).transpose(0, 1), rr)        # (H,B,4dh)
+        rec = rec.reshape(H, B, 4, dh).permute(2, 1, 0, 3).reshape(4, B, d)
         i_pre = zi[:, t] + rec[0]
         f_pre = zf[:, t] + rec[1]
         zt = torch.tanh(zz[:, t] + rec[2])
@@ -272,7 +311,7 @@ def slstm_block(x, p, cfg: ModelConfig, spec: QuantSpec,
         ys.append(h)
     y = torch.stack(ys, dim=1).to(x.dtype)                   # (B,S,d)
     new_state = None if state is None else {"c": c, "n": n, "m": m, "h": h}
-    return x + qlinear(y, p["down"], spec), new_state
+    return x + qlinear(y, p["down"], spec, row_parallel=True), new_state
 
 
 # ------------------------------------------------------------------ full stack
@@ -311,7 +350,8 @@ def xlstm_forward(params, cfg: ModelConfig, segments, *, tokens,
     G, per = _groups(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-    x = F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
+    groups = segments[0][2].groups
+    x = _embed(params, cfg, tokens, groups=groups)
     presliced = isinstance(params["mlstm"], (list, tuple))
     for si, (start, end, spec) in enumerate(segments):
         mseg = (params["mlstm"][si] if presliced
@@ -320,11 +360,16 @@ def xlstm_forward(params, cfg: ModelConfig, segments, *, tokens,
                 else slice_stack(params["slstm"], start, end))
         for gi in range(end - start):
             grp = start + gi
-            if states is None:      # JAX checkpoints the group's body
-                x = remat(cfg.remat, lambda h, gi=gi, mseg=mseg, sseg=sseg,
-                          spec=spec: _group(h, tree_map(lambda a: a[gi], mseg),
-                                            tree_map(lambda a: a[gi], sseg),
-                                            cfg, spec), x)
+            if states is None:      # JAX checkpoints the group's body; FSDP's
+                # take runs inside it, so it is recomputed too
+                if presliced:
+                    take = lambda gi=gi, mseg=mseg, sseg=sseg: (
+                        tree_map(lambda a: a[gi], mseg), tree_map(lambda a: a[gi], sseg))
+                else:
+                    take = lambda grp=grp: (take_layer(params["mlstm"], grp, G, groups),
+                                            take_layer(params["slstm"], grp, G, groups))
+                x = remat(cfg.remat, lambda h, take=take, spec=spec: _group(
+                    h, *take(), cfg, spec), x)
                 continue
             for li in range(per - 1):
                 lp = tree_map(lambda a: a[gi, li], mseg)
@@ -340,7 +385,7 @@ def xlstm_forward(params, cfg: ModelConfig, segments, *, tokens,
                 st[k].copy_(v)
     taps = {"hidden": x} if want_taps else None
     x = rmsnorm(x, params["final_norm"]["scale"])
-    logits = mask_padded_vocab(x @ params["lm_head"].to(x.dtype), cfg)
+    logits = lm_head_logits(x, params["lm_head"], cfg, groups)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     return ((logits, states) + ((taps,) if want_taps else ())
             + ((aux,) if want_aux else ()))

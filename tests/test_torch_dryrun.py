@@ -311,7 +311,7 @@ def test_analyze_counts_collectives_of_a_fake_group():
 
 
 # ------------------------------------------------------------ run_cell
-def test_run_cell_schema_skips_and_the_runner(tmp_path, capsys):
+def test_run_cell_schema_skips_and_the_runner(tmp_path, capsys, monkeypatch):
     out = str(tmp_path / "dry")
     ok = dryrun.run_cell("xlstm-1.3b", "long_500k", "single", out)
     assert ok["status"] == "ok" and ok["chips"] == 1
@@ -328,12 +328,20 @@ def test_run_cell_schema_skips_and_the_runner(tmp_path, capsys):
     assert ok["op_analysis"]["launches"]["int4_matmul"] == 111
     assert ok["dominant"] in ok["roofline_terms_s"]
     skips = [("stablelm-3b", "long_500k", "single", {}, "full-attention arch"),
-             ("xlstm-1.3b", "decode_32k", "multi", {}, "tp=4: no sharding rules"),
-             ("xlstm-1.3b", "train_4k", "multi", {}, "training family 'xlstm'"),
-             ("zamba2-2.7b", "train_4k", "multi", {"fsdp": True}, "later slice")]
+             ("xlstm-1.3b", "decode_32k", "multi", {}, "tp=4: no sharding rules")]
     for arch, shape, mesh, extra, why in skips:
         r = dryrun.run_cell(arch, shape, mesh, out, extra=extra)
         assert r["status"] == "skipped" and why in r["reason"], r
+    # the token-mode families' train cells over data 2 x model 2 build (cut to
+    # two groups at d 64 and 8 x 64 tokens here: the sLSTM steps token by
+    # token, and the full cells' analysis takes many minutes)
+    import repro_torch.configs as configs
+    with monkeypatch.context() as mp:
+        mp.setattr(configs, "get_config", lambda a, real=configs.get_config: reduced(real(a)))
+        mp.setitem(SHAPES, "train_4k", ShapeSpec("train_4k", 64, 8, "train"))
+        for arch, extra in (("xlstm-1.3b", {}), ("zamba2-2.7b", {"fsdp": True})):
+            r = dryrun.run_cell(arch, "train_4k", "multi", out, extra=extra)
+            assert r["status"] == "ok" and r["chips"] == 4, r
     files = sorted(p.name for p in (tmp_path / "dry").iterdir())
     assert "xlstm-1.3b__long_500k__single.json" in files and len(files) == 5
     assert json.loads((tmp_path / "dry" / files[-1]).read_text())["status"]

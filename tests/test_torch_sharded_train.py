@@ -73,8 +73,10 @@ as training does: at the scales' init of 1 no block weight gets a
 gradient, and these checks would hold only the norms, embeddings and
 scales.
 
-Refusals: the token-mode families at model 2, each by name; a dim that
-does not divide; a sharded step without its specs.
+Refusals: a dim the rules cut that does not divide (per token-mode family
+by name, each of whose reduced configs builds at model 2); a sharded step
+without its specs. The token-mode families' sharded steps are held in
+``test_torch_sharded_families.py``.
 
 The ranks import this module by name, so it imports no JAX at the top.
 """
@@ -373,13 +375,13 @@ def _residue(tree) -> set:
     return {k for k, v in flat.items() if _norm(v) < RESIDUE * whole}, whole
 
 
-def _assert_trees(got, want, tol, what):
+def _assert_trees(got, want, tol, what, allowed=RESIDUE_LEAVES):
     """Per leaf ||got - want|| / ||want|| <= tol; a residue leaf of
-    ``want`` must be residue in ``got`` too."""
+    ``want`` must be one of ``allowed`` and residue in ``got`` too."""
     got, want = _flat(got), _flat(want)
     assert sorted(got) == sorted(want), what
     residue, whole = _residue(want)
-    assert residue <= RESIDUE_LEAVES, (what, residue)
+    assert residue <= allowed, (what, residue)
     for k in want:
         assert got[k].shape == want[k].shape, (what, k)
         if k in residue:
@@ -507,15 +509,33 @@ def test_run_training_checkpoints_the_gathered_tree(runs, arrays, tmp_path):
                     arrays["stablelm"][0], "checkpointed params")
 
 
+#: per token-mode family: config edits that leave a dim the training rules
+#: cut indivisible over ``tp`` model ranks, and the dim the refusal names
+FAMILY_REFUSALS = {
+    "xlstm-1.3b": [({"num_heads": 3}, 2, "num_heads=3")],
+    "zamba2-2.7b": [({"ssm_head_dim": 64}, 4, r"ssm_expand\*d_model/ssm_head_dim=2"),
+                    ({"num_heads": 2, "num_kv_heads": 2}, 4, "num_heads=2"),
+                    ({"d_ff": 130}, 4, "d_ff=130")],
+    "seamless-m4t-medium": [({"num_kv_heads": 2}, 4, "num_kv_heads=2"),
+                            ({"d_ff": 130}, 4, "d_ff=130")]}
+
+
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-2.7b", "seamless-m4t-medium"])
 def test_token_mode_families_are_refused_over_model_ranks(arch):
+    """The token-mode families train over model ranks (each reduced config
+    builds at tp=2, and serving them at tp=2 stays refused, as JAX refuses
+    it); a training plan is refused where a dim the rules cut does not
+    divide over the model ranks, naming the dim and the arch."""
     from repro_torch.deploy.plan import _segment_units
     cfg = reduced(get_config(arch))
     pol = QuantPolicy(num_layers=_segment_units(cfg), mode="fake")
-    with pytest.raises(ValueError, match=f"training family '{cfg.family}' "
-                                         rf"\({arch}\).*later slice"):
-        ExecutionPlan.build(cfg, pol, tp=2)
-    assert ExecutionPlan.build(cfg, pol).tp == 1
+    assert ExecutionPlan.build(cfg, pol, tp=2).tp == 2
+    with pytest.raises(ValueError, match=f"no sharding rules for family '{cfg.family}'"):
+        ExecutionPlan.build(cfg, QuantPolicy(num_layers=_segment_units(cfg), mode="int"),
+                            tp=2)
+    for edit, tp, dim in FAMILY_REFUSALS[arch]:
+        with pytest.raises(ValueError, match=rf"tp={tp} does not divide {dim}: .*{arch}"):
+            ExecutionPlan.build(cfg.replace(**edit), pol, tp=tp)
 
 
 def test_dims_that_do_not_divide_and_a_step_without_specs_are_refused():

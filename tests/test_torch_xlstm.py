@@ -58,6 +58,7 @@ from repro_torch.deploy import (DeployedModel, ExecutionPlan, deploy,
 from repro_torch.models import api
 from repro_torch.models import layers as tlayers
 from repro_torch.models import xlstm as tx
+from repro_torch.core.tree import tree_map
 from repro_torch.models.layers import QuantSpec
 from repro_torch.serving import GenerationRequest, ServingEngine
 
@@ -439,3 +440,29 @@ def test_act_bits_retarget_rescales_both_stacks_as_jax(jdep):
             np.testing.assert_array_equal(mine[k], v, err_msg=k)
         assert any(not np.array_equal(mine[k], v) for k, v in
                    manager._flatten(N(jdep.params)).items() if k.endswith("s_a"))
+
+
+def _slstm_saved_bytes(cfg, p, S: int) -> int:
+    """The bytes of the distinct storages one cacheless sLSTM block keeps
+    for its backward over S tokens."""
+    seen = {}
+
+    def pack(t):
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+    x = torch.randn(2, S, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        tx.slstm_block(x, p, cfg, QuantSpec())
+    return sum(seen.values())
+
+
+def test_slstm_training_keeps_one_layout_of_the_recurrent_matrices():
+    """A training forward keeps per token step only the step's (B, d)
+    tensors: the recurrent matrices' batched layout is made once (an einsum
+    a step kept its own permuted copy of ``r``, 16.8 MB a token at
+    xlstm-1.3b's width: 34 GB for a 2048-token sLSTM layer)."""
+    cfg = reduced(get_config("xlstm-1.3b"))
+    p = tree_map(lambda t: t.requires_grad_(True), tx.init_slstm_block(
+        torch.Generator().manual_seed(0), cfg, None, "cpu"))
+    per_token = (_slstm_saved_bytes(cfg, p, 64) - _slstm_saved_bytes(cfg, p, 32)) / 32
+    assert per_token < p["r"].numel() * p["r"].element_size() / 2, per_token
